@@ -1,0 +1,530 @@
+"""Triangle-mesh I/O and geometry (host numpy) and the packed device scene.
+
+Parsing and framing happen on the host with numpy; compute-ready triangle
+data is packed into a :class:`MeshScene` of tensors, padded with degenerate
+far-away triangles to a multiple of 128 so the closest-point sweep sees
+whole tiles.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from pytorch_volumetric_tpu_torch.utils.batching import resolve_device, round_up
+
+# Padding sentinel: degenerate far-away triangle. Never wins a closest-point
+# min; contributes exactly zero solid angle to the winding number.
+PAD_COORD = 1.0e7
+
+# ---------------------------------------------------------------------------
+# Host-side mesh container
+# ---------------------------------------------------------------------------
+
+@dataclass
+class TriangleMesh:
+    """Host-side triangle mesh: float64 numpy vertices and int32 faces."""
+
+    vertices: np.ndarray  # [V, 3]
+    faces: np.ndarray     # [F, 3] int32
+
+    def __post_init__(self):
+        self.vertices = np.asarray(self.vertices, dtype=np.float64).reshape(-1, 3)
+        self.faces = np.asarray(self.faces, dtype=np.int32).reshape(-1, 3)
+
+    # -- geometry ------------------------------------------------------------
+    def transform(self, matrix: np.ndarray) -> "TriangleMesh":
+        m = np.asarray(matrix, dtype=np.float64)
+        v = self.vertices @ m[:3, :3].T + m[:3, 3]
+        return TriangleMesh(v, self.faces)
+
+    def scale(self, s: float) -> "TriangleMesh":
+        return TriangleMesh(self.vertices * float(s), self.faces)
+
+    def translate(self, t: Sequence[float]) -> "TriangleMesh":
+        return TriangleMesh(self.vertices + np.asarray(t, dtype=np.float64), self.faces)
+
+    def rotate(self, R: np.ndarray, center: Sequence[float] = (0.0, 0.0, 0.0)) -> "TriangleMesh":
+        c = np.asarray(center, dtype=np.float64)
+        v = (self.vertices - c) @ np.asarray(R, dtype=np.float64).T + c
+        return TriangleMesh(v, self.faces)
+
+    def aabb(self) -> np.ndarray:
+        """[3, 2] (min, max) per dimension."""
+        return np.stack([self.vertices.min(axis=0), self.vertices.max(axis=0)], axis=1)
+
+    def center(self) -> np.ndarray:
+        """Mean of vertices (matches open3d ``get_center`` used at sdf.py:95)."""
+        return self.vertices.mean(axis=0)
+
+    def triangles(self) -> np.ndarray:
+        """[F, 3, 3] corner coordinates."""
+        return self.vertices[self.faces]
+
+    def face_normals(self) -> np.ndarray:
+        """Unit normals per face, right-hand winding."""
+        t = self.triangles()
+        n = np.cross(t[:, 1] - t[:, 0], t[:, 2] - t[:, 0])
+        norm = np.linalg.norm(n, axis=-1, keepdims=True)
+        return n / np.maximum(norm, 1e-30)
+
+    def face_areas(self) -> np.ndarray:
+        t = self.triangles()
+        n = np.cross(t[:, 1] - t[:, 0], t[:, 2] - t[:, 0])
+        return 0.5 * np.linalg.norm(n, axis=-1)
+
+    def surface_area(self) -> float:
+        return float(self.face_areas().sum())
+
+    def sample_points_uniformly(self, number_of_points: int,
+                                rng: Optional[np.random.Generator] = None,
+                                seed: int = 0,
+                                return_normals: bool = False):
+        """Area-weighted uniform surface sampling (open3d
+        ``sample_points_uniformly`` semantics, reference sdf.py:654)."""
+        if rng is None:
+            rng = np.random.default_rng(seed)
+        areas = self.face_areas()
+        probs = areas / max(areas.sum(), 1e-30)
+        fid = rng.choice(len(probs), size=number_of_points, p=probs)
+        t = self.triangles()[fid]
+        u = rng.random((number_of_points, 1))
+        v = rng.random((number_of_points, 1))
+        flip = (u + v) > 1.0
+        u = np.where(flip, 1.0 - u, u)
+        v = np.where(flip, 1.0 - v, v)
+        pts = t[:, 0] + u * (t[:, 1] - t[:, 0]) + v * (t[:, 2] - t[:, 0])
+        if return_normals:
+            return pts, self.face_normals()[fid], fid
+        return pts
+
+    def concatenate(self, other: "TriangleMesh") -> "TriangleMesh":
+        v = np.concatenate([self.vertices, other.vertices], axis=0)
+        f = np.concatenate([self.faces, other.faces + len(self.vertices)], axis=0)
+        return TriangleMesh(v, f)
+
+    def __repr__(self):
+        return f"TriangleMesh({len(self.vertices)} vertices, {len(self.faces)} faces)"
+
+
+# ---------------------------------------------------------------------------
+# Mesh file I/O (OBJ / STL / PLY-ascii) — host side, numpy
+# ---------------------------------------------------------------------------
+
+def _parse_obj(text: str) -> TriangleMesh:
+    vertices = []
+    faces = []
+    for line in text.splitlines():
+        if line.startswith("v "):
+            parts = line.split()
+            vertices.append((float(parts[1]), float(parts[2]), float(parts[3])))
+        elif line.startswith("f "):
+            idx = []
+            for tok in line.split()[1:]:
+                i = tok.split("/")[0]
+                k = int(i)
+                idx.append(k - 1 if k > 0 else len(vertices) + k)
+            for j in range(1, len(idx) - 1):  # fan-triangulate polygons
+                faces.append((idx[0], idx[j], idx[j + 1]))
+    return TriangleMesh(np.array(vertices, dtype=np.float64),
+                        np.array(faces, dtype=np.int32))
+
+
+def _parse_stl(data: bytes) -> TriangleMesh:
+    if data[:5].lower() == b"solid" and b"facet" in data[:500]:
+        # ASCII STL
+        tris = []
+        cur = []
+        for line in data.decode("ascii", errors="ignore").splitlines():
+            line = line.strip()
+            if line.startswith("vertex"):
+                p = line.split()
+                cur.append((float(p[1]), float(p[2]), float(p[3])))
+                if len(cur) == 3:
+                    tris.append(cur)
+                    cur = []
+        tri = np.array(tris, dtype=np.float64)
+    else:
+        n = struct.unpack("<I", data[80:84])[0]
+        rec = np.frombuffer(data[84:84 + n * 50], dtype=np.uint8).reshape(n, 50)
+        tri = rec[:, 12:48].copy().view("<f4").reshape(n, 3, 3).astype(np.float64)
+    v = tri.reshape(-1, 3)
+    f = np.arange(v.shape[0], dtype=np.int32).reshape(-1, 3)
+    # triangle soup has no connectivity: weld so the winding-number sign
+    # sees a closed mesh
+    return weld_vertices(TriangleMesh(v, f), 1e-9)
+
+
+_PLY_SCALARS = {  # (struct format char, byte size)
+    "char": ("b", 1), "int8": ("b", 1), "uchar": ("B", 1), "uint8": ("B", 1),
+    "short": ("h", 2), "int16": ("h", 2), "ushort": ("H", 2), "uint16": ("H", 2),
+    "int": ("i", 4), "int32": ("i", 4), "uint": ("I", 4), "uint32": ("I", 4),
+    "float": ("f", 4), "float32": ("f", 4),
+    "double": ("d", 8), "float64": ("d", 8),
+}
+
+
+def _parse_ply(data: bytes) -> TriangleMesh:
+    """PLY in ascii or binary_little/big_endian form, tolerating extra vertex
+    properties (normals, colors) and polygonal faces (fan-triangulated)."""
+    end = data.find(b"end_header")
+    if end < 0:
+        raise ValueError("not a PLY file: missing end_header")
+    header = data[:end].decode("ascii", errors="ignore").splitlines()
+    body_start = data.find(b"\n", end) + 1
+
+    fmt = "ascii"
+    elements = []  # (name, count, [(prop_type, prop_name) | ("list", ct, it)])
+    for line in header:
+        tok = line.split()
+        if not tok:
+            continue
+        if tok[0] == "format":
+            fmt = tok[1]
+        elif tok[0] == "element":
+            elements.append((tok[1], int(tok[2]), []))
+        elif tok[0] == "property" and elements:
+            if tok[1] == "list":
+                elements[-1][2].append(("list", tok[2], tok[3], tok[-1]))
+            else:
+                elements[-1][2].append(("scalar", tok[1], tok[-1]))
+
+    verts, faces = [], []
+    if fmt == "ascii":
+        rows = data[body_start:].decode("ascii", errors="ignore").split("\n")
+        r = 0
+        for name, count, props in elements:
+            for _ in range(count):
+                parts = rows[r].split()
+                r += 1
+                if name == "vertex":
+                    xyz = {}
+                    col = 0
+                    for p in props:
+                        if p[0] == "scalar":
+                            if p[2] in ("x", "y", "z"):
+                                xyz[p[2]] = float(parts[col])
+                            col += 1
+                        else:  # list property on a vertex: consume it
+                            col += 1 + int(parts[col])
+                    verts.append((xyz["x"], xyz["y"], xyz["z"]))
+                elif name == "face":
+                    # walk the declared properties; the vertex-index list is
+                    # not necessarily first
+                    col = 0
+                    for p in props:
+                        if p[0] == "scalar":
+                            col += 1
+                        else:
+                            cnt = int(parts[col])
+                            toks = parts[col + 1:col + 1 + cnt]
+                            col += 1 + cnt
+                            # the index list has an integer item type
+                            # (texcoord lists etc. are float)
+                            if "float" not in p[2] and "double" not in p[2]:
+                                idx = [int(x) for x in toks]
+                                for k in range(1, len(idx) - 1):
+                                    faces.append((idx[0], idx[k], idx[k + 1]))
+    else:
+        endian = "<" if "little" in fmt else ">"
+        off = body_start
+        for name, count, props in elements:
+            fixed = all(p[0] == "scalar" for p in props)
+            if name == "vertex" and fixed:
+                # fast path: constant stride, read x/y/z at their offsets
+                stride = sum(_PLY_SCALARS[p[1]][1] for p in props)
+                rec = np.frombuffer(data[off:off + count * stride],
+                                    dtype=np.uint8).reshape(count, stride)
+                cols = {}
+                pos = 0
+                for p in props:
+                    ch, sz = _PLY_SCALARS[p[1]]
+                    if p[2] in ("x", "y", "z"):
+                        cols[p[2]] = rec[:, pos:pos + sz].copy().view(
+                            endian + ch).reshape(-1).astype(np.float64)
+                    pos += sz
+                verts = np.stack([cols["x"], cols["y"], cols["z"]], axis=1)
+                off += count * stride
+                continue
+            for _ in range(count):
+                row = []
+                for p in props:
+                    if p[0] == "scalar":
+                        ch, sz = _PLY_SCALARS[p[1]]
+                        row.append(struct.unpack_from(endian + ch, data, off)[0])
+                        off += sz
+                    else:  # p = ("list", count_type, item_type, name)
+                        cch, csz = _PLY_SCALARS[p[1]]
+                        cnt = int(struct.unpack_from(endian + cch, data, off)[0])
+                        off += csz
+                        ich, isz = _PLY_SCALARS[p[2]]
+                        idx = struct.unpack_from(endian + ich * cnt, data, off)
+                        off += isz * cnt
+                        row.append(list(idx))
+                if name == "vertex":
+                    by_name = {p[2]: v for p, v in zip(props, row)
+                               if p[0] == "scalar"}
+                    verts.append((float(by_name["x"]), float(by_name["y"]),
+                                  float(by_name["z"])))
+                elif name == "face":
+                    # the vertex-index list has an integer item type
+                    # (texcoord lists etc. are float)
+                    idx = next(v for p, v in zip(props, row)
+                               if p[0] == "list" and "float" not in p[2]
+                               and "double" not in p[2])
+                    for k in range(1, len(idx) - 1):
+                        faces.append((idx[0], idx[k], idx[k + 1]))
+    return TriangleMesh(np.asarray(verts, dtype=np.float64),
+                        np.array(faces, dtype=np.int32).reshape(-1, 3))
+
+
+def _drop_degenerate_faces(mesh: TriangleMesh) -> TriangleMesh:
+    """Remove faces with a repeated vertex index (zero-area slivers from
+    sloppy exporters; they contribute nothing to distance or winding but
+    their zero-length edge cross products can produce NaN normals)."""
+    f = mesh.faces
+    ok = (f[:, 0] != f[:, 1]) & (f[:, 1] != f[:, 2]) & (f[:, 0] != f[:, 2])
+    if ok.all():
+        return mesh
+    return TriangleMesh(mesh.vertices, f[ok])
+
+
+def weld_vertices(mesh: TriangleMesh, tolerance: float) -> TriangleMesh:
+    """Merge vertices within ``tolerance`` of each other (true distance-based:
+    KD-tree pair query + connected components, so near-duplicates straddling
+    any grid boundary still merge), so triangle soups (e.g. STL) present
+    closed connectivity to the winding-number sign.  Merging is transitive —
+    a chain of within-tolerance vertices collapses to its lowest-index
+    member.  ``tolerance=0`` merges exact duplicates only."""
+    v = mesh.vertices
+    if tolerance > 0:
+        from scipy.sparse import coo_matrix
+        from scipy.sparse.csgraph import connected_components
+        from scipy.spatial import cKDTree
+        # exact-duplicate dedup FIRST: triangle soups (STL) repeat each
+        # vertex once per incident face, and query_pairs is O(k^2) pairs per
+        # k-fold duplicate cluster — deduping bounds that at distinct
+        # positions only
+        uniq_v, uniq_first, uniq_inv = np.unique(
+            v, axis=0, return_index=True, return_inverse=True)
+        n = uniq_v.shape[0]
+        pairs = cKDTree(uniq_v).query_pairs(tolerance, output_type="ndarray")
+        if pairs.shape[0]:
+            adj = coo_matrix((np.ones(pairs.shape[0]),
+                              (pairs[:, 0], pairs[:, 1])), shape=(n, n))
+            _, labels = connected_components(adj, directed=False)
+        else:
+            labels = np.arange(n)
+        ncomp = int(labels.max()) + 1 if n else 0
+        # representative = lowest ORIGINAL index in each component, so the
+        # output is stable w.r.t. the input ordering
+        first = np.full(ncomp, v.shape[0], dtype=np.int64)
+        np.minimum.at(first, labels, uniq_first)
+        labels_full = labels[uniq_inv]
+        welded = TriangleMesh(v[first],
+                              labels_full[mesh.faces].astype(np.int32))
+    else:
+        _, first, inv = np.unique(v, axis=0, return_index=True,
+                                  return_inverse=True)
+        welded = TriangleMesh(v[first], inv[mesh.faces].astype(np.int32))
+    return _drop_degenerate_faces(welded)
+
+
+def read_triangle_mesh(path: str,
+                       weld_tolerance: Optional[float] = None) -> TriangleMesh:
+    """Load OBJ / STL / PLY (ascii or binary).  Replacement for
+    ``o3d.io.read_triangle_mesh`` (reference sdf.py:103).  Degenerate faces
+    (repeated vertex index) are dropped.  ``weld_tolerance`` merges vertices
+    within that distance after parsing (STL is always welded at 1e-9 since
+    its triangle soup has no connectivity)."""
+    path = os.path.expanduser(path)
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".stl":
+        with open(path, "rb") as f:
+            mesh = _parse_stl(f.read())
+    elif ext == ".ply":
+        with open(path, "rb") as f:
+            mesh = _parse_ply(f.read())
+    else:
+        with open(path, "r", errors="ignore") as f:
+            mesh = _parse_obj(f.read())
+    if mesh.vertices.shape[0] == 0 or mesh.faces.shape[0] == 0:
+        # unsupported formats fall through the OBJ parser and come out
+        # empty; fail HERE instead of far away in an AABB reduction
+        raise ValueError(
+            f"no triangle geometry parsed from {path} (unsupported mesh "
+            "format or empty mesh; supported: OBJ, STL, PLY)")
+    mesh = _drop_degenerate_faces(mesh)
+    if weld_tolerance is not None:
+        mesh = weld_vertices(mesh, weld_tolerance)
+    return mesh
+
+
+def save_obj(mesh: TriangleMesh, path: str) -> None:
+    with open(path, "w") as f:
+        for v in mesh.vertices:
+            f.write(f"v {v[0]:.9g} {v[1]:.9g} {v[2]:.9g}\n")
+        for t in mesh.faces + 1:
+            f.write(f"f {t[0]} {t[1]} {t[2]}\n")
+
+
+# ---------------------------------------------------------------------------
+# Device-side packed triangle scene
+# ---------------------------------------------------------------------------
+
+class MeshScene:
+    """Device-resident triangle data for the closest-point / winding sweep.
+
+    - ``tri``: [Fp, 3, 3] float32 triangle corners, padded with degenerate
+      far-away triangles at :data:`PAD_COORD`
+    - ``normals``: [Fp, 3] unit face normals (zeros for padding)
+    - ``num_faces``: the real face count
+    """
+
+    def __init__(self, tri: torch.Tensor, normals: torch.Tensor, num_faces: int):
+        self.tri = tri
+        self.normals = normals
+        self.num_faces = num_faces
+
+    @classmethod
+    def from_mesh(cls, mesh: TriangleMesh, pad_multiple: int = 128,
+                  device=None) -> "MeshScene":
+        t = mesh.triangles().astype(np.float32)
+        n = mesh.face_normals().astype(np.float32)
+        F = len(t)
+        Fp = max(round_up(F, pad_multiple), pad_multiple)
+        if Fp != F:
+            pad_tri = np.full((Fp - F, 3, 3), PAD_COORD, dtype=np.float32)
+            t = np.concatenate([t, pad_tri], axis=0)
+            n = np.concatenate([n, np.zeros((Fp - F, 3), dtype=np.float32)], axis=0)
+        dev = resolve_device(device)
+        return cls(torch.as_tensor(t, device=dev), torch.as_tensor(n, device=dev), F)
+
+    @property
+    def padded_faces(self) -> int:
+        return self.tri.shape[0]
+
+# Procedural primitives (test assets + user-facing mesh creation)
+# ---------------------------------------------------------------------------
+
+def box_mesh(extents: Sequence[float] = (1.0, 1.0, 1.0),
+             center: Sequence[float] = (0.0, 0.0, 0.0)) -> TriangleMesh:
+    e = np.asarray(extents, dtype=np.float64) / 2.0
+    c = np.asarray(center, dtype=np.float64)
+    corners = np.array([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)],
+                       dtype=np.float64) * e + c
+    # index layout: bit2=x, bit1=y, bit0=z; outward-facing CCW winding
+    faces = np.array([
+        [0, 1, 3], [0, 3, 2],  # -x
+        [4, 6, 7], [4, 7, 5],  # +x
+        [0, 4, 5], [0, 5, 1],  # -y
+        [2, 3, 7], [2, 7, 6],  # +y
+        [0, 2, 6], [0, 6, 4],  # -z
+        [1, 5, 7], [1, 7, 3],  # +z
+    ], dtype=np.int32)
+    return TriangleMesh(corners, faces)
+
+
+def icosphere_mesh(radius: float = 1.0, subdivisions: int = 2,
+                   center: Sequence[float] = (0.0, 0.0, 0.0)) -> TriangleMesh:
+    phi = (1.0 + np.sqrt(5.0)) / 2.0
+    v = np.array([
+        [-1, phi, 0], [1, phi, 0], [-1, -phi, 0], [1, -phi, 0],
+        [0, -1, phi], [0, 1, phi], [0, -1, -phi], [0, 1, -phi],
+        [phi, 0, -1], [phi, 0, 1], [-phi, 0, -1], [-phi, 0, 1],
+    ], dtype=np.float64)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    f = np.array([
+        [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+        [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+        [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+        [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1],
+    ], dtype=np.int64)
+    for _ in range(subdivisions):
+        edge_mid = {}
+        verts = list(v)
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in edge_mid:
+                m = verts[a] + verts[b]
+                m /= np.linalg.norm(m)
+                edge_mid[key] = len(verts)
+                verts.append(m)
+            return edge_mid[key]
+
+        new_f = []
+        for a, b, c in f:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_f += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        v = np.array(verts)
+        f = np.array(new_f, dtype=np.int64)
+    return TriangleMesh(v * radius + np.asarray(center, dtype=np.float64),
+                        f.astype(np.int32))
+
+
+def cylinder_mesh(radius: float = 0.5, height: float = 1.0, segments: int = 24,
+                  center: Sequence[float] = (0.0, 0.0, 0.0)) -> TriangleMesh:
+    ang = np.linspace(0, 2 * np.pi, segments, endpoint=False)
+    circ = np.stack([radius * np.cos(ang), radius * np.sin(ang)], axis=1)
+    bot = np.concatenate([circ, np.full((segments, 1), -height / 2)], axis=1)
+    top = np.concatenate([circ, np.full((segments, 1), height / 2)], axis=1)
+    v = np.concatenate([bot, top, [[0, 0, -height / 2]], [[0, 0, height / 2]]], axis=0)
+    bc, tc = 2 * segments, 2 * segments + 1
+    faces = []
+    for i in range(segments):
+        j = (i + 1) % segments
+        faces += [[i, j, segments + i], [j, segments + j, segments + i]]  # side
+        faces += [[bc, j, i], [tc, segments + i, segments + j]]           # caps
+    return TriangleMesh(v + np.asarray(center, dtype=np.float64),
+                        np.array(faces, dtype=np.int32))
+
+
+def capsule_mesh(radius: float = 0.25, height: float = 1.0, segments: int = 16,
+                 rings: int = 8) -> TriangleMesh:
+    """Closed capsule along z: cylinder of length ``height`` with hemispherical
+    caps. Built as a lat-long sphere split at the equator."""
+    faces = []
+    half = height / 2.0
+    vs = []
+    # near-bottom-pole to equator (lower hemisphere shifted by -half);
+    # r starts at 1: the phi = -pi/2 ring would be `segments` coincident
+    # vertices at the pole, emitting zero-area strip triangles — the pole
+    # fans below close the caps instead
+    for r in range(1, rings + 1):
+        phi = -np.pi / 2 + (np.pi / 2) * r / rings
+        z = -half + radius * np.sin(phi)
+        rr = radius * np.cos(phi)
+        ring = [(rr * np.cos(a), rr * np.sin(a), z)
+                for a in np.linspace(0, 2 * np.pi, segments, endpoint=False)]
+        vs.extend(ring)
+    # equator to near-top-pole (upper hemisphere shifted by +half)
+    for r in range(rings):
+        phi = (np.pi / 2) * r / rings
+        z = half + radius * np.sin(phi)
+        rr = radius * np.cos(phi)
+        ring = [(rr * np.cos(a), rr * np.sin(a), z)
+                for a in np.linspace(0, 2 * np.pi, segments, endpoint=False)]
+        vs.extend(ring)
+    n_rings = 2 * rings
+    for r in range(n_rings - 1):
+        for i in range(segments):
+            j = (i + 1) % segments
+            a, b = r * segments + i, r * segments + j
+            c, d = (r + 1) * segments + i, (r + 1) * segments + j
+            faces += [[a, b, d], [a, d, c]]
+    v = np.array(vs, dtype=np.float64)
+    # close the poles with fans
+    v = np.concatenate([v, [[0, 0, -half - radius], [0, 0, half + radius]]], axis=0)
+    bp, tp = len(v) - 2, len(v) - 1
+    for i in range(segments):
+        j = (i + 1) % segments
+        faces.append([bp, j, i])
+        top_row = (n_rings - 1) * segments
+        faces.append([tp, top_row + i, top_row + j])
+    return TriangleMesh(v, np.array(faces, dtype=np.int32))

@@ -1,0 +1,158 @@
+"""Voxel grids with value-space indexing.
+
+A :class:`GridView` maps points to nearest-voxel indices by the affine
+``idx = round((x - lo) / res)`` per dimension, with a raveled gather and an
+out-of-range fallback (a scalar, or a callable evaluated on the points).
+:class:`VoxelGrid` is a dense grid with an ``invalid_val = 0`` sentinel.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Union
+
+import numpy as np
+import torch
+
+from pytorch_volumetric_tpu_torch.utils.batching import (
+    as_float_tensor, resolve_device)
+
+
+def get_divisible_range_by_resolution(resolution: float, range_per_dim):
+    """Snap each (lo, hi) so the span is an integer multiple of resolution."""
+    out = []
+    for low, high in np.asarray(range_per_dim):
+        span = round(float(high - low) / resolution)
+        out.append((float(low), float(low) + span * resolution))
+    return out
+
+
+def get_coordinates_and_points_in_grid(resolution: float, range_per_dim,
+                                       dtype=torch.float32, device=None,
+                                       get_points: bool = True):
+    """Per-dim coordinates (inclusive upper bound) and the cartesian-product
+    point list ``[N, d]``.  Coordinates come from ``np.arange`` in float32,
+    the same values the JAX package builds."""
+    dev = resolve_device(device)
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    coords = [torch.as_tensor(np.arange(low, high + 0.9 * resolution, resolution,
+                                        dtype=np_dtype), device=dev)
+              for low, high in np.asarray(range_per_dim)]
+    pts = None
+    if get_points:
+        grid = torch.meshgrid(*coords, indexing="ij")
+        pts = torch.stack(grid, dim=-1).reshape(-1, len(coords))
+    return coords, pts
+
+
+class GridView:
+    """A dense tensor viewed through value-space coordinates."""
+
+    def __init__(self, data: torch.Tensor, range_per_dim,
+                 invalid_value: Union[float, Callable] = 0.0):
+        self.raw_data = data
+        rng = np.asarray(range_per_dim, dtype=np.float64)
+        self.range_per_dim = rng
+        self.shape = tuple(data.shape)
+        d = len(self.shape)
+        self.lo = rng[:, 0]
+        # a degenerate dimension (single coordinate) gets res 1.0 instead of 0
+        self.res = np.array([
+            ((rng[i, 1] - rng[i, 0]) / max(self.shape[i] - 1, 1))
+            or 1.0 for i in range(d)])
+        self.invalid_value = invalid_value
+        self._strides = np.array(
+            [int(np.prod(self.shape[i + 1:], dtype=np.int64)) for i in range(d)])
+
+    @property
+    def device(self) -> torch.device:
+        return self.raw_data.device
+
+    def _n(self) -> torch.Tensor:
+        return torch.tensor(self.shape, dtype=torch.int64, device=self.device)
+
+    # -- key conversions ------------------------------------------------------
+    def ensure_index_key(self, pts) -> torch.Tensor:
+        pts = as_float_tensor(pts, self.device)
+        lo = torch.as_tensor(self.lo, dtype=pts.dtype, device=pts.device)
+        res = torch.as_tensor(self.res, dtype=pts.dtype, device=pts.device)
+        return torch.round((pts - lo) / res).to(torch.int64)
+
+    def ensure_value_key(self, indices) -> torch.Tensor:
+        idx = torch.as_tensor(indices, device=self.device)
+        lo = torch.as_tensor(self.lo, dtype=torch.float32, device=self.device)
+        res = torch.as_tensor(self.res, dtype=torch.float32, device=self.device)
+        return lo + idx.to(torch.float32) * res
+
+    def ravel_multi_index(self, keys: torch.Tensor) -> torch.Tensor:
+        strides = torch.as_tensor(self._strides, dtype=torch.int64, device=keys.device)
+        return (keys * strides).sum(dim=-1)
+
+    def get_valid_values(self, pts) -> torch.Tensor:
+        """In-range mask by nearest-index membership."""
+        keys = self.ensure_index_key(pts)
+        return ((keys >= 0) & (keys < self._n())).all(dim=-1)
+
+    # -- access ---------------------------------------------------------------
+    def __getitem__(self, pts) -> torch.Tensor:
+        pts = as_float_tensor(pts, self.device)
+        keys = self.ensure_index_key(pts)
+        n = self._n()
+        valid = ((keys >= 0) & (keys < n)).all(dim=-1)
+        flat = self.ravel_multi_index(torch.minimum(keys.clamp(min=0), n - 1))
+        vals = self.raw_data.reshape(-1)[flat]
+        if callable(self.invalid_value):
+            fallback = torch.as_tensor(self.invalid_value(pts)).reshape(
+                vals.shape).to(vals.dtype)
+        else:
+            fallback = torch.full_like(vals, self.invalid_value)
+        return torch.where(valid, vals, fallback)
+
+    def __setitem__(self, pts, value) -> None:
+        pts = as_float_tensor(pts, self.device)
+        keys = self.ensure_index_key(pts)
+        valid = ((keys >= 0) & (keys < self._n())).all(dim=-1)
+        value = torch.as_tensor(value, dtype=self.raw_data.dtype,
+                                device=self.device).expand(keys.shape[:-1])
+        flat = self.ravel_multi_index(keys[valid])
+        data = self.raw_data.reshape(-1).clone()
+        data[flat] = value[valid]
+        self.raw_data = data.reshape(self.shape)
+
+
+class VoxelGrid:
+    """Dense grid with an ``invalid_val = 0`` "unknown" sentinel."""
+
+    def __init__(self, resolution: float, range_per_dim, dtype=torch.float32,
+                 device=None):
+        self.resolution = float(resolution)
+        self.invalid_val = 0
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self._create_voxels(self.resolution, range_per_dim)
+
+    def _create_voxels(self, resolution, range_per_dim):
+        self.range_per_dim = get_divisible_range_by_resolution(resolution, range_per_dim)
+        self.coords, self.pts = get_coordinates_and_points_in_grid(
+            resolution, self.range_per_dim, device=self.device)
+        shape = [len(c) for c in self.coords]
+        self.voxels = GridView(torch.zeros(shape, dtype=self.dtype, device=self.device),
+                               self.range_per_dim, invalid_value=self.invalid_val)
+        self.range_per_dim = np.array(self.range_per_dim)
+
+    def get_known_pos_and_values(self):
+        data = self.voxels.raw_data
+        known = data != self.invalid_val
+        indices = torch.nonzero(known)
+        return self.voxels.ensure_value_key(indices), data[known]
+
+    def get_voxel_values(self) -> torch.Tensor:
+        return self.voxels.raw_data
+
+    def get_voxel_center_points(self) -> torch.Tensor:
+        return self.pts
+
+    def __getitem__(self, pts):
+        return self.voxels[pts]
+
+    def __setitem__(self, pts, value):
+        self.voxels[pts] = value

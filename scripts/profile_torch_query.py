@@ -1,0 +1,90 @@
+#!/usr/bin/env python3
+"""Where the time goes in the port's robot queries on one GPU.
+
+    python3 scripts/profile_torch_query.py [--out DIR]
+
+Builds the headline robot (7-DOF ``make_serial_arm``) twice, with cached
+links (``cache_link_sdf_factory(0.02, 1.0)``) and with exact ``MeshSDF``
+links, and traces one forward and one forward+backward (``d(v.sum() +
+g.sum())/dq``) of ``RobotSDF.query`` over 200 configurations x 15,251
+points with ``torch.profiler``.  Prints, per run, the wall time, the summed
+device-kernel time and the device's idle share of the window, and the
+kernels with the most device time; with ``--out DIR``, writes Chrome
+traces there.
+"""
+
+import argparse
+import os
+import sys
+import tempfile
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402  (the headline inputs and objective)
+import pytorch_volumetric_tpu_torch as pt  # noqa: E402
+from pytorch_volumetric_tpu_torch.utils.robots import make_serial_arm  # noqa: E402
+
+
+def trace(name, fn, out_dir, top=12):
+    fn()  # warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only: the operator events repeat their kernels' time
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    kernel_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"== {name}: wall {wall_ms:.3f} ms, device kernels {kernel_ms:.3f} ms, "
+          f"device idle {max(0.0, 1 - kernel_ms / wall_ms) * 100:.1f}% of the window")
+    events.sort(key=lambda e: -e.self_device_time_total)
+    for e in events[:top]:
+        print(f"   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+    if out_dir:
+        prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None, help="directory for Chrome traces")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+    device = torch.device("cuda")
+    q, pts = chip_smoke.headline_inputs(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        arm = os.path.join(tmp, "arm")
+        urdf, end = make_serial_arm(arm, num_joints=7)
+        text = open(urdf).read()
+        robots = {
+            "cached": pt.RobotSDF(
+                pt.build_serial_chain_from_urdf(text, end, device=device), path_prefix=arm,
+                link_sdf_cls=pt.cache_link_sdf_factory(
+                    resolution=0.02, padding=1.0,
+                    cache_path=os.path.join(tmp, "sdf_cache.npz"))),
+            "exact": pt.RobotSDF(
+                pt.build_serial_chain_from_urdf(text, end, device=device), path_prefix=arm),
+        }
+        for name, robot in robots.items():
+            def fwd(robot=robot):
+                with torch.no_grad():
+                    robot.query(q, pts)
+
+            def fwd_bwd(robot=robot):
+                chip_smoke.query_objective_grad(robot, q, pts)
+
+            trace(f"{name}_forward", fwd, args.out)
+            trace(f"{name}_forward_backward", fwd_bwd, args.out)
+
+
+if __name__ == "__main__":
+    main()
