@@ -18,7 +18,18 @@ Phases, each fatal on failure:
 4. the headline cached-link robot (``cache_link_sdf_factory(0.02, 1.0)``):
    cache build, then 200 x 15,251 value+gradient queries and their gradient
    w.r.t. the joint angles, checked against the CPU path on the same tables;
-5. one JSON line with every kernel's launches and times, then the result
+5. chamfer metrics: ``PlausibleDiversity`` on a 16,384-face torus with
+   32 estimated x 128 plausible poses x 500 model points (2.05 M point
+   queries), once exact (the sweep kernel on every query) and once through a
+   ``CachedSDF`` the kernel builds, each checked on a 4 x 4-pose subset
+   against the plain sweep on the card;
+6. the sweep's roofline probe (``bench/sweep_roofline.py``): the FP32
+   multiply-add probe, the sweep without winding and the tensor-core sweep,
+   each checked against its plain version on the card, then timed beside
+   the sweep on the torus and at the capsule's cache-build grid;
+7. the headline arm written as MJCF (mesh geoms on the same OBJ files):
+   its 200 x 15,251 exact query must equal the URDF arm's;
+8. one JSON line with every kernel's launches and times, then the result
    line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
@@ -349,6 +360,265 @@ def phase_cached_robot(device, arm_dir, cache_dir, card, n_configs=N_CONFIGS,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5: chamfer metrics
+# ---------------------------------------------------------------------------
+
+def random_poses(rng, n, rot_sigma, trans_sigma):
+    """``n`` rigid transforms [n, 4, 4]: Rodrigues rotations of normal
+    axis-angle vectors (``rot_sigma`` rad) and normal translations."""
+    rv = rng.normal(0.0, rot_sigma, (n, 3))
+    ang = np.linalg.norm(rv, axis=1)
+    u = rv / np.maximum(ang, 1e-12)[:, None]
+    K = np.zeros((n, 3, 3))
+    K[:, 0, 1], K[:, 0, 2], K[:, 1, 2] = -u[:, 2], u[:, 1], -u[:, 0]
+    K = K - K.transpose(0, 2, 1)
+    s, c = np.sin(ang)[:, None, None], np.cos(ang)[:, None, None]
+    m = np.tile(np.eye(4), (n, 1, 1))
+    m[:, :3, :3] = np.eye(3) + s * K + (1 - c) * (K @ K)
+    m[:, :3, 3] = rng.normal(0.0, trans_sigma, (n, 3))
+    return m
+
+
+def chamfer_poses(device, n_est, n_plausible):
+    """A ground-truth pose, plausible and estimated poses perturbed from it
+    (0.05 rad, 1 cm), returned as ``(T_est_inv, T_p)`` float32 tensors."""
+    rng = np.random.default_rng(0)
+    gt = random_poses(rng, 1, 1.0, 0.1)
+    T_p = gt @ random_poses(rng, n_plausible, 0.05, 0.01)
+    T_est = gt @ random_poses(rng, n_est, 0.05, 0.01)
+    return (torch.as_tensor(np.linalg.inv(T_est).astype(np.float32), device=device),
+            torch.as_tensor(T_p.astype(np.float32), device=device))
+
+
+def chamfer_subset_err(errors, ref):
+    """Max relative error of a pairwise chamfer matrix's leading block."""
+    k0, k1 = ref.shape
+    return ((errors[:k0, :k1] - ref).abs() / ref.abs().clamp(min=1e-12)).max().item()
+
+
+def phase_chamfer(device, tmp, card, n_est=32, n_plausible=128, n_points=500,
+                  resolution=0.01, padding=0.06, reps=2, n_check=4):
+    import pytorch_volumetric_tpu_torch as pt
+    from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
+
+    path = os.path.join(tmp, "torus.obj")
+    pt.mesh.save_obj(pt.mesh.torus_mesh(0.1, 0.03, 128, 64), path)
+    factory = pt.MeshObjectFactory(path, device=device)
+    pts, _, _ = pt.sample_mesh_points(factory, num_points=n_points, name=factory.name,
+                                      dbpath=os.path.join(tmp, "model_points.npz"))
+    T_est_inv, T_p = chamfer_poses(device, n_est, n_plausible)
+    n_queries = n_est * n_plausible * n_points
+
+    def evaluate(pd):
+        errors = pd.compute_tf_pairwise_error_per_batch(T_est_inv, T_p)
+        return errors, pd.do_evaluate_plausible_diversity_on_pairwise_chamfer_dist(errors)
+
+    # exact: every model point of every pose pair through the sweep kernel
+    mesh_closest_query_cuda.launches = 0
+    t0 = time.perf_counter()
+    pd = pt.PlausibleDiversity(factory, model_points_eval=pts)
+    errors, ret = evaluate(pd)
+    sync(device)
+    first_s = time.perf_counter() - t0
+    exact_launches = mesh_closest_query_cuda.launches
+    check(errors.shape == (n_est, n_plausible), "chamfer: error matrix shape")
+    check(bool(torch.isfinite(errors).all() and (errors >= 0).all()),
+          "chamfer: non-finite or negative errors")
+    exact_ms = time_ms(lambda: evaluate(pd), device, reps=reps, warmup=0)
+
+    # cached: a CachedSDF the kernel builds, then nearest-voxel lookups
+    mesh_closest_query_cuda.launches = 0
+    t0 = time.perf_counter()
+    obj_sdf = pt.CachedSDF(factory.name, resolution, factory.bounding_box(padding=padding),
+                           pt.MeshSDF(factory), cache_path=os.path.join(tmp, "chamfer.npz"))
+    sync(device)
+    build_s = time.perf_counter() - t0
+    pdc = pt.PlausibleDiversity(factory, model_points_eval=pts, obj_sdf=obj_sdf)
+    errors_c, ret_c = evaluate(pdc)
+    sync(device)
+    cached_launches = mesh_closest_query_cuda.launches
+    check(bool(torch.isfinite(errors_c).all()), "chamfer (cached): non-finite errors")
+    cached_ms = time_ms(lambda: evaluate(pdc), device, reps=reps, warmup=0)
+
+    # the plain sweep on the card, on a 4 x 4-pose subset: exact directly,
+    # cached through a table the plain sweep builds
+    plain = pt.PlausibleDiversity(factory, model_points_eval=pts,
+                                  obj_sdf=pt.MeshSDF(factory, backend="torch"))
+    ref = plain.compute_tf_pairwise_error_per_batch(T_est_inv[:n_check], T_p[:n_check])
+    err_exact = chamfer_subset_err(errors, ref)
+    ref_sdf = pt.CachedSDF(factory.name, resolution, factory.bounding_box(padding=padding),
+                           pt.MeshSDF(factory, backend="torch"),
+                           cache_path=os.path.join(tmp, "chamfer_plain.npz"))
+    table_err = (obj_sdf.voxels.raw_data - ref_sdf.voxels.raw_data).abs().max().item()
+    ref_c = pt.PlausibleDiversity(factory, model_points_eval=pts, obj_sdf=ref_sdf) \
+        .compute_tf_pairwise_error_per_batch(T_est_inv[:n_check], T_p[:n_check])
+    err_cached = chamfer_subset_err(errors_c, ref_c)
+    log(f"  vs plain sweep ({n_check} x {n_check} poses): exact rel err {err_exact:.3g}, "
+        f"cached rel err {err_cached:.3g} (cache table |err| {table_err:.3g})")
+    check(err_exact <= 1e-5, "chamfer (exact): beyond 1e-5 relative of the plain sweep")
+    check(err_cached <= 1e-5, "chamfer (cached): beyond 1e-5 relative of the plain sweep")
+    log(f"  PlausibleDiversity {n_est} x {n_plausible} poses x {n_points} points "
+        f"({n_queries} queries x {factory.scene.num_faces} faces): exact {exact_ms:.2f} ms "
+        f"(first call {first_s * 1e3:.1f} ms), plausibility {ret.plausibility.item():.6g}, "
+        f"coverage {ret.coverage.item():.6g}; cached: build {build_s:.3f} s "
+        f"(grid {tuple(obj_sdf.voxels.shape)}), query {cached_ms:.3f} ms, "
+        f"plausibility {ret_c.plausibility.item():.6g} [{card}]; kernel launches: "
+        f"exact {exact_launches}, cached {cached_launches}")
+    return exact_launches, cached_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the roofline probe's kernels
+# ---------------------------------------------------------------------------
+
+def compare_variant(name, wrapper, plain, pts, tri, device, winding):
+    """One launch of a probe kernel against its plain version; returns its
+    errors (closest point against the plain closest point on the chosen
+    face, see ``sweep_roofline.sweep_errors``)."""
+    from pytorch_volumetric_tpu_torch.bench import sweep_roofline as sr
+    before = wrapper.launches
+    out = wrapper(pts, tri)
+    sync(device)
+    if device.type == "cuda":
+        check(wrapper.launches == before + 1, f"{name}: no launch")
+    check(bool(torch.isfinite(out[0]).all() and torch.isfinite(out[1]).all()
+               and torch.isfinite(out[3]).all()), f"{name}: non-finite output")
+    err = sr.sweep_errors(out, plain(pts, tri), pts, tri)
+    log(f"    P={pts.shape[0]} F={tri.shape[0]}: |d| {err['dist']:.3g}, "
+        f"|closest| {err['closest']:.3g} (vs plain's own closest point "
+        f"{err['closest_raw']:.3g}), face-contract {err['face']:.3g}"
+        + (f", |wind| {err['winding']:.3g} (off the surface; {err['on_surface']} points "
+           f"within {sr.WIND_MIN_DIST:g} of it)" if winding else ""))
+    check(sr.check_sweep("base" if winding else "nowind", err),
+          f"{name}: beyond its gates against the plain version")
+    return err
+
+
+def phase_probe(device, card, points=1 << 17, reps=5, fma_iters=4096,
+                grid_resolution=0.02, far_points=100_000, fma_n=None):
+    import pytorch_volumetric_tpu_torch as pt
+    from pytorch_volumetric_tpu_torch.bench import sweep_roofline as sr
+    from pytorch_volumetric_tpu_torch.ops.closest_point import (
+        mesh_closest_query_contracted_cuda, mesh_closest_query_cuda,
+        mesh_closest_query_mma_cuda, mesh_closest_query_nowind_cuda)
+    from pytorch_volumetric_tpu_torch.ops.fma_probe import fma_probe, fma_probe_cuda
+
+    m = pt.mesh
+    rng = np.random.default_rng(1)
+
+    def rand_pts(n, lo, hi):
+        return torch.as_tensor(rng.uniform(lo, hi, (n, 3)).astype(np.float32), device=device)
+
+    scene = m.MeshScene.from_mesh(m.icosphere_mesh(0.3, 2).concatenate(
+        m.box_mesh((0.2, 0.3, 0.1), center=(0.4, 0.0, 0.0))), device=device)
+    cap_mesh = m.capsule_mesh(radius=0.045, height=0.18, segments=14, rings=5)
+    cap = m.MeshScene.from_mesh(cap_mesh, device=device)
+    bb = cap_mesh.aabb()
+    cases = [("icosphere+box", rand_pts(1000, -0.6, 0.8), scene.tri)]
+    cases += [(f"ragged P={P}", rand_pts(P, -0.5, 0.5), scene.tri) for P in (1, 7, 129, 257)]
+    cases += [("box, F=12", rand_pts(300, -0.8, 0.8), torch.as_tensor(
+                  m.box_mesh((0.4, 0.6, 0.8)).triangles().astype(np.float32), device=device)),
+              ("single triangle", rand_pts(300, -0.5, 0.5),
+               torch.tensor([[[0.0, 0, 0], [0.3, 0, 0], [0, 0.2, 0.1]]], device=device)),
+              ("on-surface points", torch.as_tensor(m.icosphere_mesh(0.3, 2)
+               .sample_points_uniformly(500, seed=1).astype(np.float32), device=device),
+               scene.tri),
+              ("capsule, points to 1 m away", torch.as_tensor(rng.uniform(
+                  bb[:, 0] - 1.0, bb[:, 1] + 1.0, (far_points, 3)).astype(np.float32),
+                  device=device), cap.tri)]
+    errs = {"nowind": 0.0, "mxu": 0.0, "mxu_wind": 0.0}
+    for label, wrapper, plain, winding in (
+            ("nowind", mesh_closest_query_nowind_cuda, sr.SWEEPS["nowind"][1], False),
+            ("mxu", mesh_closest_query_mma_cuda, sr.SWEEPS["mxu"][1], True)):
+        log(f"  {label} vs its plain version:")
+        for case, pts, tri in cases:
+            log(f"   {case}")
+            e = compare_variant(label, wrapper, plain, pts, tri, device, winding)
+            errs[label] = max(errs[label], e["dist"], e["closest"])
+            if winding:
+                errs["mxu_wind"] = max(errs["mxu_wind"], e["winding"])
+    x, y = rand_pts(3000, 0.5, 0.9)[:, 0].contiguous(), rand_pts(3000, 0.01, 0.1)[:, 0].contiguous()
+    before = fma_probe_cuda.launches
+    out = fma_probe_cuda(x, y, 64)
+    sync(device)
+    if device.type == "cuda":
+        check(fma_probe_cuda.launches == before + 1, "fma_probe: no launch")
+    ref = fma_probe(x, y, 64)
+    rel = ((out - ref).abs() / ref.abs()).max().item()
+    log(f"  fma_probe vs plain (n=3000, 64 iterations): rel err {rel:.3g}")
+    check(rel <= sr.GATE_FMA_RTOL, "fma_probe: beyond rtol 1e-5 of the plain version")
+
+    # the probe's own run: the launches counted for these kernels
+    wrappers = (mesh_closest_query_cuda, mesh_closest_query_nowind_cuda,
+                mesh_closest_query_mma_cuda, mesh_closest_query_contracted_cuda,
+                fma_probe_cuda)
+    for w in wrappers:
+        w.launches = 0
+    fma = sr.measure_fma(device, fma_iters, reps=10, plain_reps=1, n=fma_n)
+    ceiling = fma["tflops"] * 1e12
+    torus_pts, torus = sr.torus_inputs(device, points)
+    on_torus = sr.time_sweeps(torus_pts, torus, reps=reps, fp32_ceiling=ceiling)
+    grid, cap = sr.capsule_cache_grid(device, grid_resolution)
+    on_grid = sr.time_sweeps(grid, cap, reps=reps, plain_reps=1, fp32_ceiling=ceiling)
+    launches = {w.__name__: w.launches for w in wrappers}
+    log(f"  launches in the probe run: {launches}")
+    check(fma["ok"], "fma_probe: probe run beyond rtol 1e-5 of the plain version")
+    log(f"  FP32 ceiling (fma_probe, {fma['n']} threads x {fma['iters']} x 32 FMAs): "
+        f"{fma['tflops']:.3f} TFLOP/s in {fma['ms']:.4f} ms (bound {fma['bound_ms']:.4f} ms, "
+        f"plain {fma['plain_ms']:.2f} ms, max rel err {fma['max_rel_err']:.3g}) [{card}]")
+    for cell, res, P, F in (("torus", on_torus, torus_pts.shape[0], torus.num_faces),
+                            ("capsule grid", on_grid, grid.shape[0], cap.num_faces)):
+        log(f"  {cell} (P={P} x F={F} real faces), 110-op model:")
+        for name, r in res.items():
+            e = r["errors"]
+            log(f"    {name:9s} {r['ms']:9.3f} ms  {r['gpairs_s']:8.3f} G pairs/s  "
+                f"{r['tflops_model']:6.3f} TFLOP/s = {100 * r['share_of_datasheet_peak']:.2f}% "
+                f"of 67 TFLOP/s, {100 * r['share_of_measured_ceiling']:.2f}% of the measured "
+                f"ceiling; bound {r['bound_ms']:.3f} ms"
+                + (f"; plain {r['plain_ms']:.1f} ms" if "plain_ms" in r else "")
+                + f"; errors |d| {e['dist']:.3g} |closest| {e['closest']:.3g} "
+                f"face {e['face']:.3g} |wind| {e['winding']:.3g}")
+            if r["gated"]:
+                check(r["ok"], f"{name} on the {cell}: beyond its gates")
+    return {"launches": launches, "fma": fma, "grid": on_grid, "errs": errs}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the arm as MJCF
+# ---------------------------------------------------------------------------
+
+def phase_mjcf(device, arm_dir, card, n_configs=N_CONFIGS, query_res=QUERY_RES, reps=3):
+    import pytorch_volumetric_tpu_torch as pt
+    from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
+    from pytorch_volumetric_tpu_torch.utils.robots import serial_arm_mjcf
+
+    q, pts = headline_inputs(device, n_configs, query_res)
+    mesh_closest_query_cuda.launches = 0
+    robot = pt.RobotSDF(pt.build_serial_chain_from_mjcf(serial_arm_mjcf(), "link7",
+                                                        device=device),
+                        path_prefix=arm_dir)
+    v, g, dq = query_objective_grad(robot, q, pts)
+    sync(device)
+    launches = mesh_closest_query_cuda.launches
+    urdf = pt.RobotSDF(pt.build_serial_chain_from_urdf(
+        open(os.path.join(arm_dir, "arm.urdf")).read(), "link7", device=device),
+        path_prefix=arm_dir)
+    check(robot.joint_names == urdf.joint_names, "MJCF robot: joint names differ")
+    vu, gu, dqu = query_objective_grad(urdf, q, pts)
+    err_v = (v - vu).abs().max().item()
+    err_g = (g - gu).abs().max().item()
+    err_dq = ((dq - dqu).abs() / dqu.abs().clamp(min=1.0)).max().item()
+    log(f"  MJCF vs URDF arm ({q.shape[0]} x {pts.shape[0]}): |val| err {err_v:.3g}, "
+        f"|grad| err {err_g:.3g}, d/dq rel err {err_dq:.3g}")
+    check(err_v <= 1e-5 and err_g <= 1e-5, "MJCF robot: beyond 1e-5 of the URDF robot")
+    check(err_dq <= 1e-5, "MJCF robot: d/dq beyond 1e-5 (relative) of the URDF robot")
+    fwd_ms, fb_ms = time_robot(robot, q, pts, device, reps)
+    log(f"  MJCF exact-link robot: forward {fwd_ms:.2f} ms, forward+backward {fb_ms:.2f} ms "
+        f"[{card}]; kernel launches on the path: {launches}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs one CUDA device")
@@ -388,17 +658,45 @@ def main():
         log("== phase 4: headline cached-link robot")
         cached_launches = phase_cached_robot(device, arm_dir, tmp, card)
         check(cached_launches > 0, "cached robot path launched no kernel")
+        log("== phase 5: chamfer metrics")
+        chamfer_launches = phase_chamfer(device, tmp, card)
+        check(min(chamfer_launches) > 0, "a chamfer run launched no kernel")
+        log("== phase 6: roofline probe kernels vs plain versions")
+        probe = phase_probe(device, card)
+        for name, n in probe["launches"].items():
+            check(n > 0, f"the probe run launched no {name}")
+        log("== phase 7: the arm as MJCF")
+        mjcf_launches = phase_mjcf(device, arm_dir, card)
+        check(mjcf_launches > 0, "MJCF robot path launched no kernel")
 
-    log("== phase 5: kernels")
-    log(f"  launches: exact-link path {exact_launches}, cached-link path {cached_launches}; "
+    log("== phase 8: kernels")
+    log(f"  closest_point_sweep launches: exact-link path {exact_launches}, cached-link "
+        f"path {cached_launches}, chamfer exact/cached {chamfer_launches}, MJCF arm {mjcf_launches}; "
         f"total {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": [{
-        "name": "closest_point_sweep", "route": "cuda",
-        "source": "pytorch_volumetric_tpu_torch/csrc/closest_point.cu",
-        "replaces": "pytorch_volumetric_tpu/ops/pallas/closest_point.py:62",
-        "launches": cached_launches, "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"], "library_ms": None}]}))
+    grid = probe["grid"]
+
+    def probe_row(name, source, replaces, wrapper, r, err):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": probe["launches"][wrapper], "max_abs_err": err,
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None}
+
+    csrc = "pytorch_volumetric_tpu_torch/csrc/"
+    log(json.dumps({"kernels": [
+        {"name": "closest_point_sweep", "route": "cuda", "source": csrc + "closest_point.cu",
+         "replaces": "pytorch_volumetric_tpu/ops/pallas/closest_point.py:62",
+         "launches": cached_launches, "max_abs_err": k1["max_abs_err"],
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": k1["bound_by"], "library_ms": None},
+        probe_row("closest_point_sweep_nowind", csrc + "closest_point.cu",
+                  "benchmarks/pallas_mxu_ab.py:48", "mesh_closest_query_nowind_cuda",
+                  grid["nowind"], probe["errs"]["nowind"]),
+        probe_row("closest_point_sweep_mma", csrc + "closest_point_mma.cu",
+                  "benchmarks/pallas_mxu_ab.py:48", "mesh_closest_query_mma_cuda",
+                  grid["mxu"], probe["errs"]["mxu"]),
+        probe_row("fma_probe", csrc + "fma_probe.cu", "benchmarks/pallas_mfu.py:65",
+                  "fma_probe_cuda", probe["fma"], probe["fma"]["max_abs_err"]),
+    ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -29,6 +29,13 @@
 // -fmad=false, so on the card the kernel reproduces the plain version's
 // squared distances, closest points and face ids bit for bit; only the
 // winding sum differs, by summation order.
+//
+// The body is a template on kWinding.  kWinding=true is the sweep above;
+// kWinding=false is the same closest-point arithmetic without the solid
+// angle (the no-winding variant of benchmarks/pallas_mxu_ab.py ::
+// sweep_kernel, mode "nowind"), which the roofline probe times against it
+// to measure the winding's share.  The probe also builds this source with
+// contraction on (-fmad=true) to measure what -fmad=false costs.
 
 #include <cuda_runtime.h>
 
@@ -41,6 +48,7 @@ __device__ __forceinline__ float safe_div(float num, float den) {
   return num / (fabsf(den) < 1e-30f ? 1e-30f : den);
 }
 
+template <bool kWinding>
 __global__ void __launch_bounds__(kThreads)
 closest_point_sweep_kernel(const float* __restrict__ pts, int num_points,
                            const float* __restrict__ tri, int num_tri,
@@ -134,20 +142,22 @@ closest_point_sweep_kernel(const float* __restrict__ pts, int num_points,
       const float dist2 = dx * dx + dy * dy + dz * dz;
 
       // ---- solid angle (van Oosterom & Strackee) ----
-      const float a0 = ax - px, a1 = ay - py, a2 = az - pz;
-      const float b0 = bx - px, b1 = by - py, b2 = bz - pz;
-      const float c0 = cx - px, c1 = cy - py, c2 = cz - pz;
-      const float la = sqrtf(a0 * a0 + a1 * a1 + a2 * a2);
-      const float lb = sqrtf(b0 * b0 + b1 * b1 + b2 * b2);
-      const float lc = sqrtf(c0 * c0 + c1 * c1 + c2 * c2);
-      const float x0 = b1 * c2 - b2 * c1;
-      const float x1 = b2 * c0 - b0 * c2;
-      const float x2 = b0 * c1 - b1 * c0;
-      const float num = a0 * x0 + a1 * x1 + a2 * x2;
-      const float den = la * lb * lc + (a0 * b0 + a1 * b1 + a2 * b2) * lc
-                        + (b0 * c0 + b1 * c1 + b2 * c2) * la
-                        + (c0 * a0 + c1 * a1 + c2 * a2) * lb;
-      wind += 2.f * atan2f(num, den);
+      if constexpr (kWinding) {
+        const float a0 = ax - px, a1 = ay - py, a2 = az - pz;
+        const float b0 = bx - px, b1 = by - py, b2 = bz - pz;
+        const float c0 = cx - px, c1 = cy - py, c2 = cz - pz;
+        const float la = sqrtf(a0 * a0 + a1 * a1 + a2 * a2);
+        const float lb = sqrtf(b0 * b0 + b1 * b1 + b2 * b2);
+        const float lc = sqrtf(c0 * c0 + c1 * c1 + c2 * c2);
+        const float x0 = b1 * c2 - b2 * c1;
+        const float x1 = b2 * c0 - b0 * c2;
+        const float x2 = b0 * c1 - b1 * c0;
+        const float num = a0 * x0 + a1 * x1 + a2 * x2;
+        const float den = la * lb * lc + (a0 * b0 + a1 * b1 + a2 * b2) * lc
+                          + (b0 * c0 + b1 * c1 + b2 * c2) * la
+                          + (c0 * a0 + c1 * a1 + c2 * a2) * lb;
+        wind += 2.f * atan2f(num, den);
+      }
 
       if (dist2 < best) {
         best = dist2;
@@ -163,7 +173,7 @@ closest_point_sweep_kernel(const float* __restrict__ pts, int num_points,
     out_closest[3 * i + 1] = bqy;
     out_closest[3 * i + 2] = bqz;
     out_fid[i] = best_fid;
-    out_wind[i] = wind;
+    if constexpr (kWinding) out_wind[i] = wind;
   }
 }
 
@@ -179,9 +189,22 @@ extern "C" int pvt_closest_point_sweep(const float* pts, int num_points,
                                        float* wind, void* stream) {
   if (num_points <= 0) return 0;
   const int blocks = (num_points + kThreads - 1) / kThreads;
-  closest_point_sweep_kernel<<<blocks, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+  closest_point_sweep_kernel<true><<<blocks, kThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
       pts, num_points, tri, num_tri, d2, closest, fid, wind);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same sweep without the winding sum: d2, closest and fid only.
+extern "C" int pvt_closest_point_sweep_nowind(const float* pts, int num_points,
+                                              const float* tri, int num_tri,
+                                              float* d2, float* closest,
+                                              int* fid, void* stream) {
+  if (num_points <= 0) return 0;
+  const int blocks = (num_points + kThreads - 1) / kThreads;
+  closest_point_sweep_kernel<false><<<blocks, kThreads, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      pts, num_points, tri, num_tri, d2, closest, fid, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 

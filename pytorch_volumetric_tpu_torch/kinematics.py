@@ -1,13 +1,15 @@
-"""URDF parsing and batched differentiable forward kinematics.
+"""Robot description parsing (URDF, SDF, MJCF) and batched differentiable
+forward kinematics.
 
-The URDF is parsed on the host into a static frame tree; FK is a loop over
-the topologically ordered joints on tensors with leading batch dimensions,
-differentiable w.r.t. the joint values by autograd.
+A description is parsed on the host into a static frame tree; FK is a loop
+over the topologically ordered joints on tensors with leading batch
+dimensions, differentiable w.r.t. the joint values by autograd.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import xml.etree.ElementTree as ET
 from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Tuple
@@ -406,14 +408,382 @@ def build_chain_from_urdf(data: str, device=None) -> Chain:
     return Chain(_assemble_tree(links, joints, "URDF"), device=device)
 
 
-def build_serial_chain_from_urdf(data: str, end_link_name: str,
-                                 root_link_name: Optional[str] = None,
-                                 device=None) -> SerialChain:
-    """The root -> ``end_link_name`` path of a URDF as a serial chain."""
-    chain = build_chain_from_urdf(data, device=device)
+def _serial(chain: Chain, end_link_name: str, root_link_name: Optional[str],
+            device) -> SerialChain:
     root = chain.root
     if root_link_name is not None:
         root = chain.find_frame(root_link_name)
         if root is None:
             raise ValueError(f"root link {root_link_name!r} not found")
     return SerialChain(root, end_link_name, device=device)
+
+
+def build_serial_chain_from_urdf(data: str, end_link_name: str,
+                                 root_link_name: Optional[str] = None,
+                                 device=None) -> SerialChain:
+    """The root -> ``end_link_name`` path of a URDF as a serial chain."""
+    return _serial(build_chain_from_urdf(data, device=device), end_link_name,
+                   root_link_name, device)
+
+
+# ---------------------------------------------------------------------------
+# SDF (Gazebo) parsing
+# ---------------------------------------------------------------------------
+#
+# These parsers produce the same frame tree as the URDF path.  Differences
+# handled here: SDF link <pose> elements are in the model frame (not
+# relative to the parent) and the joint <pose> is relative to the child
+# link, so the static origin becomes X_parent^-1 @ X_child and the motion is
+# conjugated by the joint-in-child offset (Joint.joint_offset).
+
+def _pose_matrix(elem) -> np.ndarray:
+    """SDF ``<pose>x y z roll pitch yaw</pose>`` -> [4, 4]."""
+    m = np.eye(4)
+    if elem is not None and elem.text:
+        v = _floats(elem.text)
+        m[:3, 3] = v[:3]
+        if v.size >= 6:
+            # rotation evaluated in float32, as the JAX package does
+            m[:3, :3] = tfm.rpy_to_matrix(
+                torch.as_tensor(v[3:6], dtype=torch.float32)).numpy()
+    return m
+
+
+_SDF_JOINT_TYPES = {"revolute": "revolute", "prismatic": "prismatic",
+                    "continuous": "continuous", "fixed": "fixed"}
+
+
+def _parse_sdf_geometry(geom_elem) -> Tuple[Optional[str], tuple]:
+    if geom_elem is None:
+        return None, ()
+    mesh = geom_elem.find("mesh")
+    if mesh is not None:
+        uri = mesh.findtext("uri")
+        scale_txt = mesh.findtext("scale")
+        scale = None
+        if scale_txt:
+            scale = _uniform_scale(_floats(scale_txt), f"SDF mesh {uri}")
+        return "mesh", (uri, scale)
+    box = geom_elem.find("box")
+    if box is not None:
+        return "box", (_floats(box.findtext("size", "")),)
+    sphere = geom_elem.find("sphere")
+    if sphere is not None:
+        return "sphere", (float(sphere.findtext("radius")),)
+    cyl = geom_elem.find("cylinder")
+    if cyl is not None:
+        return "cylinder", (float(cyl.findtext("radius")),
+                            float(cyl.findtext("length")))
+    return None, ()
+
+
+def build_chain_from_sdf(data: str, model_name: Optional[str] = None,
+                         device=None) -> Chain:
+    """Parse a Gazebo ``.sdf`` model (the first, or the one named
+    ``model_name``) into a kinematic tree on ``device``."""
+    root_elem = ET.fromstring(data)
+    model = None
+    for m in root_elem.iter("model"):
+        if model_name is None or m.get("name") == model_name:
+            model = m
+            break
+    if model is None:
+        raise ValueError(f"no <model> named {model_name!r} found")
+
+    links: Dict[str, Link] = {}
+    link_pose: Dict[str, np.ndarray] = {}  # model-frame pose of each link
+    for link_elem in model.findall("link"):
+        name = link_elem.get("name")
+        link = Link(name)
+        link_pose[name] = _pose_matrix(link_elem.find("pose"))
+        for vis_elem in link_elem.findall("visual"):
+            gt, gp = _parse_sdf_geometry(vis_elem.find("geometry"))
+            link.visuals.append(Visual(gt, gp, _pose_matrix(vis_elem.find("pose"))))
+        links[name] = link
+
+    joints: List[Joint] = []
+    for j in model.findall("joint"):
+        jtype = _SDF_JOINT_TYPES.get(j.get("type", "fixed"))
+        if jtype is None:
+            logger.warning("Unsupported SDF joint type %s for %s; treating as "
+                           "fixed", j.get("type"), j.get("name"))
+            jtype = "fixed"
+        parent = j.findtext("parent")
+        child = j.findtext("child")
+        if parent not in links:
+            # a joint anchored to the implicit 'world' (or any undeclared)
+            # link: an empty root link at the model origin, so the child
+            # keeps its model-frame pose
+            logger.info("SDF joint %s parent %r is not a declared link; "
+                        "adding it as an empty root", j.get("name"), parent)
+            links[parent] = Link(parent)
+            link_pose[parent] = np.eye(4)
+        X_p = link_pose.get(parent, np.eye(4))
+        X_c = link_pose.get(child, np.eye(4))
+        origin = np.linalg.solve(X_p, X_c)           # parent -> child at q = 0
+        joint_offset = _pose_matrix(j.find("pose"))  # child -> joint frame
+        axis_elem = j.find("axis")
+        axis = np.array([0.0, 0, 1])
+        limits = (-np.inf, np.inf)
+        if axis_elem is not None:
+            xyz = axis_elem.findtext("xyz")
+            if xyz:
+                axis = _floats(xyz)
+            # SDF <= 1.6: <use_parent_model_frame>true</> expresses the axis
+            # in the model frame; rotate it into the joint frame (child pose
+            # composed with the joint's own <pose>)
+            upmf = (axis_elem.findtext("use_parent_model_frame") or "").strip()
+            if upmf.lower() in ("1", "true"):
+                axis = (X_c @ joint_offset)[:3, :3].T @ axis
+            limit_elem = axis_elem.find("limit")
+            if limit_elem is not None:
+                # SDFormat (unlike URDF) leaves an omitted bound unbounded
+                lo_txt = (limit_elem.findtext("lower") or "").strip()
+                hi_txt = (limit_elem.findtext("upper") or "").strip()
+                limits = (float(lo_txt) if lo_txt else -np.inf,
+                          float(hi_txt) if hi_txt else np.inf)
+        joints.append(Joint(name=j.get("name"), joint_type=jtype, origin=origin,
+                            axis=axis, parent_link=parent, child_link=child,
+                            limits=limits, joint_offset=joint_offset))
+
+    return Chain(_assemble_tree(links, joints, "SDF model"), device=device)
+
+
+def build_serial_chain_from_sdf(data: str, end_link_name: str,
+                                root_link_name: Optional[str] = None,
+                                device=None) -> SerialChain:
+    """The root -> ``end_link_name`` path of an SDF model as a serial chain."""
+    return _serial(build_chain_from_sdf(data, device=device), end_link_name,
+                   root_link_name, device)
+
+
+# ---------------------------------------------------------------------------
+# MJCF (MuJoCo) parsing
+# ---------------------------------------------------------------------------
+
+_MJCF_JOINT_TYPES = {"hinge": "revolute", "slide": "prismatic"}
+
+
+def _skew(u: np.ndarray) -> np.ndarray:
+    return np.array([[0, -u[2], u[1]], [u[2], 0, -u[0]], [-u[1], u[0], 0]])
+
+
+def _rotation_z_to(d: np.ndarray) -> np.ndarray:
+    """Shortest-arc rotation taking +z to the unit vector ``d`` (MuJoCo's
+    zaxis / fromto convention)."""
+    z = np.array([0.0, 0.0, 1.0])
+    c = float(np.dot(z, d))
+    if c < -1.0 + 1e-9:  # antiparallel: rotate pi about x
+        return np.diag([1.0, -1.0, -1.0])
+    K = _skew(np.cross(z, d))
+    return np.eye(3) + K + K @ K / (1.0 + c)
+
+
+def _mjcf_body_matrix(elem, degrees: bool) -> np.ndarray:
+    """Body / geom frame from MJCF ``pos`` and an orientation attribute
+    (quat | euler | axisangle | xyaxes | zaxis)."""
+    m = np.eye(4)
+    if elem.get("pos"):
+        m[:3, 3] = _floats(elem.get("pos"))
+    if elem.get("quat"):
+        q = _floats(elem.get("quat"))  # w x y z
+        m[:3, :3] = tfm.quaternion_to_matrix(
+            torch.as_tensor(q, dtype=torch.float32)).numpy()
+    elif elem.get("euler"):
+        e = _floats(elem.get("euler"))
+        if degrees:
+            e = np.deg2rad(e)
+        m[:3, :3] = tfm.euler_angles_to_matrix(
+            torch.as_tensor(e, dtype=torch.float32), "XYZ").numpy()
+    elif elem.get("axisangle"):
+        v = _floats(elem.get("axisangle"))
+        axis = v[:3] / max(np.linalg.norm(v[:3]), 1e-30)
+        ang = float(np.deg2rad(v[3]) if degrees else v[3])
+        K = _skew(axis)  # Rodrigues in float64
+        m[:3, :3] = np.eye(3) + np.sin(ang) * K + (1 - np.cos(ang)) * (K @ K)
+    elif elem.get("xyaxes"):
+        v = _floats(elem.get("xyaxes"))
+        x = v[:3] / max(np.linalg.norm(v[:3]), 1e-30)
+        y = v[3:6] - np.dot(x, v[3:6]) * x
+        y /= max(np.linalg.norm(y), 1e-30)
+        m[:3, :3] = np.stack([x, y, np.cross(x, y)], axis=1)
+    elif elem.get("zaxis"):
+        v = _floats(elem.get("zaxis"))
+        m[:3, :3] = _rotation_z_to(v / max(np.linalg.norm(v), 1e-30))
+    return m
+
+
+def _parse_mjcf_geom(geom, meshes: Dict[str, tuple], degrees: bool,
+                     defaults=None, cls: str = "") -> Optional[Visual]:
+    """MJCF <geom> -> Visual, translating MuJoCo's half sizes to the full
+    sizes the rest of the package uses.  Handles the ``fromto`` segment form
+    of capsules and cylinders (frame from the segment, ``size`` is the
+    radius) and <default> class resolution of type / size / fromto / mesh."""
+    defaults = defaults or {}
+    gtype = _mjcf_attr(geom, "type", defaults, cls, "geom", "sphere")
+    size = _floats(_mjcf_attr(geom, "size", defaults, cls, "geom", "0"))
+    fromto = _mjcf_attr(geom, "fromto", defaults, cls, "geom")
+    if fromto and gtype in ("capsule", "cylinder"):
+        ft = _floats(fromto)
+        p1, p2 = ft[:3], ft[3:6]
+        seg = p2 - p1
+        length = float(np.linalg.norm(seg))
+        offset = np.eye(4)
+        offset[:3, 3] = 0.5 * (p1 + p2)
+        if length > 1e-12:
+            offset[:3, :3] = _rotation_z_to(seg / length)
+        return Visual(gtype, (float(size[0]), length), offset)
+    offset = _mjcf_body_matrix(geom, degrees)
+    if gtype == "mesh":
+        name = _mjcf_attr(geom, "mesh", defaults, cls, "geom")
+        if name not in meshes:
+            logger.warning("MJCF geom references unknown mesh %r", name)
+            return None
+        return Visual("mesh", meshes[name], offset)
+    if gtype == "box":
+        return Visual("box", (size * 2.0,), offset)  # half extents -> full
+    if gtype == "sphere":
+        return Visual("sphere", (float(size[0]),), offset)
+    if gtype in ("cylinder", "capsule"):
+        return Visual(gtype, (float(size[0]), 2.0 * float(size[1])), offset)
+    logger.warning("Unsupported MJCF geom type %r skipped", gtype)
+    return None
+
+
+def _collect_mjcf_defaults(root_elem) -> Dict[str, Dict[str, Dict[str, str]]]:
+    """MJCF ``<default>`` classes: class name -> {"joint" | "geom" -> merged
+    attributes}.  A nested ``<default class=...>`` inherits its parent's
+    attributes; the anonymous top-level default is stored as ``"main"``."""
+    table: Dict[str, Dict[str, Dict[str, str]]] = {}
+
+    def walk(delem, inherited):
+        merged = {tag: dict(inherited.get(tag, {})) for tag in ("joint", "geom")}
+        for tag in ("joint", "geom"):
+            e = delem.find(tag)
+            if e is not None:
+                merged[tag].update(e.attrib)
+        table[delem.get("class") or "main"] = merged
+        for child in delem.findall("default"):
+            walk(child, merged)
+
+    for d in root_elem.findall("default"):
+        walk(d, table.get("main", {}))
+    return table
+
+
+def _mjcf_attr(elem, key: str, defaults, cls: str, tag: str, fallback=None):
+    """An attribute with MJCF defaults resolution: explicit attribute >
+    ``class=`` / inherited ``childclass`` defaults > the anonymous main
+    defaults > ``fallback``."""
+    v = elem.get(key)
+    if v is not None:
+        return v
+    for c in (elem.get("class") or cls, "main"):
+        if c:
+            v = defaults.get(c, {}).get(tag, {}).get(key)
+            if v is not None:
+                return v
+    return fallback
+
+
+def build_chain_from_mjcf(data: str, body: Optional[str] = None,
+                          device=None) -> Chain:
+    """Parse a MuJoCo MJCF document (from ``<worldbody>``, or from the body
+    named ``body``) into a kinematic tree on ``device``.  Hinge and slide
+    joints (free and ball joints are treated as fixed, with a warning),
+    nested bodies, mesh / box / sphere / cylinder / capsule geoms, angles in
+    degrees or radians (``<compiler angle=...>``), and ``<default>`` class
+    resolution for joint and geom attributes (``class=`` on the element,
+    ``childclass=`` inherited down the body tree)."""
+    root_elem = ET.fromstring(data)
+    compiler = root_elem.find("compiler")
+    degrees = compiler is None or compiler.get("angle", "degree") == "degree"
+    defaults = _collect_mjcf_defaults(root_elem)
+    meshes: Dict[str, tuple] = {}
+    asset = root_elem.find("asset")
+    if asset is not None:
+        for m in asset.findall("mesh"):
+            scale_attr = m.get("scale")
+            scale = None
+            if scale_attr:
+                scale = _uniform_scale(_floats(scale_attr), f"MJCF mesh {m.get('file')}")
+            meshes[m.get("name") or os.path.splitext(
+                os.path.basename(m.get("file")))[0]] = (m.get("file"), scale)
+
+    worldbody = root_elem.find("worldbody")
+    if worldbody is None:
+        raise ValueError("MJCF document has no <worldbody>")
+    start = worldbody
+    if body is not None:
+        start = next((b for b in worldbody.iter("body") if b.get("name") == body), None)
+        if start is None:
+            raise ValueError(f"body {body!r} not found")
+
+    unnamed = [0]
+
+    def body_name(b):
+        n = b.get("name")
+        if n is None:
+            unnamed[0] += 1
+            n = f"body{unnamed[0]}"
+        return n
+
+    def build(body_elem, parent_name: Optional[str], cls: str = "") -> Frame:
+        name = body_name(body_elem) if body_elem.tag == "body" else (body or "world")
+        cls = body_elem.get("childclass") or cls  # inherited down the tree
+        link = Link(name)
+        for geom in body_elem.findall("geom"):
+            v = _parse_mjcf_geom(geom, meshes, degrees, defaults, cls)
+            if v is not None:
+                link.visuals.append(v)
+        joint = None
+        if body_elem.tag == "body" and parent_name is not None:
+            origin = _mjcf_body_matrix(body_elem, degrees)
+            joint_elems = body_elem.findall("joint")
+            if len(joint_elems) > 1:
+                logger.warning("body %s has %d joints; only the first is "
+                               "actuated", name, len(joint_elems))
+            je = joint_elems[0] if joint_elems else None
+
+            def jattr(key, fallback=None):
+                return _mjcf_attr(je, key, defaults, cls, "joint", fallback)
+
+            if je is not None and jattr("type", "hinge") in _MJCF_JOINT_TYPES:
+                jtype = _MJCF_JOINT_TYPES[jattr("type", "hinge")]
+                axis_attr = jattr("axis")
+                axis = _floats(axis_attr) if axis_attr else np.array([0.0, 0, 1])
+                joint_offset = np.eye(4)
+                if jattr("pos"):
+                    joint_offset[:3, 3] = _floats(jattr("pos"))
+                limits = (-np.inf, np.inf)
+                if jattr("range"):
+                    r = _floats(jattr("range"))
+                    if degrees and jtype == "revolute":
+                        r = np.deg2rad(r)
+                    limits = (float(r[0]), float(r[1]))
+                joint = Joint(name=je.get("name") or f"{name}_joint",
+                              joint_type=jtype, origin=origin, axis=axis,
+                              parent_link=parent_name, child_link=name,
+                              limits=limits, joint_offset=joint_offset)
+            else:
+                if je is not None:
+                    logger.warning("Unsupported MJCF joint type %r on body %s; "
+                                   "treating as fixed", jattr("type"), name)
+                joint = Joint(name=f"{name}_fixed", joint_type="fixed",
+                              origin=origin, axis=np.array([0.0, 0, 1]),
+                              parent_link=parent_name, child_link=name)
+        f = Frame(name, link, joint, [])
+        for child in body_elem.findall("body"):
+            f.children.append(build(child, name, cls))
+        return f
+
+    return Chain(build(start, None), device=device)
+
+
+def build_serial_chain_from_mjcf(data: str, end_link_name: str,
+                                 root_link_name: Optional[str] = None,
+                                 device=None) -> SerialChain:
+    """The root -> ``end_link_name`` path of an MJCF body tree as a serial
+    chain."""
+    return _serial(build_chain_from_mjcf(data, device=device), end_link_name,
+                   root_link_name, device)

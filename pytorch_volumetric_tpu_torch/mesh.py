@@ -528,3 +528,36 @@ def capsule_mesh(radius: float = 0.25, height: float = 1.0, segments: int = 16,
         top_row = (n_rings - 1) * segments
         faces.append([tp, top_row + i, top_row + j])
     return TriangleMesh(v, np.array(faces, dtype=np.int32))
+
+
+def torus_mesh(major_radius: float = 1.0, minor_radius: float = 0.3,
+               major_segments: int = 24, minor_segments: int = 12) -> TriangleMesh:
+    """Closed torus around z with ``2 * major_segments * minor_segments``
+    faces, wound outward."""
+    vs = []
+    for i in range(major_segments):
+        u = 2 * np.pi * i / major_segments
+        cu, su = np.cos(u), np.sin(u)
+        for j in range(minor_segments):
+            t = 2 * np.pi * j / minor_segments
+            r = major_radius + minor_radius * np.cos(t)
+            vs.append((r * cu, r * su, minor_radius * np.sin(t)))
+    faces = []
+    for i in range(major_segments):
+        for j in range(minor_segments):
+            a = i * minor_segments + j
+            b = i * minor_segments + (j + 1) % minor_segments
+            c = ((i + 1) % major_segments) * minor_segments + j
+            d = ((i + 1) % major_segments) * minor_segments + (j + 1) % minor_segments
+            faces += [[a, d, b], [a, c, d]]
+    return TriangleMesh(np.array(vs), np.array(faces, dtype=np.int32))
+
+
+def wrench_mesh() -> TriangleMesh:
+    """A wrench-shaped compound test asset: handle, round head and jaw, each
+    closed."""
+    handle = box_mesh((0.02, 0.15, 0.01))
+    head = cylinder_mesh(radius=0.025, height=0.01, segments=20,
+                         center=(0.0, 0.09, 0.0))
+    jaw = box_mesh((0.035, 0.02, 0.01), center=(0.0, -0.095, 0.002))
+    return handle.concatenate(head).concatenate(jaw)

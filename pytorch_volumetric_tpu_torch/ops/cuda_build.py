@@ -1,11 +1,11 @@
 """Build and load the package's CUDA kernels.
 
-Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into a shared library with a plain C interface, named after a hash of the
-source and flags, in ``_build/`` beside the package (listed in
-``.gitignore``).  The build happens at first use, or all at once through
-:func:`build`, which starts one ``nvcc`` per source in parallel.  Libraries
-are loaded with ``ctypes``.
+Each library is one source under ``csrc/`` compiled by ``nvcc`` for Hopper
+(``sm_90a``) with the shared flags plus its own, into a shared library with
+a plain C interface, named after a hash of the source and all its flags, in
+``_build/`` beside the package (listed in ``.gitignore``).  The build
+happens at first use, or all at once through :func:`build`, which starts one
+``nvcc`` per library in parallel.  Libraries are loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -22,13 +22,27 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-SOURCES = {"closest_point": "closest_point.cu"}
+# library name -> (source, its own flags).  -fmad=false: no multiply-add
+# contraction, so a kernel's arithmetic matches its plain PyTorch version
+# operation for operation (see the notes in the sources), and a fused
+# multiply-add appears only where a source writes one (fma_probe.cu).
+# closest_point_fmad is the sweep's source with contraction on, built for
+# the roofline probe only (bench/sweep_roofline.py).
+SOURCES = {
+    "closest_point": ("closest_point.cu", ("-fmad=false",)),
+    "closest_point_mma": ("closest_point_mma.cu", ("-fmad=false",)),
+    "fma_probe": ("fma_probe.cu", ("-fmad=false",)),
+    "closest_point_fmad": ("closest_point.cu", ("-fmad=true",)),
+}
 
-# -fmad=false: no multiply-add contraction, so each kernel's arithmetic
-# matches its plain PyTorch version operation for operation (see the notes
-# in the sources); -Xptxas=-v reports registers and shared memory per kernel
+# shared by every library; -Xptxas=-v reports registers and shared memory
+# per kernel
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+def _flags(name: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS + SOURCES[name][1]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -42,15 +56,15 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    with open(os.path.join(CSRC_DIR, SOURCES[name][0]), "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(_flags(name)).encode())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Tuple[float, str]]:
-    """Compile every named kernel whose library is missing, one ``nvcc`` per
-    source, all started together.  Returns ``{name: (seconds, compiler
-    output)}`` for the kernels it built; raises if any build fails."""
+    """Compile every named library that is missing, one ``nvcc`` per
+    library, all started together.  Returns ``{name: (seconds, compiler
+    output)}`` for the libraries it built; raises if any build fails."""
     names = list(SOURCES if names is None else names)
     todo = [n for n in names if not os.path.exists(library_path(n))]
     if not todo:
@@ -62,7 +76,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Tuple[float, str]]
     for n in todo:
         out = library_path(n)
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, SOURCES[n])]
+        cmd = [nvcc, *_flags(n), "-o", tmp, os.path.join(CSRC_DIR, SOURCES[n][0])]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out)
@@ -70,7 +84,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Tuple[float, str]]
     for n, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{SOURCES[n]}:\n{log}")
+            failed.append(f"{n} ({SOURCES[n][0]}):\n{log}")
             continue
         os.replace(tmp, out)
         results[n] = (time.perf_counter() - t0, log)

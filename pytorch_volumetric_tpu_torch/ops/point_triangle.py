@@ -1,15 +1,24 @@
 """Batched point -> triangle-mesh closest-point and winding-number queries.
 
-This module holds the plain PyTorch version of the sweep: a chunked
+This module holds the plain PyTorch versions of the sweep: a chunked
 brute-force pass over triangle tiles that carries a running (min squared
 distance, closest point, face id) and a running winding-number sum.  On a
 CUDA tensor :func:`signed_closest_query` runs the hand-written kernel
 (``ops.closest_point``); on a CPU tensor it runs the plain version below.
 
 Every dot product and sum is written out component by component in a fixed
-order, the same order the CUDA kernel uses, so the kernel (built without
-FMA contraction) and this version give the same distances and face ids on
-the card.
+order, the same order the CUDA kernels use, so a kernel built without FMA
+contraction and its plain version give the same distances and face ids on
+the card.  Three variants share the sweep:
+
+- :func:`mesh_closest_query`: the direct forms (``(p - a) . ab``, ...), the
+  plain version of ``csrc/closest_point.cu``;
+- ``mesh_closest_query(..., winding=False)``: the same without the winding
+  sum, the plain version of the kernel's no-winding instantiation;
+- :func:`mesh_closest_query_expanded`: the pairwise dot products
+  ``p . ab, p . ac, p . n, p . a, p . b, p . c`` with per-triangle
+  constants, the plain version of the tensor-core kernel
+  (``csrc/closest_point_mma.cu``).
 
 Triangle arrays are padded with degenerate far-away triangles
 (``mesh.PAD_COORD``) that never win the min and contribute exactly zero
@@ -23,7 +32,7 @@ from typing import Tuple
 import torch
 
 from pytorch_volumetric_tpu_torch.mesh import PAD_COORD
-from pytorch_volumetric_tpu_torch.utils.batching import cdiv, pad_to
+from pytorch_volumetric_tpu_torch.utils.batching import cdiv, pad_to, round_up
 
 DEFAULT_POINT_CHUNK = 2048
 DEFAULT_TRI_CHUNK = 512
@@ -55,7 +64,13 @@ def _closest_point_bary(p: torch.Tensor, a: torch.Tensor, ab: torch.Tensor,
     cp = ap - ac
     d5 = _dot(ab, cp)
     d6 = _dot(ac, cp)
+    return _region_cascade(p, a, ab, ac, d1, d2, d3, d4, d5, d6, with_features)
 
+
+def _region_cascade(p, a, ab, ac, d1, d2, d3, d4, d5, d6, with_features=False):
+    """The Voronoi-region cascade of :func:`_closest_point_bary` on given
+    ``d1 = ab . (p - a)``, ``d2 = ac . (p - a)``, ``d3, d4`` (from b) and
+    ``d5, d6`` (from c), each [P, T]."""
     va = d3 * d6 - d5 * d4
     vb = d5 * d2 - d1 * d6
     vc = d1 * d4 - d3 * d2
@@ -120,7 +135,59 @@ def _winding_contrib(p: torch.Tensor, va: torch.Tensor, vb: torch.Tensor,
     return 2.0 * torch.atan2(num, den)
 
 
-def _sweep_chunk(points: torch.Tensor, tri: torch.Tensor, tri_chunk: int):
+def _pairs_direct(p, a, b, c, winding: bool):
+    """Per-pair (dist2, closest, solid angle or None) from the direct forms."""
+    d2, cp = _closest_point_bary(p, a, b - a, c - a)
+    return d2, cp, _winding_contrib(p, a, b, c) if winding else None
+
+
+def _cross(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return torch.stack([u[..., 1] * v[..., 2] - u[..., 2] * v[..., 1],
+                        u[..., 2] * v[..., 0] - u[..., 0] * v[..., 2],
+                        u[..., 0] * v[..., 1] - u[..., 1] * v[..., 0]], dim=-1)
+
+
+EXPANDED_GROUP = 8  # triangles sharing one frame in the expanded sweep
+
+
+def _pairs_expanded(p, a, b, c, winding: bool):
+    """Per-pair (dist2, closest, solid angle; ``winding`` is ignored: the
+    kernel this mirrors always computes it) from the six pairwise dot
+    products ``p . {ab, ac, n, a, b, c}`` and per-triangle constants (the
+    arithmetic of ``benchmarks/pallas_mxu_ab.py`` mode ``mxu``):
+    ``d1 = p.ab - ab.a``, ``|a - p|^2 = |a|^2 - 2 p.a + |p|^2``,
+    ``(a-p).(b-p) = a.b - p.a - p.b + |p|^2`` and ``num = a.(b x c) - p.n``
+    with ``n = b x c + c x a + a x b``.  The distance is still taken
+    directly as ``|q - p|^2``.
+
+    The expanded forms cancel in proportion to the magnitudes of ``p`` and
+    the corners, so each group of ``EXPANDED_GROUP`` triangles (counted from
+    the first of the tile, which starts at a multiple of the group) works in
+    a frame centred on its first triangle's first corner, as the kernel
+    does."""
+    T = a.shape[1]
+    o = a[:, ::EXPANDED_GROUP].repeat_interleave(EXPANDED_GROUP, dim=1)[:, :T]
+    p, a, b, c = p - o, a - o, b - o, c - o
+    ab, ac = b - a, c - a
+    # n summed as b x c + c x a + a x b, each cross in the kernel's order
+    n = _cross(b, c) + _cross(c, a) + _cross(a, b)
+    pab, pac, pn = _dot(p, ab), _dot(p, ac), _dot(p, n)
+    pa, pb, pc = _dot(p, a), _dot(p, b), _dot(p, c)
+    d2, cp = _region_cascade(p, a, ab, ac, pab - _dot(ab, a), pac - _dot(ac, a),
+                             pab - _dot(ab, b), pac - _dot(ac, b),
+                             pab - _dot(ab, c), pac - _dot(ac, c))
+    pp = _dot(p, p)
+    la = torch.sqrt(torch.clamp(_dot(a, a) - 2.0 * pa + pp, min=0.0))
+    lb = torch.sqrt(torch.clamp(_dot(b, b) - 2.0 * pb + pp, min=0.0))
+    lc = torch.sqrt(torch.clamp(_dot(c, c) - 2.0 * pc + pp, min=0.0))
+    num = _dot(a, _cross(b, c)) - pn
+    den = (la * lb * lc + (_dot(a, b) - pa - pb + pp) * lc
+           + (_dot(b, c) - pb - pc + pp) * la + (_dot(c, a) - pc - pa + pp) * lb)
+    return d2, cp + o, 2.0 * torch.atan2(num, den)
+
+
+def _sweep_chunk(points: torch.Tensor, tri: torch.Tensor, tri_chunk: int,
+                 pairs, winding: bool):
     """One point chunk against all triangles: loop over triangle tiles with
     a running (min d2, closest, face id, winding sum).  Ties go to the lowest
     face id: first index within a tile, strict ``<`` across tiles."""
@@ -135,8 +202,9 @@ def _sweep_chunk(points: torch.Tensor, tri: torch.Tensor, tri_chunk: int):
         a = tile[None, :, 0, :]
         b = tile[None, :, 1, :]
         c = tile[None, :, 2, :]
-        d2, cp = _closest_point_bary(p, a, b - a, c - a)
-        wind = wind + _winding_contrib(p, a, b, c).sum(dim=-1)
+        d2, cp, solid = pairs(p, a, b, c, winding)
+        if winding:
+            wind = wind + solid.sum(dim=-1)
         arg = torch.argmin(d2, dim=-1)
         tile_d2 = d2.gather(1, arg[:, None])[:, 0]
         tile_pt = cp.gather(1, arg[:, None, None].expand(P, 1, 3))[:, 0, :]
@@ -147,24 +215,41 @@ def _sweep_chunk(points: torch.Tensor, tri: torch.Tensor, tri_chunk: int):
     return best_d2, best_pt, best_fid, wind
 
 
+def _sweep(points, tri, point_chunk, tri_chunk, pairs, winding):
+    Fp = tri.shape[0]
+    tri_chunk = min(tri_chunk, Fp)
+    tri = pad_to(tri, cdiv(Fp, tri_chunk) * tri_chunk, value=PAD_COORD)
+    parts = [_sweep_chunk(points[s:s + point_chunk], tri, tri_chunk, pairs, winding)
+             for s in range(0, points.shape[0], point_chunk)]
+    if not parts:
+        parts = [_sweep_chunk(points, tri, tri_chunk, pairs, winding)]
+    d2, cp, fid, wind = (torch.cat(x) for x in zip(*parts))
+    return torch.sqrt(d2), cp, fid, wind / _FOUR_PI
+
+
 def mesh_closest_query(points: torch.Tensor, tri: torch.Tensor,
                        point_chunk: int = DEFAULT_POINT_CHUNK,
-                       tri_chunk: int = DEFAULT_TRI_CHUNK):
+                       tri_chunk: int = DEFAULT_TRI_CHUNK,
+                       winding: bool = True):
     """Closest point + winding number for ``points [P, 3]`` against padded
     triangles ``tri [Fp, 3, 3]`` (plain PyTorch).
 
     Returns ``(dist [P] unsigned, closest [P, 3], face_id [P] int32,
-    winding [P])``.  Memory is bounded by chunking points and triangles.
+    winding [P])``.  With ``winding=False`` the winding sum is skipped and
+    returned as zeros.  Memory is bounded by chunking points and triangles.
     """
-    Fp = tri.shape[0]
-    tri_chunk = min(tri_chunk, Fp)
-    tri = pad_to(tri, cdiv(Fp, tri_chunk) * tri_chunk, value=PAD_COORD)
-    parts = [_sweep_chunk(points[s:s + point_chunk], tri, tri_chunk)
-             for s in range(0, points.shape[0], point_chunk)]
-    if not parts:
-        parts = [_sweep_chunk(points, tri, tri_chunk)]
-    d2, cp, fid, wind = (torch.cat(x) for x in zip(*parts))
-    return torch.sqrt(d2), cp, fid, wind / _FOUR_PI
+    return _sweep(points, tri, point_chunk, tri_chunk, _pairs_direct, winding)
+
+
+def mesh_closest_query_expanded(points: torch.Tensor, tri: torch.Tensor,
+                                point_chunk: int = DEFAULT_POINT_CHUNK,
+                                tri_chunk: int = DEFAULT_TRI_CHUNK):
+    """:func:`mesh_closest_query` computed from the pairwise dot products
+    (:func:`_pairs_expanded`), the arithmetic of the tensor-core kernel.
+    Same outputs; agrees with the direct forms to float32 rounding, which
+    the expanded forms amplify (about 1e-7 of ``|p|`` in distance)."""
+    tri_chunk = round_up(tri_chunk, EXPANDED_GROUP)  # tiles start at a group
+    return _sweep(points, tri, point_chunk, tri_chunk, _pairs_expanded, True)
 
 
 def signed_closest_query(points: torch.Tensor, tri: torch.Tensor,

@@ -753,3 +753,45 @@ class CachedSDF(ObjectFrameSDF):
         flat_idx = self.voxels.ravel_multi_index(torch.minimum(keys.clamp(min=0), n - 1))
         inside_grid = self.voxels.raw_data.reshape(-1)[flat_idx] > surface_level
         return torch.where(valid, inside_grid, True).reshape(pts.shape[:-1])
+
+
+def sample_mesh_points(obj_factory: Optional[ObjectFactory] = None, num_points=100,
+                       seed=0, name="", clean_cache=False, dtype=torch.float32,
+                       min_init_sample_points=200,
+                       dbpath="model_points_cache.npz", device=None):
+    """Uniform surface samples and their face normals, cached on disk under
+    the key ``name/seed/num_points`` (the JAX package's store format, so
+    either package reads the other's cache).  Deterministic from ``seed``.
+
+    Returns ``(points [N, 3], normals [N, 3], store)`` on ``device`` (the
+    factory's device by default)."""
+    if device is None and obj_factory is not None:
+        device = obj_factory.device
+    device = resolve_device(device)
+    store = get_store(dbpath)
+    key = f"{name}/{seed}/{num_points}"
+    if not clean_cache:
+        hit = store.get(key)
+        if hit is not None:
+            points, normals = hit
+            return (torch.as_tensor(points, dtype=dtype, device=device),
+                    torch.as_tensor(normals, dtype=dtype, device=device), store)
+
+    if obj_factory is None:
+        raise RuntimeError(
+            f"Expect model points to be cached for {name} {seed} {num_points} in {dbpath}")
+
+    rng = np.random.default_rng(seed)
+    # surface sampling is not dispersed: oversample, then subselect at random
+    sample_num_points = max(min_init_sample_points, 2 * num_points)
+    pts = obj_factory._mesh.sample_points_uniformly(sample_num_points, rng=rng)
+    pts = rng.permutation(pts)[:num_points]
+
+    res = obj_factory.object_frame_closest_point(pts, compute_normal=True)
+    normals = res.normal.cpu().numpy()
+
+    points = np.asarray(pts, dtype=np.float32)
+    normals = normals.astype(np.float32)
+    store.put(key, [points, normals])
+    return (torch.as_tensor(points, dtype=dtype, device=device),
+            torch.as_tensor(normals, dtype=dtype, device=device), store)

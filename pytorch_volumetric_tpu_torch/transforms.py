@@ -26,6 +26,11 @@ def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a, b)
 
 
+def precise_einsum(spec: str, *args: torch.Tensor) -> torch.Tensor:
+    """Einsum for transform contractions, in true float32 (TF32 off)."""
+    return torch.einsum(spec, *args)
+
+
 # ---------------------------------------------------------------------------
 # Rotation conversions
 # ---------------------------------------------------------------------------
@@ -65,6 +70,13 @@ def _axis_rotation(angle: torch.Tensor, axis: str) -> torch.Tensor:
     return torch.stack(rows, dim=-1).reshape(angle.shape + (3, 3))
 
 
+def euler_angles_to_matrix(angles: torch.Tensor, convention: str = "XYZ") -> torch.Tensor:
+    """Product of per-axis rotations ``R0 @ R1 @ R2`` for a convention such
+    as "XYZ", angles ``[..., 3]`` (``pytorch_kinematics`` semantics)."""
+    ms = [_axis_rotation(angles[..., i], convention[i]) for i in range(3)]
+    return mm(mm(ms[0], ms[1]), ms[2])
+
+
 def rpy_to_matrix(rpy: torch.Tensor) -> torch.Tensor:
     """URDF roll-pitch-yaw (fixed-axis XYZ): R = Rz(yaw) @ Ry(pitch) @ Rx(roll)."""
     a = rpy
@@ -86,6 +98,12 @@ def axis_angle_to_matrix(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tenso
     eye = torch.eye(3, dtype=u.dtype, device=u.device).expand(K.shape)
     outer = u[..., :, None] * u[..., None, :]
     return c * eye + s * K + (1.0 - c) * outer
+
+
+def matrix_to_rotation_6d(matrix: torch.Tensor) -> torch.Tensor:
+    """First two rows of rotation matrices ``[..., 3, 3]`` flattened to
+    ``[..., 6]`` (the continuous rotation representation)."""
+    return matrix[..., :2, :].reshape(matrix.shape[:-2] + (6,))
 
 
 # ---------------------------------------------------------------------------

@@ -58,6 +58,31 @@ def make_serial_arm(directory: str, num_joints: int = 7,
     return urdf_path, f"link{num_joints}"
 
 
+def serial_arm_mjcf(num_joints: int = 7, link_length: float = 0.18) -> str:
+    """MJCF text of the arm :func:`make_serial_arm` writes (same defaults),
+    whose mesh geoms point at the same OBJ files: one body per link, each
+    joint a hinge at the body origin.  Its root is the worldbody ("world")
+    with ``link0`` fixed to it, so it gives the URDF arm's link poses."""
+    lines = ['<mujoco model="procedural_arm">', '  <compiler angle="radian"/>',
+             '  <asset>', '    <mesh name="link0" file="link0.obj"/>',
+             '    <mesh name="link_cap" file="link_cap.obj"/>', '  </asset>',
+             '  <worldbody>', '    <body name="link0">',
+             '      <geom type="mesh" mesh="link0" pos="0 0 0.05"/>']
+    for i in range(1, num_joints + 1):
+        pad = "  " * (i + 2)
+        axis = "0 0 1" if i % 2 == 1 else "0 1 0"
+        origin_z = 0.1 if i == 1 else link_length
+        lines.append(f'{pad}<body name="link{i}" pos="0 0 {origin_z:.6g}">')
+        lines.append(f'{pad}  <joint name="joint{i}" type="hinge" axis="{axis}" '
+                     'range="-2.9 2.9"/>')
+        lines.append(f'{pad}  <geom type="mesh" mesh="link_cap" '
+                     f'pos="0 0 {link_length / 2:.6g}"/>')
+    for i in range(num_joints, -1, -1):
+        lines.append("  " * (i + 2) + "</body>")
+    lines += ['  </worldbody>', '</mujoco>']
+    return "\n".join(lines)
+
+
 def make_mesh_arm(directory: str, mesh_files: List[str],
                   num_joints: int = 7, link_length: float = 0.18,
                   base_height: float = 0.1) -> Tuple[str, str]:

@@ -75,3 +75,38 @@ def test_entry_points_run_on_cuda_unless_asked():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pt.SphereSDF(0.1)
     assert pt.build_chain_from_urdf(urdf, device="cpu").device.type == "cpu"
+
+
+def test_every_port_module_imports():
+    """Each module of the port imports on a machine without a GPU, nvcc or
+    triton: kernels are built and loaded only when first launched."""
+    import importlib
+    names = []
+    for path in _port_sources():
+        rel = os.path.relpath(path, REPO)
+        if rel.startswith("pytorch_volumetric_tpu_torch"):
+            mod = rel[:-3].replace(os.sep, ".")
+            names.append(mod[:-len(".__init__")] if mod.endswith(".__init__") else mod)
+    for extra in ("chamfer", "bench.sweep_roofline", "ops.fma_probe", "utils.profiling"):
+        assert f"pytorch_volumetric_tpu_torch.{extra}" in names
+    for name in names:
+        importlib.import_module(name)
+
+
+def test_new_entry_points_run_on_cuda_unless_asked(tmp_path):
+    """The SDF and MJCF loaders, surface sampling and the roofline probe
+    default to CUDA: without a GPU they raise (the probe exits non-zero)."""
+    from pytorch_volumetric_tpu_torch.bench import sweep_roofline
+    sdf = '<sdf version="1.6"><model name="m"><link name="a"/></model></sdf>'
+    mjcf = "<mujoco><worldbody/></mujoco>"
+    if torch.cuda.is_available():
+        assert pt.build_chain_from_sdf(sdf).device.type == "cuda"
+        assert pt.build_chain_from_mjcf(mjcf).device.type == "cuda"
+        return
+    for build, doc in ((pt.build_chain_from_sdf, sdf), (pt.build_chain_from_mjcf, mjcf)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build(doc)
+        assert build(doc, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt.sample_mesh_points(None, name="m", dbpath=str(tmp_path / "p.npz"))
+    assert sweep_roofline.main([]) == 1
