@@ -46,15 +46,6 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM data-sheet peaks (dense, 700 W): FP32 outside the tensor cores
-# and HBM3 bandwidth
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-# FP32 operations per point-triangle pair in the sweep, the count the JAX
-# package's cost model uses (ops/pallas/closest_point.py); the 3 square
-# roots, ~5 divisions and the atan2 of each pair are on top of it
-FLOPS_PER_PAIR = 110
-
 N_CONFIGS = 200
 QUERY_RANGE = np.array([[-1.0, 0.5], [0.02, 0.02], [-0.2, 0.8]])
 QUERY_RES = 0.01
@@ -103,65 +94,16 @@ def time_ms(fn, device, reps=5, warmup=1):
     return float(np.median(times))
 
 
-def sweep_bound_ms(n_points, n_faces):
-    """Least time for a sweep of ``n_points`` over ``n_faces`` real
-    triangles: the larger of its FP32 operations over the FP32 peak and its
-    bytes (points and triangles read once, 24 B of outputs per point
-    written once) over the memory rate."""
-    ops_s = n_points * n_faces * FLOPS_PER_PAIR / PEAK_FP32_FLOPS
-    bytes_s = (n_points * (12 + 24) + n_faces * 36) / PEAK_BYTES_PER_S
-    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
-
-
 # ---------------------------------------------------------------------------
 # phase 2: the kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def face_contract_err(pts, tri, fid, dist_ref):
-    """The chosen face must reach the minimal distance (ties on shared
-    edges, vertices and coplanar faces may pick any tied face)."""
-    from pytorch_volumetric_tpu_torch.ops.point_triangle import _closest_point_bary
-    chosen = tri.index_select(0, fid)
-    d2, _ = _closest_point_bary(pts[:, None, :], chosen[:, None, 0],
-                                (chosen[:, 1] - chosen[:, 0])[:, None],
-                                (chosen[:, 2] - chosen[:, 0])[:, None])
-    return (torch.sqrt(d2[:, 0]) - dist_ref).abs().max().item()
-
-
-def compare_sweep(name, pts, tri, device):
-    """Kernel vs plain version on one input; returns the max abs error of
-    distances and closest points."""
-    from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
-    from pytorch_volumetric_tpu_torch.ops.point_triangle import mesh_closest_query
-    before = mesh_closest_query_cuda.launches
-    d1, c1, f1, w1 = mesh_closest_query_cuda(pts, tri)
-    sync(device)
-    if device.type == "cuda":
-        check(mesh_closest_query_cuda.launches == before + 1, f"{name}: no launch")
-    d0, c0, f0, w0 = mesh_closest_query(pts, tri)
-    check(d1.shape == d0.shape and c1.shape == c0.shape and f1.dtype == torch.int32,
-          f"{name}: output shapes")
-    check(bool(torch.isfinite(d1).all() and torch.isfinite(c1).all()
-               and torch.isfinite(w1).all()), f"{name}: non-finite output")
-    err_d = (d1 - d0).abs().max().item()
-    err_c = (c1 - c0).abs().max().item()
-    err_w = (w1.abs() - w0.abs()).abs().max().item()
-    err_f = face_contract_err(pts, tri, f1, d0)
-    same_fid = (f1 == f0).float().mean().item()
-    log(f"  {name}: P={pts.shape[0]} F={tri.shape[0]} |d|err={err_d:.3g} "
-        f"|closest|err={err_c:.3g} |wind|err={err_w:.3g} face-contract err={err_f:.3g} "
-        f"same face id {same_fid * 100:.2f}%")
-    check(err_d <= 1e-5 and err_c <= 1e-5, f"{name}: distance/closest beyond 1e-5")
-    check(err_w <= 1e-4, f"{name}: |winding| beyond 1e-4")
-    check(err_f <= 1e-5, f"{name}: chosen face misses the minimal distance")
-    return max(err_d, err_c)
-
-
-def phase_kernel(device, capsule_points=100_000, grid_scale=1.0, reps=5):
+def sweep_cases(device, capsule_points=100_000):
+    """``(name, points, triangles)`` every sweep kernel is held against its
+    plain version on: ragged and tiny shapes, points on the surface, and the
+    headline link mesh (the arm's capsule, edges 2-5 cm) with points up to
+    1 m away, where the tensor-core sweep's expanded forms cancel most."""
     import pytorch_volumetric_tpu_torch as pt
-    from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
-    from pytorch_volumetric_tpu_torch.ops.point_triangle import mesh_closest_query
-
     m = pt.mesh
     rng = np.random.default_rng(0)
 
@@ -170,40 +112,81 @@ def phase_kernel(device, capsule_points=100_000, grid_scale=1.0, reps=5):
 
     scene = m.MeshScene.from_mesh(m.icosphere_mesh(0.3, 2).concatenate(
         m.box_mesh((0.2, 0.3, 0.1), center=(0.4, 0.0, 0.0))), device=device)
-    box_raw = torch.as_tensor(m.box_mesh((0.4, 0.6, 0.8)).triangles().astype(np.float32),
-                              device=device)
-    one_tri = torch.tensor([[[0.0, 0, 0], [0.3, 0, 0], [0, 0.2, 0.1]]], device=device)
-    err = 0.0
-    err = max(err, compare_sweep("icosphere+box", rand_pts(1000, -0.6, 0.8), scene.tri, device))
-    for P in (1, 7, 129, 257):
-        err = max(err, compare_sweep(f"ragged P={P}", rand_pts(P, -0.5, 0.5), scene.tri, device))
-    err = max(err, compare_sweep("box, F=12 < tile", rand_pts(300, -0.8, 0.8), box_raw, device))
-    err = max(err, compare_sweep("single triangle", rand_pts(300, -0.5, 0.5), one_tri, device))
+    cases = [("icosphere+box", rand_pts(1000, -0.6, 0.8), scene.tri)]
+    cases += [(f"ragged P={P}", rand_pts(P, -0.5, 0.5), scene.tri) for P in (1, 7, 129, 257)]
+    cases.append(("box, F=12 < tile", rand_pts(300, -0.8, 0.8), torch.as_tensor(
+        m.box_mesh((0.4, 0.6, 0.8)).triangles().astype(np.float32), device=device)))
+    cases.append(("single triangle", rand_pts(300, -0.5, 0.5),
+                  torch.tensor([[[0.0, 0, 0], [0.3, 0, 0], [0, 0.2, 0.1]]], device=device)))
     # points exactly on the surface (the normal override's regime)
-    mesh = m.icosphere_mesh(0.3, 2)
-    surf = torch.as_tensor(mesh.sample_points_uniformly(500, seed=1).astype(np.float32),
-                           device=device)
-    err = max(err, compare_sweep("on-surface points", surf, scene.tri, device))
-
-    # the headline link mesh (the arm's capsule) at 1e5 points
+    surf = m.icosphere_mesh(0.3, 2).sample_points_uniformly(500, seed=1)
+    cases.append(("on-surface points", torch.as_tensor(surf.astype(np.float32), device=device),
+                  scene.tri))
     cap_mesh = m.capsule_mesh(radius=0.045, height=0.18, segments=14, rings=5)
-    cap = m.MeshScene.from_mesh(cap_mesh, device=device)
     bb = cap_mesh.aabb()
-    lo, hi = bb[:, 0] - 1.0, bb[:, 1] + 1.0
-    err = max(err, compare_sweep("capsule 1e5", torch.as_tensor(
-        rng.uniform(lo, hi, (capsule_points, 3)).astype(np.float32), device=device),
-        cap.tri, device))
+    cases.append((f"capsule, {capsule_points} points to 1 m away", torch.as_tensor(
+        rng.uniform(bb[:, 0] - 1.0, bb[:, 1] + 1.0, (capsule_points, 3)).astype(np.float32),
+        device=device), m.MeshScene.from_mesh(cap_mesh, device=device).tri))
+    return cases
+
+
+def compare_kernel(kind, case, pts, tri, device):
+    """One launch of the sweep kernel ``sweep_roofline.SWEEPS[kind]`` against
+    its plain version on one input; fails beyond its gates and returns its
+    errors (``sweep_roofline.sweep_errors``).  The sweep kernel ("base")
+    equals its plain version bit for bit, so it is held to the plain
+    version's own closest point and to |winding| at every point; the probe's
+    kernels to the closest point on the face they chose and to the winding
+    off the surface."""
+    from pytorch_volumetric_tpu_torch.bench import sweep_roofline as sr
+    wrapper, plain, _ = sr.SWEEPS[kind]
+    before = wrapper.launches
+    out = wrapper(pts, tri)
+    sync(device)
+    if device.type == "cuda":
+        check(wrapper.launches == before + 1, f"{kind}, {case}: no launch")
+    ref = plain(pts, tri)
+    d1, c1, f1, w1 = out
+    check(d1.shape == ref[0].shape and c1.shape == ref[1].shape and f1.dtype == torch.int32,
+          f"{kind}, {case}: output shapes")
+    check(all(bool(torch.isfinite(t).all()) for t in (d1, c1, w1)),
+          f"{kind}, {case}: non-finite output")
+    e = sr.sweep_errors(out, ref, pts, tri)
+    e["abs_winding"] = (w1.abs() - ref[3].abs()).abs().max().item()
+    same_fid = (f1 == ref[2]).float().mean().item()
+    log(f"    {case}: P={pts.shape[0]} F={tri.shape[0]} |d| {e['dist']:.3g}, |closest| "
+        f"{e['closest_raw']:.3g} (on the chosen face {e['closest']:.3g}), face-contract "
+        f"{e['face']:.3g}, |wind| {e['winding']:.3g} off the surface ({e['on_surface']} "
+        f"points within {sr.WIND_MIN_DIST:g}), ||wind|| {e['abs_winding']:.3g} everywhere; "
+        f"same face id {same_fid * 100:.2f}%")
+    if kind == "base":
+        check(e["dist"] <= 1e-5 and e["closest_raw"] <= 1e-5,
+              f"{case}: distance/closest beyond 1e-5")
+        check(e["abs_winding"] <= 1e-4, f"{case}: |winding| beyond 1e-4")
+        check(e["face"] <= 1e-5, f"{case}: chosen face misses the minimal distance")
+    else:
+        check(sr.check_sweep(kind, e), f"{kind}, {case}: beyond its gates against the plain version")
+    return e
+
+
+def phase_kernel(device, capsule_points=100_000, grid_scale=1.0, reps=5):
+    from pytorch_volumetric_tpu_torch.bench import sweep_roofline as sr
+    from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
+    from pytorch_volumetric_tpu_torch.ops.point_triangle import mesh_closest_query
+
+    err = 0.0
+    for case, pts, tri in sweep_cases(device, capsule_points):
+        e = compare_kernel("base", case, pts, tri, device)
+        err = max(err, e["dist"], e["closest_raw"])
 
     # time it at the main path's shape: the capsule's cache-build grid
     # (resolution 0.02, padding 1.0), one launch over the whole grid
-    res = 0.02 / grid_scale
-    rng_grid = pt.get_divisible_range_by_resolution(res, np.stack([lo, hi], axis=1))
-    _, grid = pt.get_coordinates_and_points_in_grid(res, rng_grid, device=device)
+    grid, cap = sr.capsule_cache_grid(device, 0.02 / grid_scale)
     P, Fp, F = grid.shape[0], cap.tri.shape[0], cap.num_faces
     ms = time_ms(lambda: mesh_closest_query_cuda(grid, cap.tri), device, reps=reps)
     plain_ms = time_ms(lambda: mesh_closest_query(grid, cap.tri), device,
                        reps=max(1, reps // 2))
-    bound_ms, bound_by = sweep_bound_ms(P, F)
+    bound_ms, bound_by = sr.sweep_bound_ms(P, F)
     log(f"  timing (capsule cache-build grid, one launch): P={P} x Fp={Fp} "
         f"(F={F} real): kernel {ms:.3f} ms = {P * Fp / ms / 1e6:.4g} G padded pairs/s "
         f"= {P * F / ms / 1e6:.4g} G real pairs/s; bound {bound_ms:.3f} ms ({bound_by}); "
@@ -472,105 +455,39 @@ def phase_chamfer(device, tmp, card, n_est=32, n_plausible=128, n_points=500,
 # phase 6: the roofline probe's kernels
 # ---------------------------------------------------------------------------
 
-def compare_variant(name, wrapper, plain, pts, tri, device, winding):
-    """One launch of a probe kernel against its plain version; returns its
-    errors (closest point against the plain closest point on the chosen
-    face, see ``sweep_roofline.sweep_errors``)."""
+def phase_probe(device, card, reps=5):
     from pytorch_volumetric_tpu_torch.bench import sweep_roofline as sr
-    before = wrapper.launches
-    out = wrapper(pts, tri)
-    sync(device)
-    if device.type == "cuda":
-        check(wrapper.launches == before + 1, f"{name}: no launch")
-    check(bool(torch.isfinite(out[0]).all() and torch.isfinite(out[1]).all()
-               and torch.isfinite(out[3]).all()), f"{name}: non-finite output")
-    err = sr.sweep_errors(out, plain(pts, tri), pts, tri)
-    log(f"    P={pts.shape[0]} F={tri.shape[0]}: |d| {err['dist']:.3g}, "
-        f"|closest| {err['closest']:.3g} (vs plain's own closest point "
-        f"{err['closest_raw']:.3g}), face-contract {err['face']:.3g}"
-        + (f", |wind| {err['winding']:.3g} (off the surface; {err['on_surface']} points "
-           f"within {sr.WIND_MIN_DIST:g} of it)" if winding else ""))
-    check(sr.check_sweep("base" if winding else "nowind", err),
-          f"{name}: beyond its gates against the plain version")
-    return err
+    from pytorch_volumetric_tpu_torch.ops.fma_probe import fma_probe_cuda
 
-
-def phase_probe(device, card, points=1 << 17, reps=5, fma_iters=4096,
-                grid_resolution=0.02, far_points=100_000, fma_n=None):
-    import pytorch_volumetric_tpu_torch as pt
-    from pytorch_volumetric_tpu_torch.bench import sweep_roofline as sr
-    from pytorch_volumetric_tpu_torch.ops.closest_point import (
-        mesh_closest_query_contracted_cuda, mesh_closest_query_cuda,
-        mesh_closest_query_mma_cuda, mesh_closest_query_nowind_cuda)
-    from pytorch_volumetric_tpu_torch.ops.fma_probe import fma_probe, fma_probe_cuda
-
-    m = pt.mesh
-    rng = np.random.default_rng(1)
-
-    def rand_pts(n, lo, hi):
-        return torch.as_tensor(rng.uniform(lo, hi, (n, 3)).astype(np.float32), device=device)
-
-    scene = m.MeshScene.from_mesh(m.icosphere_mesh(0.3, 2).concatenate(
-        m.box_mesh((0.2, 0.3, 0.1), center=(0.4, 0.0, 0.0))), device=device)
-    cap_mesh = m.capsule_mesh(radius=0.045, height=0.18, segments=14, rings=5)
-    cap = m.MeshScene.from_mesh(cap_mesh, device=device)
-    bb = cap_mesh.aabb()
-    cases = [("icosphere+box", rand_pts(1000, -0.6, 0.8), scene.tri)]
-    cases += [(f"ragged P={P}", rand_pts(P, -0.5, 0.5), scene.tri) for P in (1, 7, 129, 257)]
-    cases += [("box, F=12", rand_pts(300, -0.8, 0.8), torch.as_tensor(
-                  m.box_mesh((0.4, 0.6, 0.8)).triangles().astype(np.float32), device=device)),
-              ("single triangle", rand_pts(300, -0.5, 0.5),
-               torch.tensor([[[0.0, 0, 0], [0.3, 0, 0], [0, 0.2, 0.1]]], device=device)),
-              ("on-surface points", torch.as_tensor(m.icosphere_mesh(0.3, 2)
-               .sample_points_uniformly(500, seed=1).astype(np.float32), device=device),
-               scene.tri),
-              ("capsule, points to 1 m away", torch.as_tensor(rng.uniform(
-                  bb[:, 0] - 1.0, bb[:, 1] + 1.0, (far_points, 3)).astype(np.float32),
-                  device=device), cap.tri)]
     errs = {"nowind": 0.0, "mxu": 0.0, "mxu_wind": 0.0}
-    for label, wrapper, plain, winding in (
-            ("nowind", mesh_closest_query_nowind_cuda, sr.SWEEPS["nowind"][1], False),
-            ("mxu", mesh_closest_query_mma_cuda, sr.SWEEPS["mxu"][1], True)):
-        log(f"  {label} vs its plain version:")
+    cases = sweep_cases(device)
+    for kind in ("nowind", "mxu"):
+        log(f"  {kind} vs its plain version:")
         for case, pts, tri in cases:
-            log(f"   {case}")
-            e = compare_variant(label, wrapper, plain, pts, tri, device, winding)
-            errs[label] = max(errs[label], e["dist"], e["closest"])
-            if winding:
+            e = compare_kernel(kind, case, pts, tri, device)
+            errs[kind] = max(errs[kind], e["dist"], e["closest"])
+            if kind == "mxu":
                 errs["mxu_wind"] = max(errs["mxu_wind"], e["winding"])
-    x, y = rand_pts(3000, 0.5, 0.9)[:, 0].contiguous(), rand_pts(3000, 0.01, 0.1)[:, 0].contiguous()
-    before = fma_probe_cuda.launches
-    out = fma_probe_cuda(x, y, 64)
-    sync(device)
-    if device.type == "cuda":
-        check(fma_probe_cuda.launches == before + 1, "fma_probe: no launch")
-    ref = fma_probe(x, y, 64)
-    rel = ((out - ref).abs() / ref.abs()).max().item()
-    log(f"  fma_probe vs plain (n=3000, 64 iterations): rel err {rel:.3g}")
-    check(rel <= sr.GATE_FMA_RTOL, "fma_probe: beyond rtol 1e-5 of the plain version")
 
-    # the probe's own run: the launches counted for these kernels
-    wrappers = (mesh_closest_query_cuda, mesh_closest_query_nowind_cuda,
-                mesh_closest_query_mma_cuda, mesh_closest_query_contracted_cuda,
-                fma_probe_cuda)
+    # the probe's own run (it checks each kernel against its plain version
+    # at its first launch, then times it): the launches counted for them
+    wrappers = [w for w, _, _ in sr.SWEEPS.values()] + [fma_probe_cuda]
     for w in wrappers:
         w.launches = 0
-    fma = sr.measure_fma(device, fma_iters, reps=10, plain_reps=1, n=fma_n)
-    ceiling = fma["tflops"] * 1e12
-    torus_pts, torus = sr.torus_inputs(device, points)
-    on_torus = sr.time_sweeps(torus_pts, torus, reps=reps, fp32_ceiling=ceiling)
-    grid, cap = sr.capsule_cache_grid(device, grid_resolution)
-    on_grid = sr.time_sweeps(grid, cap, reps=reps, plain_reps=1, fp32_ceiling=ceiling)
+    out = sr.run(device, reps=reps)
     launches = {w.__name__: w.launches for w in wrappers}
     log(f"  launches in the probe run: {launches}")
-    check(fma["ok"], "fma_probe: probe run beyond rtol 1e-5 of the plain version")
+    fma = out["fma"]
     log(f"  FP32 ceiling (fma_probe, {fma['n']} threads x {fma['iters']} x 32 FMAs): "
         f"{fma['tflops']:.3f} TFLOP/s in {fma['ms']:.4f} ms (bound {fma['bound_ms']:.4f} ms, "
-        f"plain {fma['plain_ms']:.2f} ms, max rel err {fma['max_rel_err']:.3g}) [{card}]")
-    for cell, res, P, F in (("torus", on_torus, torus_pts.shape[0], torus.num_faces),
-                            ("capsule grid", on_grid, grid.shape[0], cap.num_faces)):
-        log(f"  {cell} (P={P} x F={F} real faces), 110-op model:")
-        for name, r in res.items():
+        f"plain {fma['plain_ms']:.2f} ms, max rel err {fma['max_rel_err']:.3g} at 1, 2 and "
+        f"{fma['iters']} iterations and counting steps) [{card}]")
+    check(fma["ok"], "fma_probe: beyond rtol 1e-5 of the plain version, or above "
+          f"{sr.GATE_FMA_PEAK} x the data-sheet peak")
+    for cell in ("torus", "capsule_grid"):
+        res = out[cell]
+        log(f"  {cell} (P={res['points']} x F={res['faces']} real faces), 110-op model:")
+        for name, r in res["sweeps"].items():
             e = r["errors"]
             log(f"    {name:9s} {r['ms']:9.3f} ms  {r['gpairs_s']:8.3f} G pairs/s  "
                 f"{r['tflops_model']:6.3f} TFLOP/s = {100 * r['share_of_datasheet_peak']:.2f}% "
@@ -581,7 +498,9 @@ def phase_probe(device, card, points=1 << 17, reps=5, fma_iters=4096,
                 f"face {e['face']:.3g} |wind| {e['winding']:.3g}")
             if r["gated"]:
                 check(r["ok"], f"{name} on the {cell}: beyond its gates")
-    return {"launches": launches, "fma": fma, "grid": on_grid, "errs": errs}
+    check(out["ok"], "the roofline probe: a gate failed")
+    return {"launches": launches, "fma": fma, "grid": out["capsule_grid"]["sweeps"],
+            "errs": errs}
 
 
 # ---------------------------------------------------------------------------

@@ -135,10 +135,16 @@ def _winding_contrib(p: torch.Tensor, va: torch.Tensor, vb: torch.Tensor,
     return 2.0 * torch.atan2(num, den)
 
 
-def _pairs_direct(p, a, b, c, winding: bool):
-    """Per-pair (dist2, closest, solid angle or None) from the direct forms."""
+def _pairs_direct(p, a, b, c):
+    """Per-pair (dist2, closest, solid angle) from the direct forms."""
     d2, cp = _closest_point_bary(p, a, b - a, c - a)
-    return d2, cp, _winding_contrib(p, a, b, c) if winding else None
+    return d2, cp, _winding_contrib(p, a, b, c)
+
+
+def _pairs_direct_nowind(p, a, b, c):
+    """:func:`_pairs_direct` without the solid angle (None)."""
+    d2, cp = _closest_point_bary(p, a, b - a, c - a)
+    return d2, cp, None
 
 
 def _cross(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -150,9 +156,8 @@ def _cross(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 EXPANDED_GROUP = 8  # triangles sharing one frame in the expanded sweep
 
 
-def _pairs_expanded(p, a, b, c, winding: bool):
-    """Per-pair (dist2, closest, solid angle; ``winding`` is ignored: the
-    kernel this mirrors always computes it) from the six pairwise dot
+def _pairs_expanded(p, a, b, c, dot=_dot, group: int = EXPANDED_GROUP):
+    """Per-pair (dist2, closest, solid angle) from the six pairwise dot
     products ``p . {ab, ac, n, a, b, c}`` and per-triangle constants (the
     arithmetic of ``benchmarks/pallas_mxu_ab.py`` mode ``mxu``):
     ``d1 = p.ab - ab.a``, ``|a - p|^2 = |a|^2 - 2 p.a + |p|^2``,
@@ -164,15 +169,19 @@ def _pairs_expanded(p, a, b, c, winding: bool):
     the corners, so each group of ``EXPANDED_GROUP`` triangles (counted from
     the first of the tile, which starts at a multiple of the group) works in
     a frame centred on its first triangle's first corner, as the kernel
-    does."""
-    T = a.shape[1]
-    o = a[:, ::EXPANDED_GROUP].repeat_interleave(EXPANDED_GROUP, dim=1)[:, :T]
-    p, a, b, c = p - o, a - o, b - o, c - o
+    does (``group`` 0: the mesh's own frame).  ``dot`` takes the six
+    products (``scripts/tf32_split_emulation_torch.py`` passes emulated
+    split-TF32 products)."""
+    o = 0.0
+    if group:
+        T = a.shape[1]
+        o = a[:, ::group].repeat_interleave(group, dim=1)[:, :T]
+        p, a, b, c = p - o, a - o, b - o, c - o
     ab, ac = b - a, c - a
     # n summed as b x c + c x a + a x b, each cross in the kernel's order
     n = _cross(b, c) + _cross(c, a) + _cross(a, b)
-    pab, pac, pn = _dot(p, ab), _dot(p, ac), _dot(p, n)
-    pa, pb, pc = _dot(p, a), _dot(p, b), _dot(p, c)
+    pab, pac, pn = dot(p, ab), dot(p, ac), dot(p, n)
+    pa, pb, pc = dot(p, a), dot(p, b), dot(p, c)
     d2, cp = _region_cascade(p, a, ab, ac, pab - _dot(ab, a), pac - _dot(ac, a),
                              pab - _dot(ab, b), pac - _dot(ac, b),
                              pab - _dot(ab, c), pac - _dot(ac, c))
@@ -186,11 +195,11 @@ def _pairs_expanded(p, a, b, c, winding: bool):
     return d2, cp + o, 2.0 * torch.atan2(num, den)
 
 
-def _sweep_chunk(points: torch.Tensor, tri: torch.Tensor, tri_chunk: int,
-                 pairs, winding: bool):
+def _sweep_chunk(points: torch.Tensor, tri: torch.Tensor, tri_chunk: int, pairs):
     """One point chunk against all triangles: loop over triangle tiles with
     a running (min d2, closest, face id, winding sum).  Ties go to the lowest
-    face id: first index within a tile, strict ``<`` across tiles."""
+    face id: first index within a tile, strict ``<`` across tiles.  A
+    ``pairs`` function that returns no solid angle leaves the sum at 0."""
     P = points.shape[0]
     p = points[:, None, :]
     best_d2 = torch.full((P,), float("inf"), dtype=points.dtype, device=points.device)
@@ -202,8 +211,8 @@ def _sweep_chunk(points: torch.Tensor, tri: torch.Tensor, tri_chunk: int,
         a = tile[None, :, 0, :]
         b = tile[None, :, 1, :]
         c = tile[None, :, 2, :]
-        d2, cp, solid = pairs(p, a, b, c, winding)
-        if winding:
+        d2, cp, solid = pairs(p, a, b, c)
+        if solid is not None:
             wind = wind + solid.sum(dim=-1)
         arg = torch.argmin(d2, dim=-1)
         tile_d2 = d2.gather(1, arg[:, None])[:, 0]
@@ -215,14 +224,14 @@ def _sweep_chunk(points: torch.Tensor, tri: torch.Tensor, tri_chunk: int,
     return best_d2, best_pt, best_fid, wind
 
 
-def _sweep(points, tri, point_chunk, tri_chunk, pairs, winding):
+def _sweep(points, tri, point_chunk, tri_chunk, pairs):
     Fp = tri.shape[0]
     tri_chunk = min(tri_chunk, Fp)
     tri = pad_to(tri, cdiv(Fp, tri_chunk) * tri_chunk, value=PAD_COORD)
-    parts = [_sweep_chunk(points[s:s + point_chunk], tri, tri_chunk, pairs, winding)
+    parts = [_sweep_chunk(points[s:s + point_chunk], tri, tri_chunk, pairs)
              for s in range(0, points.shape[0], point_chunk)]
     if not parts:
-        parts = [_sweep_chunk(points, tri, tri_chunk, pairs, winding)]
+        parts = [_sweep_chunk(points, tri, tri_chunk, pairs)]
     d2, cp, fid, wind = (torch.cat(x) for x in zip(*parts))
     return torch.sqrt(d2), cp, fid, wind / _FOUR_PI
 
@@ -238,7 +247,8 @@ def mesh_closest_query(points: torch.Tensor, tri: torch.Tensor,
     winding [P])``.  With ``winding=False`` the winding sum is skipped and
     returned as zeros.  Memory is bounded by chunking points and triangles.
     """
-    return _sweep(points, tri, point_chunk, tri_chunk, _pairs_direct, winding)
+    return _sweep(points, tri, point_chunk, tri_chunk,
+                  _pairs_direct if winding else _pairs_direct_nowind)
 
 
 def mesh_closest_query_expanded(points: torch.Tensor, tri: torch.Tensor,
@@ -249,7 +259,7 @@ def mesh_closest_query_expanded(points: torch.Tensor, tri: torch.Tensor,
     Same outputs; agrees with the direct forms to float32 rounding, which
     the expanded forms amplify (about 1e-7 of ``|p|`` in distance)."""
     tri_chunk = round_up(tri_chunk, EXPANDED_GROUP)  # tiles start at a group
-    return _sweep(points, tri, point_chunk, tri_chunk, _pairs_expanded, True)
+    return _sweep(points, tri, point_chunk, tri_chunk, _pairs_expanded)
 
 
 def signed_closest_query(points: torch.Tensor, tri: torch.Tensor,

@@ -6,8 +6,8 @@ per triangle group.
     python3 scripts/tf32_split_emulation_torch.py [--points 4096] [--groups 0 8 32 128]
 
 On the roofline probe's torus (16,384 faces) and an evenly strided subset of
-its 2^17 points, the expanded sweep (``ops.point_triangle``'s arithmetic of
-``csrc/closest_point_mma.cu``) runs with its six dot products taken three
+its 2^17 points, the expanded sweep (``ops.point_triangle._pairs_expanded``,
+the plain version of ``csrc/closest_point_mma.cu``) runs with its six dot products taken three
 ways: plain float32, 3xTF32 (hi/lo split, three products, as the kernel
 issues them) and 6xTF32 (hi/mid/lo, six products), each in the mesh's own
 frame or in one frame per group of G triangles (the first corner of the
@@ -23,6 +23,7 @@ import argparse
 import json
 import os
 import sys
+from functools import partial
 
 import torch
 
@@ -59,31 +60,11 @@ def split_dot(p: torch.Tensor, v: torch.Tensor, parts: int) -> torch.Tensor:
 
 
 def expanded_pairs(parts: int, group: int):
-    """The expanded per-pair arithmetic with split dot products (``parts``
-    0 = plain float32) in frames of ``group`` triangles (0 = none)."""
-    def pairs(p, a, b, c, winding):
-        if group:
-            T = a.shape[1]
-            o = a[:, ::group].repeat_interleave(group, dim=1)[:, :T]
-            p, a, b, c = p - o, a - o, b - o, c - o
-        dot = tpt._dot if parts == 0 else (lambda u, v: split_dot(u, v, parts))
-        ab, ac = b - a, c - a
-        n = tpt._cross(b, c) + tpt._cross(c, a) + tpt._cross(a, b)
-        pab, pac, pn = dot(p, ab), dot(p, ac), dot(p, n)
-        pa, pb, pc = dot(p, a), dot(p, b), dot(p, c)
-        _d = tpt._dot
-        d2, cp = tpt._region_cascade(p, a, ab, ac, pab - _d(ab, a), pac - _d(ac, a),
-                                     pab - _d(ab, b), pac - _d(ac, b),
-                                     pab - _d(ab, c), pac - _d(ac, c))
-        pp = _d(p, p)
-        la = torch.sqrt(torch.clamp(_d(a, a) - 2.0 * pa + pp, min=0.0))
-        lb = torch.sqrt(torch.clamp(_d(b, b) - 2.0 * pb + pp, min=0.0))
-        lc = torch.sqrt(torch.clamp(_d(c, c) - 2.0 * pc + pp, min=0.0))
-        num = _d(a, tpt._cross(b, c)) - pn
-        den = (la * lb * lc + (_d(a, b) - pa - pb + pp) * lc
-               + (_d(b, c) - pb - pc + pp) * la + (_d(c, a) - pc - pa + pp) * lb)
-        return d2, cp, 2.0 * torch.atan2(num, den)
-    return pairs
+    """The plain version's expanded per-pair arithmetic with split dot
+    products (``parts`` 0 = plain float32) in frames of ``group`` triangles
+    (0 = none)."""
+    dot = tpt._dot if parts == 0 else partial(split_dot, parts=parts)
+    return partial(tpt._pairs_expanded, dot=dot, group=group)
 
 
 def main():
@@ -98,10 +79,10 @@ def main():
     direct = tpt.mesh_closest_query(sub, tri, tri_chunk=128)
     out = {}
     for group in args.groups:
-        f32 = tpt._sweep(sub, tri, 2048, 128, expanded_pairs(0, group), True)
+        f32 = tpt._sweep(sub, tri, 2048, 128, expanded_pairs(0, group))
         for parts in (0, 2, 3):
             res = f32 if parts == 0 else tpt._sweep(sub, tri, 2048, 128,
-                                                    expanded_pairs(parts, group), True)
+                                                    expanded_pairs(parts, group))
             out[f"group{group}_{['f32', '', '3xTF32', '6xTF32'][parts]}"] = {
                 "wind_vs_f32_same_frame": (res[3] - f32[3]).abs().max().item(),
                 "wind_vs_direct": (res[3] - direct[3]).abs().max().item(),

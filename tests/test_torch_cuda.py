@@ -167,13 +167,18 @@ def test_contracted_build_is_close_on_card(card):
 @pytest.mark.cuda
 def test_fma_probe_matches_plain_on_card(card):
     """Fused multiply-adds against a multiply then an add: rtol 1e-5 in a
-    recurrence that contracts (|a| < 1)."""
+    recurrence that contracts (|a| < 1), at 1 and 2 iterations before the
+    chains settle and at 100; with a = 1 each chain counts its steps, so the
+    iteration count is checked too."""
     rng = np.random.default_rng(0)
     x = torch.as_tensor(rng.uniform(0.5, 0.9, 1000).astype(np.float32), device=card)
     y = torch.as_tensor(rng.uniform(0.01, 0.1, 1000).astype(np.float32), device=card)
-    before = fma_probe_cuda.launches
-    out = fma_probe_cuda(x, y, 100)
-    torch.cuda.synchronize()
-    assert fma_probe_cuda.launches == before + 1
-    ref = fma_probe(x, y, 100)
-    assert ((out - ref).abs() / ref.abs()).max().item() <= 1e-5
+    inputs = [(x, y, 1), (x, y, 2), (x, y, 100),
+              (torch.ones_like(x), torch.full_like(y, 2.0 ** -10), 100)]
+    for a, b, iters in inputs:
+        before = fma_probe_cuda.launches
+        out = fma_probe_cuda(a, b, iters)
+        torch.cuda.synchronize()
+        assert fma_probe_cuda.launches == before + 1
+        ref = fma_probe(a, b, iters)
+        assert ((out - ref).abs() / ref.abs()).max().item() <= 1e-5, iters

@@ -24,7 +24,7 @@ from pytorch_volumetric_tpu_torch.ops import point_triangle as tpt
 from pytorch_volumetric_tpu_torch.ops.closest_point import (
     mesh_closest_query_contracted_cuda, mesh_closest_query_mma_cuda,
     mesh_closest_query_nowind_cuda)
-from pytorch_volumetric_tpu_torch.ops.fma_probe import fma_probe_cuda, flops
+from pytorch_volumetric_tpu_torch.ops.fma_probe import fma_probe, fma_probe_cuda, flops
 from pytorch_volumetric_tpu_torch.utils import profiling
 
 CPU = torch.device("cpu")
@@ -187,6 +187,21 @@ def test_probe_runs_plain_versions_on_cpu():
         assert r["ok"] is (True if r["gated"] else None), (name, r["errors"])
     fma = sr.measure_fma(CPU, iters=2, reps=1, n=256)
     assert fma["ok"] and fma["max_rel_err"] == 0.0
+
+
+def test_fma_check_catches_skipped_iterations(monkeypatch):
+    """A probe kernel that runs fewer iterations than it is asked for agrees
+    with the plain version on the probe's own inputs once the chains have
+    settled, but not on the step-counting input: the check fails it."""
+    def short(x, y, iters):
+        return fma_probe(x, y, iters - 1 if iters > 2 else iters)
+
+    fma = sr.measure_fma(CPU, iters=40, reps=1, n=64)
+    assert fma["ok"]
+    monkeypatch.setattr(sr, "fma_probe_cuda", short)
+    assert fma_probe(*[torch.full((64,), v) for v in (0.7, 0.05)], 40).allclose(
+        short(*[torch.full((64,), v) for v in (0.7, 0.05)], 40), rtol=1e-5)
+    assert not sr.measure_fma(CPU, iters=40, reps=1, n=64)["ok"]
 
 
 def test_library_flags_are_hashed():
