@@ -10,8 +10,11 @@ Phases, each fatal on failure:
    ``pytorch_volumetric_tpu_torch/csrc`` (one ``nvcc`` per source, in
    parallel);
 2. the closest-point + winding kernel against its plain PyTorch version on
-   the card, on ragged and tiny shapes and at the headline shapes, with its
-   time, the plain version's time and the derived bound;
+   the card (distances, closest points and face ids exactly equal), on
+   ragged and tiny shapes, padded, open and symmetric meshes, points
+   straddling a mesh's box and at the headline shapes, with its time on the
+   capsule's cache-build grid beside the redesign's predecessor's, the
+   share of pairs it evaluated, the plain version's time and both bounds;
 3. the exact-link robot (7-DOF arm, ``MeshSDF`` links: the kernel on every
    query), 200 configurations x 15,251 points, checked against the plain
    sweep on the card;
@@ -98,11 +101,25 @@ def time_ms(fn, device, reps=5, warmup=1):
 # phase 2: the kernel against its plain version
 # ---------------------------------------------------------------------------
 
+# cases only the sweep kernel and its no-winding instantiation are held
+# to: padding rows between real faces (the tensor-core sweep's 8-face
+# frames assume MeshScene's tail padding), and points straddling the
+# capsule's box (its expanded solid angles miss the 1e-3 winding gate by
+# up to ~1.5e-3 that close to the surface)
+MID_PADDING = "capsule, padding in the middle"
+STRADDLING = "capsule, points straddling its box"
+NOT_FOR_MXU = (MID_PADDING, STRADDLING)
+
+
 def sweep_cases(device, capsule_points=100_000):
-    """``(name, points, triangles)`` every sweep kernel is held against its
-    plain version on: ragged and tiny shapes, points on the surface, and the
-    headline link mesh (the arm's capsule, edges 2-5 cm) with points up to
-    1 m away, where the tensor-core sweep's expanded forms cancel most."""
+    """``(name, points, triangles, exterior box)`` every sweep kernel is
+    held against its plain version on: ragged and tiny shapes, padding in
+    the tail and in the middle, an open mesh (no box), points on the
+    surface, exact ties on a symmetric mesh, warps mixing points inside and
+    outside the box, and the headline link mesh (the arm's capsule, edges
+    2-5 cm) with points up to 1 m away, where the tensor-core sweep's
+    expanded forms cancel most.  The box is ``mesh.exterior_box`` of the
+    triangles (None for an open surface); only the sweep kernel reads it."""
     import pytorch_volumetric_tpu_torch as pt
     m = pt.mesh
     rng = np.random.default_rng(0)
@@ -110,38 +127,56 @@ def sweep_cases(device, capsule_points=100_000):
     def rand_pts(n, lo, hi):
         return torch.as_tensor(rng.uniform(lo, hi, (n, 3)).astype(np.float32), device=device)
 
+    def case(name, pts, tri):
+        tri = torch.as_tensor(tri, device=device).contiguous()
+        return name, pts, tri, m.exterior_box(tri.cpu().numpy())
+
     scene = m.MeshScene.from_mesh(m.icosphere_mesh(0.3, 2).concatenate(
         m.box_mesh((0.2, 0.3, 0.1), center=(0.4, 0.0, 0.0))), device=device)
-    cases = [("icosphere+box", rand_pts(1000, -0.6, 0.8), scene.tri)]
-    cases += [(f"ragged P={P}", rand_pts(P, -0.5, 0.5), scene.tri) for P in (1, 7, 129, 257)]
-    cases.append(("box, F=12 < tile", rand_pts(300, -0.8, 0.8), torch.as_tensor(
-        m.box_mesh((0.4, 0.6, 0.8)).triangles().astype(np.float32), device=device)))
-    cases.append(("single triangle", rand_pts(300, -0.5, 0.5),
-                  torch.tensor([[[0.0, 0, 0], [0.3, 0, 0], [0, 0.2, 0.1]]], device=device)))
+    cases = [case("icosphere+box (padding tail)", rand_pts(1000, -0.6, 0.8), scene.tri)]
+    cases += [case(f"ragged P={P}", rand_pts(P, -0.5, 0.5), scene.tri)
+              for P in (1, 7, 31, 33, 129, 257, 5000)]
+    box = m.box_mesh((0.4, 0.6, 0.8)).triangles().astype(np.float32)
+    cases.append(case("box, F=12 < tile", rand_pts(300, -0.8, 0.8), box))
+    cases.append(case("open box (one face less)", rand_pts(300, -0.8, 0.8), box[1:]))
+    cases.append(case("single triangle", rand_pts(300, -0.5, 0.5),
+                      np.array([[[0.0, 0, 0], [0.3, 0, 0], [0, 0.2, 0.1]]], np.float32)))
+    cap_mesh = m.capsule_mesh(radius=0.045, height=0.18, segments=14, rings=5)
+    cap = m.MeshScene.from_mesh(cap_mesh, device=device)
+    pad = torch.full((40, 3, 3), m.PAD_COORD, device=device)
+    cases.append(case(MID_PADDING, rand_pts(2000, -0.3, 0.3),
+                      torch.cat([cap.tri[:100], pad, cap.tri[100:]])))
     # points exactly on the surface (the normal override's regime)
     surf = m.icosphere_mesh(0.3, 2).sample_points_uniformly(500, seed=1)
-    cases.append(("on-surface points", torch.as_tensor(surf.astype(np.float32), device=device),
-                  scene.tri))
-    cap_mesh = m.capsule_mesh(radius=0.045, height=0.18, segments=14, rings=5)
+    cases.append(case("on-surface points", torch.as_tensor(surf.astype(np.float32),
+                                                           device=device), scene.tri))
+    # a symmetric mesh seen from a symmetric grid: many exact ties
+    _, grid = pt.get_coordinates_and_points_in_grid(
+        0.05, np.array([[-0.5, 0.5]] * 3), device=device)
+    cases.append(case("centred box on a grid (ties)", grid.contiguous(), box))
+    # a band around the capsule's box: warps of points inside and outside
     bb = cap_mesh.aabb()
-    cases.append((f"capsule, {capsule_points} points to 1 m away", torch.as_tensor(
+    cases.append(case(STRADDLING, torch.as_tensor(
+        rng.uniform(bb[:, 0] - 0.01, bb[:, 1] + 0.01, (5000, 3)).astype(np.float32),
+        device=device), cap.tri))
+    cases.append(case(f"capsule, {capsule_points} points to 1 m away", torch.as_tensor(
         rng.uniform(bb[:, 0] - 1.0, bb[:, 1] + 1.0, (capsule_points, 3)).astype(np.float32),
-        device=device), m.MeshScene.from_mesh(cap_mesh, device=device).tri))
+        device=device), cap.tri))
     return cases
 
 
-def compare_kernel(kind, case, pts, tri, device):
+def compare_kernel(kind, case, pts, tri, device, box=None):
     """One launch of the sweep kernel ``sweep_roofline.SWEEPS[kind]`` against
     its plain version on one input; fails beyond its gates and returns its
-    errors (``sweep_roofline.sweep_errors``).  The sweep kernel ("base")
-    equals its plain version bit for bit, so it is held to the plain
-    version's own closest point and to |winding| at every point; the probe's
-    kernels to the closest point on the face they chose and to the winding
-    off the surface."""
+    errors (``sweep_roofline.sweep_errors``).  The sweep kernel ("base",
+    given the case's exterior box) must equal its plain version's
+    distances, closest points and face ids exactly, and |winding| within
+    1e-4 at every point; the probe's kernels are held to the closest point
+    on the face they chose and to the winding off the surface."""
     from pytorch_volumetric_tpu_torch.bench import sweep_roofline as sr
     wrapper, plain, _ = sr.SWEEPS[kind]
     before = wrapper.launches
-    out = wrapper(pts, tri)
+    out = wrapper(pts, tri, exterior_box=box) if kind in sr.TAKES_BOX else wrapper(pts, tri)
     sync(device)
     if device.type == "cuda":
         check(wrapper.launches == before + 1, f"{kind}, {case}: no launch")
@@ -153,20 +188,27 @@ def compare_kernel(kind, case, pts, tri, device):
           f"{kind}, {case}: non-finite output")
     e = sr.sweep_errors(out, ref, pts, tri)
     e["abs_winding"] = (w1.abs() - ref[3].abs()).abs().max().item()
+    e["exact"] = all(torch.equal(a, b) for a, b in zip(out[:3], ref[:3]))
     same_fid = (f1 == ref[2]).float().mean().item()
-    log(f"    {case}: P={pts.shape[0]} F={tri.shape[0]} |d| {e['dist']:.3g}, |closest| "
-        f"{e['closest_raw']:.3g} (on the chosen face {e['closest']:.3g}), face-contract "
-        f"{e['face']:.3g}, |wind| {e['winding']:.3g} off the surface ({e['on_surface']} "
-        f"points within {sr.WIND_MIN_DIST:g}), ||wind|| {e['abs_winding']:.3g} everywhere; "
-        f"same face id {same_fid * 100:.2f}%")
+    log(f"    {case}: P={pts.shape[0]} F={tri.shape[0]}"
+        f"{' (box)' if box is not None and kind in sr.TAKES_BOX else ''} |d| {e['dist']:.3g}, "
+        f"|closest| {e['closest_raw']:.3g} (on the chosen face {e['closest']:.3g}), "
+        f"face-contract {e['face']:.3g}, |wind| {e['winding']:.3g} off the surface "
+        f"({e['on_surface']} points within {sr.WIND_MIN_DIST:g}), ||wind|| "
+        f"{e['abs_winding']:.3g} everywhere; same face id {same_fid * 100:.2f}%; "
+        f"bit-identical d/closest/fid: {e['exact']}")
     if kind == "base":
-        check(e["dist"] <= 1e-5 and e["closest_raw"] <= 1e-5,
-              f"{case}: distance/closest beyond 1e-5")
+        check(e["exact"], f"{case}: distance, closest point or face id differs from the "
+              "plain version")
         check(e["abs_winding"] <= 1e-4, f"{case}: |winding| beyond 1e-4")
-        check(e["face"] <= 1e-5, f"{case}: chosen face misses the minimal distance")
     else:
         check(sr.check_sweep(kind, e), f"{kind}, {case}: beyond its gates against the plain version")
     return e
+
+
+# K1 on the capsule's cache-build grid before its redesign for Hopper, on
+# an H100 80GB HBM3 at 700 W (PERF.md, the kernel table)
+K1_GRID_MS_BEFORE = 6.276
 
 
 def phase_kernel(device, capsule_points=100_000, grid_scale=1.0, reps=5):
@@ -175,24 +217,35 @@ def phase_kernel(device, capsule_points=100_000, grid_scale=1.0, reps=5):
     from pytorch_volumetric_tpu_torch.ops.point_triangle import mesh_closest_query
 
     err = 0.0
-    for case, pts, tri in sweep_cases(device, capsule_points):
-        e = compare_kernel("base", case, pts, tri, device)
+    for case, pts, tri, box in sweep_cases(device, capsule_points):
+        e = compare_kernel("base", case, pts, tri, device, box)
         err = max(err, e["dist"], e["closest_raw"])
 
     # time it at the main path's shape: the capsule's cache-build grid
-    # (resolution 0.02, padding 1.0), one launch over the whole grid
+    # (resolution 0.02, padding 1.0), one launch over the whole grid with
+    # the scene's exterior box, as MeshSDF calls it
     grid, cap = sr.capsule_cache_grid(device, 0.02 / grid_scale)
     P, Fp, F = grid.shape[0], cap.tri.shape[0], cap.num_faces
-    ms = time_ms(lambda: mesh_closest_query_cuda(grid, cap.tri), device, reps=reps)
+    box = cap.exterior_box
+    ms = time_ms(lambda: mesh_closest_query_cuda(grid, cap.tri, exterior_box=box), device,
+                 reps=reps)
     plain_ms = time_ms(lambda: mesh_closest_query(grid, cap.tri), device,
                        reps=max(1, reps // 2))
+    ev = sr.evaluated_pairs(mesh_closest_query_cuda, grid, cap.tri, exterior_box=box)
     bound_ms, bound_by = sr.sweep_bound_ms(P, F)
-    log(f"  timing (capsule cache-build grid, one launch): P={P} x Fp={Fp} "
-        f"(F={F} real): kernel {ms:.3f} ms = {P * Fp / ms / 1e6:.4g} G padded pairs/s "
-        f"= {P * F / ms / 1e6:.4g} G real pairs/s; bound {bound_ms:.3f} ms ({bound_by}); "
-        f"plain {plain_ms:.3f} ms; no single PyTorch call computes this function")
+    ev_ms, ev_by = sr.evaluated_bound_ms(P, F, ev["closest_pairs"], ev["winding_pairs"])
+    share = ev["closest_pairs"] / (P * F)
+    wshare = ev["winding_pairs"] / (P * F)
+    log(f"  timing (capsule cache-build grid, one launch): P={P} x Fp={Fp} (F={F} real): "
+        f"kernel {ms:.3f} ms (before the redesign: {K1_GRID_MS_BEFORE} ms on an H100 80GB "
+        f"HBM3 at 700 W) = {P * F / ms / 1e6:.4g} G real pairs/s; pairs evaluated: closest point "
+        f"{share * 100:.2f}%, solid angle {wshare * 100:.2f}% of {P * F} real pairs; "
+        f"brute-force bound {bound_ms:.3f} ms ({bound_by}, 110 ops x every real pair); "
+        f"bound over the evaluated pairs {ev_ms:.3f} ms ({ev_by}); plain {plain_ms:.3f} ms; "
+        f"no single PyTorch call computes this function")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "pairs": P * Fp}
+            "bound_by": bound_by, "pairs": P * Fp, "evaluated_share": share,
+            "winding_share": wshare, "bound_evaluated_ms": ev_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -463,7 +516,9 @@ def phase_probe(device, card, reps=5):
     cases = sweep_cases(device)
     for kind in ("nowind", "mxu"):
         log(f"  {kind} vs its plain version:")
-        for case, pts, tri in cases:
+        for case, pts, tri, _ in cases:
+            if kind == "mxu" and case in NOT_FOR_MXU:
+                continue
             e = compare_kernel(kind, case, pts, tri, device)
             errs[kind] = max(errs[kind], e["dist"], e["closest"])
             if kind == "mxu":

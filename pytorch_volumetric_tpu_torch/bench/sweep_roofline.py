@@ -14,15 +14,21 @@ The counterpart of the JAX package's ``benchmarks/pallas_mfu.py`` and
    accuracy ("mxu", ``csrc/closest_point_mma.cu``, 3xTF32);
 4. what the main path's ``-fmad=false`` build costs ("base_fmad": the same
    source with multiply-add contraction on; its errors are reported, not
-   gated).
+   gated);
+5. what each of the sweep kernel's levers buys (``LEVERS``: select-then-
+   divide and padding skipped, then the exterior winding shortcut, then
+   cluster culling), with the pairs each evaluates.
 
 Each sweep runs on a procedural torus of 16,384 faces with 2^17 points
 uniform in [-0.2, 0.2]^3, and at the main path's shape, the capsule link's
-cache-build grid (1,267,875 points x 384 padded faces).  Each kernel's
+cache-build grid (1,267,875 points x 384 padded faces); the sweep kernel
+gets the scene's exterior box, as ``MeshSDF`` passes it.  Each kernel's
 first launch is checked against its plain version on an evenly strided
 subset of 4,096 points; then its time is the mean of ``--reps`` launches
 timed with CUDA events.  Shares of the FP32 peak use the JAX package's
-model of 110 FP32 operations per (point, real triangle) pair.
+model of 110 FP32 operations per (point, real triangle) pair; the sweep
+kernel's pair counters give the pairs it evaluated and a second bound over
+those alone.
 
 Prints one JSON line; exits non-zero without a CUDA device, when a gated
 kernel disagrees with its plain version, or when the FP32 ceiling comes
@@ -68,6 +74,12 @@ FLOPS_PER_PAIR = 110
 SWEEP_OPS = {"base": (FLOPS_PER_PAIR, 0), "base_fmad": (FLOPS_PER_PAIR, 0),
              "nowind": (FLOPS_PER_PAIR * 81 / 148, 0),
              "mxu": (FLOPS_PER_PAIR - 50, 288)}
+# the model's split between a pair's closest point and its solid angle, for
+# the bound over the pairs the sweep kernel evaluated (it skips padding,
+# culled clusters' closest points and the solid angles outside a closed
+# mesh's box)
+CLOSEST_OPS = FLOPS_PER_PAIR * 81 / 148
+WINDING_OPS = FLOPS_PER_PAIR * 67 / 148
 
 # name -> (kernel wrapper, plain version, gated against the plain version)
 SWEEPS = {
@@ -76,6 +88,16 @@ SWEEPS = {
                partial(tpt.mesh_closest_query, winding=False), True),
     "mxu": (mesh_closest_query_mma_cuda, tpt.mesh_closest_query_expanded, True),
     "base_fmad": (mesh_closest_query_contracted_cuda, tpt.mesh_closest_query, False),
+}
+# the sweeps that take the scene's exterior box, as the main path passes it
+TAKES_BOX = ("base", "base_fmad")
+# the sweep kernel's levers, switched on one by one (bench: time_levers)
+# (points per thread, cluster size and occupancy are compile-time choices:
+# scripts/sweep_variants_torch.py)
+LEVERS = {
+    "divide+padding": dict(exterior=False, cull=False),
+    "+exterior": dict(exterior=True, cull=False),
+    "+cull": dict(exterior=True, cull=True),
 }
 # gates against the plain version: distance and closest point (float32
 # rounding of one arithmetic, amplified by the expanded forms up to ~1e-6 at
@@ -127,6 +149,28 @@ def sweep_bound_ms(n_points: int, n_faces: int, fp32_ops: float = FLOPS_PER_PAIR
     ops_s = max(pairs * fp32_ops / PEAK_FP32_FLOPS, pairs * tf32_ops / PEAK_TF32_FLOPS)
     bytes_s = (n_points * (12 + 24) + n_faces * 36) / PEAK_BYTES_PER_S
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def evaluated_bound_ms(n_points: int, n_faces: int, closest_pairs: int,
+                       winding_pairs: int):
+    """Least time for the pairs the sweep kernel evaluated: ``CLOSEST_OPS``
+    per closest-point pair and ``WINDING_OPS`` per solid-angle pair over
+    the FP32 peak, or its bytes over the memory rate (as
+    :func:`sweep_bound_ms`).  Returns ``(ms, "operations" | "bytes")``."""
+    ops_s = (closest_pairs * CLOSEST_OPS + winding_pairs * WINDING_OPS) / PEAK_FP32_FLOPS
+    bytes_s = (n_points * (12 + 24) + n_faces * 36) / PEAK_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def evaluated_pairs(wrapper, pts, tri, **kwargs) -> dict:
+    """One launch of the sweep kernel (or its no-winding instantiation)
+    with its pair counters: the (point, real triangle) pairs whose closest
+    point, and whose solid angle, it evaluated.  Zeros on the CPU, where
+    the plain version evaluates every pair and counts nothing."""
+    counters = torch.zeros(2, dtype=torch.int64, device=pts.device)
+    wrapper(pts, tri, counters=counters, **kwargs)
+    closest, winding = (int(x) for x in counters.tolist())
+    return {"closest_pairs": closest, "winding_pairs": winding}
 
 
 def fma_bound_ms(n: int, iters: int):
@@ -181,10 +225,11 @@ def time_sweeps(pts, scene, names=tuple(SWEEPS), reps: int = 10,
     results, plain_ms = {}, {}
     for name in names:
         wrapper, plain, gated = SWEEPS[name]
+        kw = {"exterior_box": scene.exterior_box} if name in TAKES_BOX else {}
         bound_ms, bound_by = sweep_bound_ms(P, F, *SWEEP_OPS[name])
-        out = wrapper(pts, tri)
+        out = wrapper(pts, tri, **kw)
         errors = sweep_errors([x[::stride] for x in out], plain(sub, tri), sub, tri)
-        ms = device_time(wrapper, pts, tri, reps=reps, warmup=0) * 1e3
+        ms = device_time(lambda p, t: wrapper(p, t, **kw), pts, tri, reps=reps, warmup=0) * 1e3
         model_flops = P * F * FLOPS_PER_PAIR / (ms / 1e3)
         r = {"ms": ms, "gpairs_s": P * F / ms / 1e6,
              "gpairs_padded_s": P * tri.shape[0] / ms / 1e6,
@@ -193,6 +238,11 @@ def time_sweeps(pts, scene, names=tuple(SWEEPS), reps: int = 10,
              "bound_ms": bound_ms, "bound_by": bound_by,
              "errors": errors, "gated": gated,
              "ok": check_sweep(name, errors) if gated else None}
+        if name in ("base", "nowind"):
+            r.update(evaluated_pairs(wrapper, pts, tri, **kw))
+            r["evaluated_share"] = r["closest_pairs"] / (P * F)
+            r["bound_evaluated_ms"], r["bound_evaluated_by"] = evaluated_bound_ms(
+                P, F, r["closest_pairs"], r["winding_pairs"])
         if fp32_ceiling:
             r["share_of_measured_ceiling"] = model_flops / fp32_ceiling
         if plain_reps:
@@ -202,6 +252,30 @@ def time_sweeps(pts, scene, names=tuple(SWEEPS), reps: int = 10,
             r["plain_ms"] = plain_ms[plain]
         results[name] = r
     return results
+
+
+def time_levers(pts, scene, reps: int = 10) -> dict:
+    """The sweep kernel with its levers switched on one by one
+    (``LEVERS``): time (mean of ``reps`` launches) and the pairs evaluated
+    of each configuration.  Every configuration's distances, closest points
+    and face ids must equal the first one's bit for bit (``same``)."""
+    P, F = pts.shape[0], scene.num_faces
+    out, ref = {}, None
+    for name, opt in LEVERS.items():
+        kw = dict(exterior_box=scene.exterior_box if opt["exterior"] else None,
+                  cull=opt["cull"])
+        res = mesh_closest_query_cuda(pts, scene.tri, **kw)
+        if ref is None:
+            ref = res
+        ms = device_time(lambda p, t: mesh_closest_query_cuda(p, t, **kw), pts, scene.tri,
+                         reps=reps, warmup=0) * 1e3
+        r = {"ms": ms, "same": all(torch.equal(a, b) for a, b in zip(res[:3], ref[:3])),
+             "winding_err": (res[3] - ref[3]).abs().max().item()}
+        r.update(evaluated_pairs(mesh_closest_query_cuda, pts, scene.tri, **kw))
+        r["evaluated_share"] = r["closest_pairs"] / (P * F)
+        r["winding_share"] = r["winding_pairs"] / (P * F)
+        out[name] = r
+    return out
 
 
 def fma_errors(x, y, iters: int):
@@ -283,14 +357,19 @@ def run(device, points: int = 1 << 17, reps: int = 10, fma_iters: int = 4096) ->
     ceiling = fma["tflops"] * 1e12
     pts, scene = torus_inputs(device, points)
     torus = time_sweeps(pts, scene, reps=reps, fp32_ceiling=ceiling)
+    torus_levers = time_levers(pts, scene, reps=reps)
     grid, cap = capsule_cache_grid(device)
     capsule = time_sweeps(grid, cap, reps=reps, plain_reps=1, fp32_ceiling=ceiling)
+    capsule_levers = time_levers(grid, cap, reps=reps)
     ok = fma["ok"] and all(r["ok"] for sweeps in (torus, capsule)
                            for r in sweeps.values() if r["gated"])
+    ok = ok and all(r["same"] for lv in (torus_levers, capsule_levers) for r in lv.values())
     return {"metric": "sweep_roofline", "ok": ok, "fma": fma,
-            "torus": {"points": points, "faces": scene.num_faces, "sweeps": torus},
+            "torus": {"points": points, "faces": scene.num_faces, "sweeps": torus,
+                      "levers": torus_levers},
             "capsule_grid": {"points": grid.shape[0], "faces": cap.num_faces,
-                             "padded_faces": cap.tri.shape[0], "sweeps": capsule},
+                             "padded_faces": cap.tri.shape[0], "sweeps": capsule,
+                             "levers": capsule_levers},
             "flop_model_per_pair": FLOPS_PER_PAIR,
             "datasheet_fp32_tflops": PEAK_FP32_FLOPS / 1e12}
 

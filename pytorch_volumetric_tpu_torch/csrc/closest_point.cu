@@ -9,203 +9,491 @@
 // face order with a strict '<', so the lowest id wins ties), the closest
 // point, and the solid-angle sum (divided by 4*pi by the caller).
 //
-// What bounds it on an H100: arithmetic, not memory.  Each pair costs about
-// 110 FP32 operations plus 3 square roots, 5 divisions and one atan2, while
-// the bytes are tiny: a point is read once, a triangle once per block of
-// points and from L2 after the first block.  The square roots, divisions
-// and atan2 lean on the special-function units, which may bind before the
-// FP32 lanes do.
+// What bounds it on an H100: instruction issue.  A pair costs about 110
+// FP32 operations plus square roots, divisions and an atan2, while the bytes
+// are tiny (a point is read once, a triangle once per block and from L2
+// after the first); the SMs issue one warp-instruction per scheduler and
+// cycle, and the brute-force loop needed ~381 of them per pair.  So the
+// design cuts pairs and instructions per pair, never the per-pair rounding:
 //
-// Design (simple first): one thread per point, 128 points per block.  The
-// block streams tiles of 128 triangles through shared memory (corners plus
-// the two edge vectors, 15 floats each); every thread reads the same
-// triangle at the same time, so shared-memory reads are broadcasts.  The
-// running state stays in registers.  Ragged point counts are masked here;
-// triangles may carry the caller's far-away padding, which never wins the
-// min and gives exactly zero solid angle.
+// 1. Select, then divide.  The six region flags come first; the quotient
+//    each output needs is picked by the cascade's priority and divided once,
+//    two IEEE divisions per pair instead of five.  Each kept quotient is the
+//    same division of the same operands as in the plain version.
+// 2. Padding is skipped.  A triangle whose nine coordinates all equal
+//    mesh.PAD_COORD is dropped when its tile is compacted into shared
+//    memory; every padding triangle gives the same pair, so the first one
+//    is evaluated once at the end and merged by (d2, face id).
+// 3. Exterior winding.  For a mesh with no boundary the winding number is
+//    exactly 0 outside its bounding box.  The caller passes that box (grown
+//    by a margin) only for such meshes; a warp whose points all lie strictly
+//    outside it sums no solid angle and writes 0.
+// 4. Cluster culling.  Each run of kCluster consecutive real triangles gets
+//    a bounding box, grown by kCullAbs of its largest coordinate.  A warp
+//    skips a cluster's closest-point work when every point's squared
+//    distance to the box, less kCullRel of itself, is >= its running best
+//    (all skipped faces have higher ids, so none could replace it under the
+//    strict '<') or > an upper bound on its final best (the distance to a
+//    corner of a well-shaped triangle sampled every kCluster faces, plus the
+//    same margins: such faces cannot reach the final minimum).  Clusters
+//    holding a thin triangle (squared area below kThin of its longest
+//    edge's fourth power), whose cascade can round far off the triangle,
+//    are never culled and give no bound.  Faces keep their order.
+// 5. Points per thread (kPointsPerThread): more would spread the 15 shared
+//    loads and the loop's integer and control instructions over several
+//    points, but on the H100 2 and 4 were slower (wider warps cull less,
+//    and take 80 and 96 registers), so it is 1;
+//    scripts/sweep_variants_torch.py measures the others.
 //
 // Every sum and product is written in the same order as the plain PyTorch
 // version (ops/point_triangle.py), and the library is built with
 // -fmad=false, so on the card the kernel reproduces the plain version's
 // squared distances, closest points and face ids bit for bit; only the
-// winding sum differs, by summation order.
+// winding sum differs, by summation order (and by exactly 0 where the
+// exterior shortcut replaces a sum that rounds to about 1e-7).  The culling
+// margins hold that parity for points up to ~10^3 of the cluster's shortest
+// edge from the surface; nearer, the rounding they must cover is far smaller.
+//
+// Design: 128 threads per block.  The block streams tiles of 128 triangles
+// through shared memory (corners plus the two edge vectors, 15 floats each,
+// compacted to the real triangles, with their face ids and the cluster
+// boxes); every thread reads the same triangle at the same time, so
+// shared-memory reads are broadcasts.  The running state stays in
+// registers.  Ragged point counts are masked here.
 //
 // The body is a template on kWinding.  kWinding=true is the sweep above;
 // kWinding=false is the same closest-point arithmetic without the solid
 // angle (the no-winding variant of benchmarks/pallas_mxu_ab.py ::
-// sweep_kernel, mode "nowind"), which the roofline probe times against it
-// to measure the winding's share.  The probe also builds this source with
-// contraction on (-fmad=true) to measure what -fmad=false costs.
+// sweep_kernel, mode "nowind"), which the roofline probe times against it.
+// The probe also builds this source with contraction on (-fmad=true) to
+// measure what -fmad=false costs.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;   // points per block, one per thread
+constexpr int kThreads = 128;   // threads per block
+constexpr int kWarps = kThreads / 32;
 constexpr int kTriTile = 128;   // triangles per shared-memory tile
+constexpr int kCluster = 8;     // triangles per culling cluster
+constexpr int kPointsPerThread = 1;
+constexpr int kClusters = kTriTile / kCluster;
+constexpr float kPad = 1.0e7f;  // mesh.PAD_COORD
+constexpr float kCullRel = 1e-3f;
+constexpr float kCullAbs = 1e-5f;
+constexpr float kThin = 1e-3f;
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float safe_div(float num, float den) {
-  return num / (fabsf(den) < 1e-30f ? 1e-30f : den);
+struct Box {
+  float lo[3], hi[3];
+};
+
+struct Tri {
+  float ax, ay, az, bx, by, bz, cx, cy, cz, abx, aby, abz, acx, acy, acz;
+};
+
+struct Point {
+  float px, py, pz;
+  float best;  // running min squared distance
+  int fid;
+  float qx, qy, qz;
+  float wind;
+};
+
+__device__ __forceinline__ float safe_den(float den) {
+  return fabsf(den) < 1e-30f ? 1e-30f : den;
 }
 
-template <bool kWinding>
+// Squared distance from p to its closest point q on t (Ericson RTCD 5.1.5),
+// operation for operation as the plain version's _closest_point_bary.
+__device__ __forceinline__ float closest_pair(const Tri& t, float px, float py, float pz,
+                                              float& qx, float& qy, float& qz) {
+  const float apx = px - t.ax, apy = py - t.ay, apz = pz - t.az;
+  const float d1 = t.abx * apx + t.aby * apy + t.abz * apz;
+  const float d2 = t.acx * apx + t.acy * apy + t.acz * apz;
+  const float bpx = apx - t.abx, bpy = apy - t.aby, bpz = apz - t.abz;
+  const float d3 = t.abx * bpx + t.aby * bpy + t.abz * bpz;
+  const float d4 = t.acx * bpx + t.acy * bpy + t.acz * bpz;
+  const float cpx = apx - t.acx, cpy = apy - t.acy, cpz = apz - t.acz;
+  const float d5 = t.abx * cpx + t.aby * cpy + t.abz * cpz;
+  const float d6 = t.acx * cpx + t.acy * cpy + t.acz * cpz;
+
+  const float va = d3 * d6 - d5 * d4;
+  const float vb = d5 * d2 - d1 * d6;
+  const float vc = d1 * d4 - d3 * d2;
+  const float denom = va + vb + vc;
+  const float e43 = d4 - d3, e56 = d5 - d6;
+
+  const bool in_a = (d1 <= 0.f) && (d2 <= 0.f);
+  const bool in_b = (d3 >= 0.f) && (d4 <= d3);
+  const bool in_c = (d6 >= 0.f) && (d5 <= d6);
+  const bool on_ab = (vc <= 0.f) && (d1 >= 0.f) && (d3 <= 0.f);
+  const bool on_ac = (vb <= 0.f) && (d2 >= 0.f) && (d6 <= 0.f);
+  const bool on_bc = (va <= 0.f) && (e43 >= 0.f) && (e56 >= 0.f);
+
+  // priority: A > B > C > AB > AC > BC > interior.  The first quotient is
+  // the one the winning edge needs (v_ab, w_ac or w_bc) or the interior's
+  // v; the second is the interior's w.
+  float num = vb, den = denom;
+  if (on_bc) { num = e43; den = e43 + e56; }
+  if (on_ac) { num = d2; den = d2 - d6; }
+  if (on_ab) { num = d1; den = d1 - d3; }
+  const float q1 = num / safe_den(den);
+  const float q2 = vc / safe_den(denom);
+  float v = q1, w = q2;
+  if (on_bc) { v = 1.f - q1; w = q1; }
+  if (on_ac) { v = 0.f; w = q1; }
+  if (on_ab) { v = q1; w = 0.f; }
+  if (in_c) { v = 0.f; w = 1.f; }
+  if (in_b) { v = 1.f; w = 0.f; }
+  if (in_a) { v = 0.f; w = 0.f; }
+
+  qx = t.ax + v * t.abx + w * t.acx;
+  qy = t.ay + v * t.aby + w * t.acy;
+  qz = t.az + v * t.abz + w * t.acz;
+  const float dx = qx - px, dy = qy - py, dz = qz - pz;
+  return dx * dx + dy * dy + dz * dz;
+}
+
+// Solid angle of t seen from p (van Oosterom & Strackee), as the plain
+// version's _winding_contrib.
+__device__ __forceinline__ float solid_angle(const Tri& t, float px, float py, float pz) {
+  const float a0 = t.ax - px, a1 = t.ay - py, a2 = t.az - pz;
+  const float b0 = t.bx - px, b1 = t.by - py, b2 = t.bz - pz;
+  const float c0 = t.cx - px, c1 = t.cy - py, c2 = t.cz - pz;
+  const float la = sqrtf(a0 * a0 + a1 * a1 + a2 * a2);
+  const float lb = sqrtf(b0 * b0 + b1 * b1 + b2 * b2);
+  const float lc = sqrtf(c0 * c0 + c1 * c1 + c2 * c2);
+  const float x0 = b1 * c2 - b2 * c1;
+  const float x1 = b2 * c0 - b0 * c2;
+  const float x2 = b0 * c1 - b1 * c0;
+  const float num = a0 * x0 + a1 * x1 + a2 * x2;
+  const float den = la * lb * lc + (a0 * b0 + a1 * b1 + a2 * b2) * lc
+                    + (b0 * c0 + b1 * c1 + b2 * c2) * la
+                    + (c0 * a0 + c1 * a1 + c2 * a2) * lb;
+  return 2.f * atan2f(num, den);
+}
+
+// Whether a triangle with edges ab, ac is thin: squared area (of the
+// parallelogram) below kThin of its longer edge's fourth power.  NaN is thin.
+__device__ __forceinline__ bool is_thin(float abx, float aby, float abz,
+                                        float acx, float acy, float acz) {
+  const float x0 = aby * acz - abz * acy;
+  const float x1 = abz * acx - abx * acz;
+  const float x2 = abx * acy - aby * acx;
+  const float cross2 = x0 * x0 + x1 * x1 + x2 * x2;
+  const float l2 = fmaxf(abx * abx + aby * aby + abz * abz, acx * acx + acy * acy + acz * acz);
+  return !(cross2 >= kThin * (l2 * l2));
+}
+
+// The tile's triangle at slot k (structure of arrays, 15 rows).
+__device__ __forceinline__ Tri load_tri(const float* __restrict__ s, int k) {
+  Tri t;
+  t.ax = s[0 * kTriTile + k];  t.ay = s[1 * kTriTile + k];  t.az = s[2 * kTriTile + k];
+  t.bx = s[3 * kTriTile + k];  t.by = s[4 * kTriTile + k];  t.bz = s[5 * kTriTile + k];
+  t.cx = s[6 * kTriTile + k];  t.cy = s[7 * kTriTile + k];  t.cz = s[8 * kTriTile + k];
+  t.abx = s[9 * kTriTile + k]; t.aby = s[10 * kTriTile + k]; t.abz = s[11 * kTriTile + k];
+  t.acx = s[12 * kTriTile + k]; t.acy = s[13 * kTriTile + k]; t.acz = s[14 * kTriTile + k];
+  return t;
+}
+
+// Slots [k0, k1) of the tile against this thread's points: the closest
+// point, the solid angle, or both.
+template <bool kClosest, bool kWind, int kPPT>
+__device__ __forceinline__ void sweep_slots(const float* __restrict__ s,
+                                            const int* __restrict__ s_id, int k0, int k1,
+                                            Point (&pt)[kPPT]) {
+  for (int k = k0; k < k1; ++k) {
+    const Tri t = load_tri(s, k);
+#pragma unroll
+    for (int j = 0; j < kPPT; ++j) {
+      if constexpr (kClosest) {
+        float qx, qy, qz;
+        const float d2 = closest_pair(t, pt[j].px, pt[j].py, pt[j].pz, qx, qy, qz);
+        if (d2 < pt[j].best) {
+          pt[j].best = d2;
+          pt[j].fid = s_id[k];
+          pt[j].qx = qx; pt[j].qy = qy; pt[j].qz = qz;
+        }
+      }
+      if constexpr (kWind) pt[j].wind += solid_angle(t, pt[j].px, pt[j].py, pt[j].pz);
+    }
+  }
+}
+
+template <bool kWinding, int kPPT>
 __global__ void __launch_bounds__(kThreads)
 closest_point_sweep_kernel(const float* __restrict__ pts, int num_points,
                            const float* __restrict__ tri, int num_tri,
                            float* __restrict__ out_d2,
                            float* __restrict__ out_closest,
                            int* __restrict__ out_fid,
-                           float* __restrict__ out_wind) {
-  // structure-of-arrays tile: a, b, c corners and ab = b - a, ac = c - a
-  __shared__ float s[15][kTriTile];
+                           float* __restrict__ out_wind,
+                           Box ext, int has_ext, int cull,
+                           unsigned long long* __restrict__ counters) {
+  // compacted tile: a, b, c corners and ab = b - a, ac = c - a, the face
+  // ids, each cluster's grown box (lo xyz, hi xyz) and the warps' ballots
+  __shared__ float s[15 * kTriTile];
+  __shared__ int s_id[kTriTile];
+  __shared__ float s_box[6 * kClusters];
+  __shared__ unsigned s_mask[2 * kWarps];
 
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = i < num_points;
-  float px = 0.f, py = 0.f, pz = 0.f;
-  if (live) {
-    px = pts[3 * i + 0];
-    py = pts[3 * i + 1];
-    pz = pts[3 * i + 2];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int first = (blockIdx.x * kWarps + warp) * 32 * kPPT + lane;
+
+  Point pt[kPPT];
+  unsigned live = 0;     // bit j: point j of this thread exists
+  bool outside = true;   // every live point strictly outside ext
+#pragma unroll
+  for (int j = 0; j < kPPT; ++j) {
+    const int i = first + 32 * j;
+    pt[j].px = 0.f; pt[j].py = 0.f; pt[j].pz = 0.f;
+    if (i < num_points) {
+      live |= 1u << j;
+      pt[j].px = pts[3 * i + 0];
+      pt[j].py = pts[3 * i + 1];
+      pt[j].pz = pts[3 * i + 2];
+      outside = outside && (pt[j].px < ext.lo[0] || pt[j].px > ext.hi[0] ||
+                            pt[j].py < ext.lo[1] || pt[j].py > ext.hi[1] ||
+                            pt[j].pz < ext.lo[2] || pt[j].pz > ext.hi[2]);
+    }
+    pt[j].best = __int_as_float(0x7f800000);  // +inf
+    pt[j].fid = 0;
+    pt[j].qx = 0.f; pt[j].qy = 0.f; pt[j].qz = 0.f;
+    pt[j].wind = 0.f;
+  }
+  const bool wind_needed = kWinding && !(has_ext && __all_sync(kFull, outside));
+  const unsigned warp_points = __reduce_add_sync(kFull, __popc(live));
+
+  // an upper bound on each point's final best: its squared distance to the
+  // first corner of every kCluster-th triangle (a well-shaped one, whose
+  // computed distance cannot exceed it by more than the margins)
+  float bound[kPPT];
+#pragma unroll
+  for (int j = 0; j < kPPT; ++j) bound[j] = __int_as_float(0x7f800000);
+  if (cull) {
+    for (int f = 0; f < num_tri; f += kCluster) {
+      float c[9], m = 0.f;
+#pragma unroll
+      for (int r = 0; r < 9; ++r) {
+        c[r] = __ldg(tri + 9 * f + r);
+        m = fmaxf(m, fabsf(c[r]));
+      }
+      const float ax = c[0], ay = c[1], az = c[2];
+      if (is_thin(c[3] - ax, c[4] - ay, c[5] - az, c[6] - ax, c[7] - ay, c[8] - az)) continue;
+      const float eta = kCullAbs * m;
+      const float slack = eta * eta * (1.f + 1.f / kCullRel);
+#pragma unroll
+      for (int j = 0; j < kPPT; ++j) {
+        const float dx = ax - pt[j].px, dy = ay - pt[j].py, dz = az - pt[j].pz;
+        const float u = (dx * dx + dy * dy + dz * dz) * (1.f + 2.f * kCullRel) + slack;
+        bound[j] = fminf(bound[j], u);
+      }
+    }
   }
 
-  float best = __int_as_float(0x7f800000);  // +inf
-  int best_fid = 0;
-  float bqx = 0.f, bqy = 0.f, bqz = 0.f;
-  float wind = 0.f;
+  int pad_id = -1;           // the first padding triangle's face id
+  unsigned long long closest_tris = 0, wind_tris = 0;  // per warp, for counters
 
   for (int f0 = 0; f0 < num_tri; f0 += kTriTile) {
-    const int n = min(kTriTile, num_tri - f0);
+    // ---- load and compact the tile: real triangles in face order ----
+    const int f = f0 + threadIdx.x;
+    float c[9];
+    bool is_pad = false;
+    if (f < num_tri) {
+      is_pad = true;
+#pragma unroll
+      for (int r = 0; r < 9; ++r) {
+        c[r] = tri[9 * f + r];
+        is_pad = is_pad && c[r] == kPad;
+      }
+    }
+    const unsigned pad_mask = __ballot_sync(kFull, f < num_tri && is_pad);
+    const unsigned real_mask = __ballot_sync(kFull, f < num_tri && !is_pad);
     __syncthreads();  // the previous tile is no longer read
-    if (threadIdx.x < n) {
-      const float* t = tri + 9 * (f0 + threadIdx.x);
-      const int k = threadIdx.x;
-      const float ax = t[0], ay = t[1], az = t[2];
-      const float bx = t[3], by = t[4], bz = t[5];
-      const float cx = t[6], cy = t[7], cz = t[8];
-      s[0][k] = ax; s[1][k] = ay; s[2][k] = az;
-      s[3][k] = bx; s[4][k] = by; s[5][k] = bz;
-      s[6][k] = cx; s[7][k] = cy; s[8][k] = cz;
-      s[9][k] = bx - ax; s[10][k] = by - ay; s[11][k] = bz - az;
-      s[12][k] = cx - ax; s[13][k] = cy - ay; s[14][k] = cz - az;
+    if (lane == 0) {
+      s_mask[warp] = real_mask;
+      s_mask[kWarps + warp] = pad_mask;
     }
     __syncthreads();
+    int n = 0, slot = -1;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const unsigned m = s_mask[w];
+      const unsigned pm = s_mask[kWarps + w];
+      if (pad_id < 0 && pm) pad_id = f0 + 32 * w + __ffs(pm) - 1;
+      if (w == warp && ((m >> lane) & 1u)) slot = n + __popc(m & ((1u << lane) - 1u));
+      n += __popc(m);
+    }
+    if (slot >= 0) {
+      s[0 * kTriTile + slot] = c[0]; s[1 * kTriTile + slot] = c[1]; s[2 * kTriTile + slot] = c[2];
+      s[3 * kTriTile + slot] = c[3]; s[4 * kTriTile + slot] = c[4]; s[5 * kTriTile + slot] = c[5];
+      s[6 * kTriTile + slot] = c[6]; s[7 * kTriTile + slot] = c[7]; s[8 * kTriTile + slot] = c[8];
+      s[9 * kTriTile + slot] = c[3] - c[0];
+      s[10 * kTriTile + slot] = c[4] - c[1];
+      s[11 * kTriTile + slot] = c[5] - c[2];
+      s[12 * kTriTile + slot] = c[6] - c[0];
+      s[13 * kTriTile + slot] = c[7] - c[1];
+      s[14 * kTriTile + slot] = c[8] - c[2];
+      s_id[slot] = f;
+    }
+    if (n == 0) continue;  // block-uniform: a tile of padding only
+    __syncthreads();
 
-    for (int k = 0; k < n; ++k) {
-      const float ax = s[0][k], ay = s[1][k], az = s[2][k];
-      const float bx = s[3][k], by = s[4][k], bz = s[5][k];
-      const float cx = s[6][k], cy = s[7][k], cz = s[8][k];
-      const float abx = s[9][k], aby = s[10][k], abz = s[11][k];
-      const float acx = s[12][k], acy = s[13][k], acz = s[14][k];
-
-      // ---- closest point (Ericson RTCD 5.1.5) ----
-      const float apx = px - ax, apy = py - ay, apz = pz - az;
-      const float d1 = abx * apx + aby * apy + abz * apz;
-      const float d2 = acx * apx + acy * apy + acz * apz;
-      const float bpx = apx - abx, bpy = apy - aby, bpz = apz - abz;
-      const float d3 = abx * bpx + aby * bpy + abz * bpz;
-      const float d4 = acx * bpx + acy * bpy + acz * bpz;
-      const float cpx = apx - acx, cpy = apy - acy, cpz = apz - acz;
-      const float d5 = abx * cpx + aby * cpy + abz * cpz;
-      const float d6 = acx * cpx + acy * cpy + acz * cpz;
-
-      const float va = d3 * d6 - d5 * d4;
-      const float vb = d5 * d2 - d1 * d6;
-      const float vc = d1 * d4 - d3 * d2;
-
-      const float denom = va + vb + vc;
-      const float v_in = safe_div(vb, denom);
-      const float w_in = safe_div(vc, denom);
-      const float v_ab = safe_div(d1, d1 - d3);
-      const float w_ac = safe_div(d2, d2 - d6);
-      const float w_bc = safe_div(d4 - d3, (d4 - d3) + (d5 - d6));
-
-      const bool in_a = (d1 <= 0.f) && (d2 <= 0.f);
-      const bool in_b = (d3 >= 0.f) && (d4 <= d3);
-      const bool in_c = (d6 >= 0.f) && (d5 <= d6);
-      const bool on_ab = (vc <= 0.f) && (d1 >= 0.f) && (d3 <= 0.f);
-      const bool on_ac = (vb <= 0.f) && (d2 >= 0.f) && (d6 <= 0.f);
-      const bool on_bc = (va <= 0.f) && (d4 - d3 >= 0.f) && (d5 - d6 >= 0.f);
-
-      // priority cascade: interior < BC < AC < AB < C < B < A
-      float v = on_bc ? 1.f - w_bc : v_in;
-      float w = on_bc ? w_bc : w_in;
-      if (on_ac) { v = 0.f; w = w_ac; }
-      if (on_ab) { v = v_ab; w = 0.f; }
-      if (in_c) { v = 0.f; w = 1.f; }
-      if (in_b) { v = 1.f; w = 0.f; }
-      if (in_a) { v = 0.f; w = 0.f; }
-
-      const float qx = ax + v * abx + w * acx;
-      const float qy = ay + v * aby + w * acy;
-      const float qz = az + v * abz + w * acz;
-      const float dx = qx - px, dy = qy - py, dz = qz - pz;
-      const float dist2 = dx * dx + dy * dy + dz * dz;
-
-      // ---- solid angle (van Oosterom & Strackee) ----
-      if constexpr (kWinding) {
-        const float a0 = ax - px, a1 = ay - py, a2 = az - pz;
-        const float b0 = bx - px, b1 = by - py, b2 = bz - pz;
-        const float c0 = cx - px, c1 = cy - py, c2 = cz - pz;
-        const float la = sqrtf(a0 * a0 + a1 * a1 + a2 * a2);
-        const float lb = sqrtf(b0 * b0 + b1 * b1 + b2 * b2);
-        const float lc = sqrtf(c0 * c0 + c1 * c1 + c2 * c2);
-        const float x0 = b1 * c2 - b2 * c1;
-        const float x1 = b2 * c0 - b0 * c2;
-        const float x2 = b0 * c1 - b1 * c0;
-        const float num = a0 * x0 + a1 * x1 + a2 * x2;
-        const float den = la * lb * lc + (a0 * b0 + a1 * b1 + a2 * b2) * lc
-                          + (b0 * c0 + b1 * c1 + b2 * c2) * la
-                          + (c0 * a0 + c1 * a1 + c2 * a2) * lb;
-        wind += 2.f * atan2f(num, den);
+    // ---- cluster boxes: kCluster lanes per cluster, one slot each ----
+    if (cull) {
+      const int k = threadIdx.x;
+      float lo[3], hi[3], m = 0.f;
+      bool thin = false;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) { lo[d] = __int_as_float(0x7f800000); hi[d] = -lo[d]; }
+      if (k < n) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          const float x = s[d * kTriTile + k], y = s[(3 + d) * kTriTile + k],
+                      z = s[(6 + d) * kTriTile + k];
+          lo[d] = fminf(fminf(x, y), z);
+          hi[d] = fmaxf(fmaxf(x, y), z);
+          m = fmaxf(m, fmaxf(-lo[d], hi[d]));
+        }
+        thin = is_thin(s[9 * kTriTile + k], s[10 * kTriTile + k], s[11 * kTriTile + k],
+                       s[12 * kTriTile + k], s[13 * kTriTile + k], s[14 * kTriTile + k]);
       }
+#pragma unroll
+      for (int off = 1; off < kCluster; off <<= 1) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          lo[d] = fminf(lo[d], __shfl_xor_sync(kFull, lo[d], off));
+          hi[d] = fmaxf(hi[d], __shfl_xor_sync(kFull, hi[d], off));
+        }
+        m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
+        thin = __shfl_xor_sync(kFull, (int)thin, off) || thin;
+      }
+      if (k % kCluster == 0) {
+        const float eta = kCullAbs * m;
+        const float inf = __int_as_float(0x7f800000);
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          s_box[6 * (k / kCluster) + d] = thin ? -inf : lo[d] - eta;
+          s_box[6 * (k / kCluster) + 3 + d] = thin ? inf : hi[d] + eta;
+        }
+      }
+      __syncthreads();
+    }
 
-      if (dist2 < best) {
-        best = dist2;
-        best_fid = f0 + k;
-        bqx = qx; bqy = qy; bqz = qz;
+    // ---- sweep the tile cluster by cluster ----
+    for (int k0 = 0; k0 < n; k0 += kCluster) {
+      const int k1 = min(k0 + kCluster, n);
+      bool skip = false;
+      if (cull) {
+        const float* b = s_box + 6 * (k0 / kCluster);
+        bool all = true;
+#pragma unroll
+        for (int j = 0; j < kPPT; ++j) {
+          const float dx = fmaxf(fmaxf(b[0] - pt[j].px, pt[j].px - b[3]), 0.f);
+          const float dy = fmaxf(fmaxf(b[1] - pt[j].py, pt[j].py - b[4]), 0.f);
+          const float dz = fmaxf(fmaxf(b[2] - pt[j].pz, pt[j].pz - b[5]), 0.f);
+          const float lb = (dx * dx + dy * dy + dz * dz) * (1.f - kCullRel);
+          all = all && (!((live >> j) & 1u) || lb >= pt[j].best || lb > bound[j]);
+        }
+        skip = __all_sync(kFull, all);
+      }
+      if (!skip) closest_tris += k1 - k0;
+      if constexpr (kWinding) {
+        if (wind_needed) {
+          wind_tris += k1 - k0;
+          if (skip) sweep_slots<false, true>(s, s_id, k0, k1, pt);
+          else sweep_slots<true, true>(s, s_id, k0, k1, pt);
+          continue;
+        }
+      }
+      if (!skip) sweep_slots<true, false>(s, s_id, k0, k1, pt);
+    }
+  }
+
+  // every padding triangle is the same degenerate triangle at PAD_COORD:
+  // the first one stands for all, merged by (d2, face id)
+  if (pad_id >= 0) {
+    Tri t;
+    t.ax = t.bx = t.cx = kPad; t.ay = t.by = t.cy = kPad; t.az = t.bz = t.cz = kPad;
+    t.abx = t.aby = t.abz = t.acx = t.acy = t.acz = 0.f;
+#pragma unroll
+    for (int j = 0; j < kPPT; ++j) {
+      float qx, qy, qz;
+      const float d2 = closest_pair(t, pt[j].px, pt[j].py, pt[j].pz, qx, qy, qz);
+      if (d2 < pt[j].best || (d2 == pt[j].best && pad_id < pt[j].fid)) {
+        pt[j].best = d2;
+        pt[j].fid = pad_id;
+        pt[j].qx = qx; pt[j].qy = qy; pt[j].qz = qz;
       }
     }
   }
 
-  if (live) {
-    out_d2[i] = best;
-    out_closest[3 * i + 0] = bqx;
-    out_closest[3 * i + 1] = bqy;
-    out_closest[3 * i + 2] = bqz;
-    out_fid[i] = best_fid;
-    if constexpr (kWinding) out_wind[i] = wind;
+  if (counters != nullptr && lane == 0 && warp_points > 0) {
+    atomicAdd(counters + 0, closest_tris * warp_points);
+    atomicAdd(counters + 1, wind_tris * warp_points);
   }
+#pragma unroll
+  for (int j = 0; j < kPPT; ++j) {
+    if (!((live >> j) & 1u)) continue;
+    const int i = first + 32 * j;
+    out_d2[i] = pt[j].best;
+    out_closest[3 * i + 0] = pt[j].qx;
+    out_closest[3 * i + 1] = pt[j].qy;
+    out_closest[3 * i + 2] = pt[j].qz;
+    out_fid[i] = pt[j].fid;
+    if constexpr (kWinding) out_wind[i] = wind_needed ? pt[j].wind : 0.f;
+  }
+}
+
+template <bool kWinding>
+int launch(const float* pts, int num_points, const float* tri, int num_tri, float* d2,
+           float* closest, int* fid, float* wind, const float* exterior_box,
+           unsigned long long* counters, int cull, void* stream) {
+  if (num_points <= 0) return 0;
+  Box ext{};
+  const int has_ext = exterior_box != nullptr;
+  for (int d = 0; d < 3 && has_ext; ++d) {
+    ext.lo[d] = exterior_box[d];
+    ext.hi[d] = exterior_box[3 + d];
+  }
+  const int per_block = kThreads * kPointsPerThread;
+  const int blocks = (num_points + per_block - 1) / per_block;
+  closest_point_sweep_kernel<kWinding, kPointsPerThread>
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          pts, num_points, tri, num_tri, d2, closest, fid, wind, ext, has_ext, cull, counters);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes.  pts [P,3], tri [F,3,3] float32
 // contiguous on the device; outputs d2 [P], closest [P,3], fid [P] int32,
-// wind [P] (raw solid-angle sum).  Launches on `stream` and returns the
-// cudaGetLastError() code of the launch (0 on success).
+// wind [P] (raw solid-angle sum).  exterior_box: null, or 6 host floats
+// (lo xyz, hi xyz) that the caller gives only for a mesh with no boundary,
+// grown by its margin.  counters: null, or 2 device uint64 to which the
+// launch adds the (point, real triangle) pairs whose closest point, and
+// whose solid angle, it evaluated.  cull: 0 turns cluster culling off.
+// Launches on `stream` and returns the cudaGetLastError() code of the
+// launch (0 on success).
 extern "C" int pvt_closest_point_sweep(const float* pts, int num_points,
                                        const float* tri, int num_tri,
                                        float* d2, float* closest, int* fid,
-                                       float* wind, void* stream) {
-  if (num_points <= 0) return 0;
-  const int blocks = (num_points + kThreads - 1) / kThreads;
-  closest_point_sweep_kernel<true><<<blocks, kThreads, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
-      pts, num_points, tri, num_tri, d2, closest, fid, wind);
-  return static_cast<int>(cudaGetLastError());
+                                       float* wind, const float* exterior_box,
+                                       unsigned long long* counters, int cull,
+                                       void* stream) {
+  return launch<true>(pts, num_points, tri, num_tri, d2, closest, fid, wind, exterior_box,
+                      counters, cull, stream);
 }
 
 // The same sweep without the winding sum: d2, closest and fid only.
 extern "C" int pvt_closest_point_sweep_nowind(const float* pts, int num_points,
                                               const float* tri, int num_tri,
-                                              float* d2, float* closest,
-                                              int* fid, void* stream) {
-  if (num_points <= 0) return 0;
-  const int blocks = (num_points + kThreads - 1) / kThreads;
-  closest_point_sweep_kernel<false><<<blocks, kThreads, 0,
-                                      static_cast<cudaStream_t>(stream)>>>(
-      pts, num_points, tri, num_tri, d2, closest, fid, nullptr);
-  return static_cast<int>(cudaGetLastError());
+                                              float* d2, float* closest, int* fid,
+                                              unsigned long long* counters, int cull,
+                                              void* stream) {
+  return launch<false>(pts, num_points, tri, num_tri, d2, closest, fid, nullptr, nullptr,
+                       counters, cull, stream);
 }
 
 extern "C" const char* pvt_cuda_error_string(int code) {

@@ -377,6 +377,54 @@ def save_obj(mesh: TriangleMesh, path: str) -> None:
 # Device-side packed triangle scene
 # ---------------------------------------------------------------------------
 
+def _real_triangles(tri: np.ndarray) -> np.ndarray:
+    """The rows of ``tri [F, 3, 3]`` that are not :data:`PAD_COORD` padding."""
+    tri = np.asarray(tri, dtype=np.float32).reshape(-1, 3, 3)
+    return tri[~(tri == np.float32(PAD_COORD)).all(axis=(1, 2))]
+
+
+def has_boundary(tri: np.ndarray) -> bool:
+    """Whether the surface of the triangles ``tri [F, 3, 3]`` has a
+    boundary: after merging corners at exactly equal positions, some
+    directed edge ``(i, j)`` occurs more or less often than ``(j, i)``.
+    Padding rows are ignored; no triangles at all count as open."""
+    t = _real_triangles(tri)
+    if not len(t):
+        return True
+    # + 0 makes -0.0 equal +0.0: np.unique compares rows bytewise
+    _, idx = np.unique(t.reshape(-1, 3) + np.float32(0), axis=0, return_inverse=True)
+    f = idx.reshape(-1, 3).astype(np.int64)
+    n = int(f.max()) + 1
+    i = f.reshape(-1)
+    j = f[:, [1, 2, 0]].reshape(-1)
+    fwd = np.unique(i * n + j, return_counts=True)
+    rev = np.unique(j * n + i, return_counts=True)
+    return not (np.array_equal(fwd[0], rev[0]) and np.array_equal(fwd[1], rev[1]))
+
+
+# the exterior box's margin: of the box's largest extent, and of its
+# largest coordinate
+EXTERIOR_MARGIN_EXTENT = 1e-2
+EXTERIOR_MARGIN_COORD = 1e-6
+
+
+def exterior_box(tri: np.ndarray) -> Optional[np.ndarray]:
+    """The box outside which the winding number of the triangles ``tri
+    [F, 3, 3]`` is exactly 0, as ``[2, 3]`` float32 (lo, hi), or None.
+
+    It is the bounding box of the real triangles grown by a margin (so a
+    point within rounding of the surface is never outside it), and exists
+    only for a surface with no boundary (:func:`has_boundary`): an open
+    surface has a winding number near 0.5 just outside its flat box."""
+    if has_boundary(tri):
+        return None
+    t = _real_triangles(tri).reshape(-1, 3).astype(np.float64)
+    lo, hi = t.min(axis=0), t.max(axis=0)
+    margin = (EXTERIOR_MARGIN_EXTENT * float((hi - lo).max())
+              + EXTERIOR_MARGIN_COORD * float(np.abs(t).max()))
+    return np.stack([lo - margin, hi + margin]).astype(np.float32)
+
+
 class MeshScene:
     """Device-resident triangle data for the closest-point / winding sweep.
 
@@ -384,12 +432,15 @@ class MeshScene:
       far-away triangles at :data:`PAD_COORD`
     - ``normals``: [Fp, 3] unit face normals (zeros for padding)
     - ``num_faces``: the real face count
+    - ``exterior_box``: :func:`exterior_box` of ``tri`` (host numpy), None
+      for a surface with a boundary
     """
 
     def __init__(self, tri: torch.Tensor, normals: torch.Tensor, num_faces: int):
         self.tri = tri
         self.normals = normals
         self.num_faces = num_faces
+        self.exterior_box = exterior_box(tri.detach().cpu().numpy())
 
     @classmethod
     def from_mesh(cls, mesh: TriangleMesh, pad_multiple: int = 128,

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from pytorch_volumetric_tpu_torch.ops import cuda_build
@@ -30,14 +31,20 @@ from pytorch_volumetric_tpu_torch.ops.point_triangle import (
 
 KERNEL = "closest_point"
 
+_p, _i = ctypes.c_void_p, ctypes.c_int
+# C entry point -> argument types (pointers, counts, options, the stream)
+_ARGTYPES = {
+    "pvt_closest_point_sweep": [_p, _i, _p, _i, _p, _p, _p, _p, _p, _p, _i, _p],
+    "pvt_closest_point_sweep_nowind": [_p, _i, _p, _i, _p, _p, _p, _p, _i, _p],
+    "pvt_closest_point_sweep_mma": [_p, _i, _p, _i, _p, _p, _p, _p, _p],
+}
 
-def _entry(library: str, symbol: str, winding: bool):
+
+def _entry(library: str, symbol: str):
     lib = cuda_build.load(library)
     fn = getattr(lib, symbol)
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = ([p, ctypes.c_int, p, ctypes.c_int, p, p, p]
-                       + ([p] if winding else []) + [p])
+        fn.argtypes = _ARGTYPES[symbol]
         fn.restype = ctypes.c_int
     return lib, fn
 
@@ -58,14 +65,34 @@ def _check_inputs(points: torch.Tensor, tri: torch.Tensor) -> None:
             raise ValueError(f"{name} is too large for 32-bit indexing")
 
 
+def _sweep_options(points: torch.Tensor, exterior_box, counters, cull: bool,
+                   winding: bool):
+    """The sweep kernel's trailing arguments (before the stream); the ctypes
+    box array is returned too, to live through the call."""
+    box = None
+    if exterior_box is not None and winding:
+        vals = [float(x) for x in np.asarray(exterior_box, dtype=np.float32).reshape(-1)]
+        if len(vals) != 6:
+            raise ValueError("exterior_box must be [2, 3] (lo, hi)")
+        box = (ctypes.c_float * 6)(*vals)
+    if counters is not None and (counters.dtype != torch.int64 or counters.shape != (2,)
+                                 or counters.device != points.device):
+        raise ValueError("counters must be an int64 tensor [2] on the points' device")
+    args = [None if counters is None else counters.data_ptr(), int(cull)]
+    if winding:
+        args.insert(0, None if box is None else ctypes.addressof(box))
+    return args, box
+
+
 def _launch(wrapper, library: str, symbol: str, points: torch.Tensor,
-            tri: torch.Tensor, winding: bool = True):
+            tri: torch.Tensor, winding: bool = True, options=None):
     """Run one sweep kernel on CUDA tensors; returns the wrapper's outputs
-    (winding zeros when the kernel computes none)."""
+    (winding zeros when the kernel computes none).  ``options``: the sweep
+    kernel's trailing arguments (:func:`_sweep_options`)."""
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
     _check_inputs(points, tri)
-    lib, fn = _entry(library, symbol, winding)
+    lib, fn = _entry(library, symbol)
     P, F = points.shape[0], tri.shape[0]
     dev = points.device
     d2 = torch.empty(P, dtype=torch.float32, device=dev)
@@ -78,35 +105,52 @@ def _launch(wrapper, library: str, symbol: str, points: torch.Tensor,
         if winding:
             outs.append(wind.data_ptr())
         with torch.cuda.device(dev):
-            code = fn(points.data_ptr(), P, tri.data_ptr(), F, *outs, stream)
+            code = fn(points.data_ptr(), P, tri.data_ptr(), F, *outs, *(options or ()),
+                      stream)
         cuda_build.check_launch(lib, code, symbol)
         wrapper.launches += 1
     return torch.sqrt(d2), closest, fid, wind / _FOUR_PI
 
 
 def mesh_closest_query_cuda(points: torch.Tensor, tri: torch.Tensor,
-                            **plain_kwargs):
+                            exterior_box=None, counters: torch.Tensor = None,
+                            cull: bool = True, **plain_kwargs):
     """Closest point + winding number for ``points [P, 3]`` against
     triangles ``tri [Fp, 3, 3]`` (padding with ``mesh.PAD_COORD`` allowed).
 
     Returns ``(dist [P], closest [P, 3], face_id [P] int32, winding [P])``.
-    ``plain_kwargs`` (chunk sizes) apply to the plain version only.
+
+    - ``exterior_box`` ``[2, 3]``: give it only for a mesh with no boundary
+      (``mesh.exterior_box``); warps of points all strictly outside it
+      return winding 0 without summing.
+    - ``counters``: an int64 tensor ``[2]`` on the device to which the
+      launch adds the (point, real triangle) pairs whose closest point, and
+      whose solid angle, it evaluated.
+    - ``cull=False`` turns the kernel's cluster culling off, for the
+      roofline probe's lever readings.
+
+    The plain version (a CPU tensor) ignores these; ``plain_kwargs`` (chunk
+    sizes) apply to it only.
     """
     if points.device.type == "cpu":
         return mesh_closest_query(points, tri, **plain_kwargs)
+    options, _box = _sweep_options(points, exterior_box, counters, cull, winding=True)
     return _launch(mesh_closest_query_cuda, KERNEL, "pvt_closest_point_sweep",
-                   points, tri)
+                   points, tri, options=options)
 
 
 def mesh_closest_query_nowind_cuda(points: torch.Tensor, tri: torch.Tensor,
+                                   counters: torch.Tensor = None, cull: bool = True,
                                    **plain_kwargs):
     """:func:`mesh_closest_query_cuda` without the winding sum: the same
     distances, closest points and face ids; the returned winding is all
     zeros (the kernel computes none)."""
     if points.device.type == "cpu":
         return mesh_closest_query(points, tri, winding=False, **plain_kwargs)
+    options, _ = _sweep_options(points, None, counters, cull, winding=False)
     return _launch(mesh_closest_query_nowind_cuda, KERNEL,
-                   "pvt_closest_point_sweep_nowind", points, tri, winding=False)
+                   "pvt_closest_point_sweep_nowind", points, tri, winding=False,
+                   options=options)
 
 
 def mesh_closest_query_mma_cuda(points: torch.Tensor, tri: torch.Tensor,
@@ -120,15 +164,16 @@ def mesh_closest_query_mma_cuda(points: torch.Tensor, tri: torch.Tensor,
 
 
 def mesh_closest_query_contracted_cuda(points: torch.Tensor, tri: torch.Tensor,
-                                       **plain_kwargs):
+                                       exterior_box=None, **plain_kwargs):
     """:func:`mesh_closest_query_cuda` from the same source built with
     multiply-add contraction (``-fmad=true``), for the roofline probe: it
     measures what the main path's ``-fmad=false`` costs.  Not bit-identical
     to the plain version."""
     if points.device.type == "cpu":
         return mesh_closest_query(points, tri, **plain_kwargs)
+    options, _box = _sweep_options(points, exterior_box, None, True, winding=True)
     return _launch(mesh_closest_query_contracted_cuda, "closest_point_fmad",
-                   "pvt_closest_point_sweep", points, tri)
+                   "pvt_closest_point_sweep", points, tri, options=options)
 
 
 for _wrapper in (mesh_closest_query_cuda, mesh_closest_query_nowind_cuda,

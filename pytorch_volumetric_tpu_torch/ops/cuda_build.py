@@ -2,8 +2,9 @@
 
 Each library is one source under ``csrc/`` compiled by ``nvcc`` for Hopper
 (``sm_90a``) with the shared flags plus its own, into a shared library with
-a plain C interface, named after a hash of the source and all its flags, in
-``_build/`` beside the package (listed in ``.gitignore``).  The build
+a plain C interface, named after a hash of the source, the headers beside
+it and all its flags, in ``_build/`` beside the package (listed in
+``.gitignore``).  The build
 happens at first use, or all at once through :func:`build`, which starts one
 ``nvcc`` per library in parallel.  Libraries are loaded with ``ctypes``.
 """
@@ -56,8 +57,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, SOURCES[name][0]), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(_flags(name)).encode())
+    """The library's path, named after a hash of its source, every header
+    under ``csrc/`` (a source may include any of them) and its flags."""
+    digest = hashlib.sha1(" ".join(_flags(name)).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith((".cuh", ".h")))
+    for fname in [SOURCES[name][0]] + headers:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 

@@ -268,7 +268,8 @@ def signed_closest_query(points: torch.Tensor, tri: torch.Tensor,
                          winding_threshold: float = 0.5,
                          point_chunk: int = DEFAULT_POINT_CHUNK,
                          tri_chunk: int = DEFAULT_TRI_CHUNK,
-                         backend: str = "auto"
+                         backend: str = "auto",
+                         exterior_box=None,
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                     torch.Tensor]:
     """Signed query: signed distance, SDF gradient (the face normal within
@@ -277,7 +278,9 @@ def signed_closest_query(points: torch.Tensor, tri: torch.Tensor,
 
     ``backend``: "auto" runs the CUDA kernel for a CUDA tensor and the plain
     sweep for a CPU tensor; "torch" forces the plain sweep (the kernel's
-    reference on the card).
+    reference on the card).  ``exterior_box`` (``mesh.exterior_box``, only
+    for a surface with no boundary) lets the kernel skip the winding sum
+    outside it; the plain sweep ignores it.
 
     Returns ``(closest [P,3], sdf [P], gradient [P,3], normal [P,3])``.
     """
@@ -285,7 +288,8 @@ def signed_closest_query(points: torch.Tensor, tri: torch.Tensor,
         from pytorch_volumetric_tpu_torch.ops.closest_point import (
             mesh_closest_query_cuda)
         dist, closest, fid, wind = mesh_closest_query_cuda(
-            points, tri, point_chunk=point_chunk, tri_chunk=tri_chunk)
+            points, tri, exterior_box=exterior_box, point_chunk=point_chunk,
+            tri_chunk=tri_chunk)
     elif backend == "torch":
         dist, closest, fid, wind = mesh_closest_query(
             points, tri, point_chunk=point_chunk, tri_chunk=tri_chunk)

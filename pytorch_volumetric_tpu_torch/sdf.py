@@ -131,7 +131,8 @@ class ObjectFactory(abc.ABC):
         closest, dist, grad, normal = signed_closest_query(
             flat, self._scene.tri, self._scene.normals,
             surface_normal_eps=self.surface_normal_eps,
-            winding_threshold=self.winding_threshold)
+            winding_threshold=self.winding_threshold,
+            exterior_box=self._scene.exterior_box)
         batch = pts.shape[:-1]
         return SDFQuery(closest.reshape(batch + (3,)), dist.reshape(batch),
                         grad.reshape(batch + (3,)),
@@ -373,12 +374,13 @@ class MeshSDF(ObjectFrameSDF):
         scene = obj_factory.scene
         eps = obj_factory.surface_normal_eps
         thr = obj_factory.winding_threshold
+        box = scene.exterior_box  # None for an open mesh: the winding is summed in full
 
         def raw(tri, normals, pts):
             _, val, grad, _ = signed_closest_query(pts.contiguous(), tri, normals,
                                                    surface_normal_eps=eps,
                                                    winding_threshold=thr,
-                                                   backend=backend)
+                                                   backend=backend, exterior_box=box)
             return val, grad
 
         self._tables = (scene.tri, scene.normals)

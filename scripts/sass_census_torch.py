@@ -7,8 +7,9 @@ CUDA toolkit).
 Builds every library of ``pytorch_volumetric_tpu_torch/csrc`` (as
 ``ops.cuda_build`` does), disassembles each with ``cuobjdump -sass`` and
 counts, per kernel, the static SASS instructions by class: of the whole
-kernel and of its hot loop (the longest span closed by a backward branch
-that holds no barrier).
+kernel and of each innermost loop (a span closed by a backward branch that
+holds no barrier and no other loop), labelled by what it computes.  A sweep
+loop's count over its points per thread is its instructions per pair.
 The classes say what the loop spends its issue slots on: FP32 arithmetic,
 special-function unit (MUFU: reciprocals, square roots, the atan2's
 pieces), compares and selects, integer and address arithmetic, memory,
@@ -74,10 +75,13 @@ def parse(sass: str):
     return funcs, labels
 
 
-def hot_loop(insns, labels):
-    """The longest [target, branch] span of a backward branch that holds no
-    barrier: the per-pair loop inside a tile, not the loop over tiles."""
-    best = []
+def loops(insns, labels):
+    """The innermost loops: each [target, branch] span of a backward branch
+    that holds no barrier and no other backward branch, in address order.
+    In the sweep kernel these are its per-pair loops (closest point and
+    solid angle, closest point only, solid angle only), not the loops over
+    clusters and tiles around them."""
+    spans = []
     for addr, op, operands in insns:
         if op != "BRA":
             continue
@@ -85,12 +89,35 @@ def hot_loop(insns, labels):
         if not tm:
             continue
         target = int(tm.group(1), 16) if tm.group(1) else labels.get(tm.group(2))
-        if target is None or target >= addr:
-            continue
-        span = [i for i in insns if target <= i[0] <= addr]
-        if len(span) > len(best) and not any(i[1] == "BAR" for i in span):
-            best = span
-    return best
+        if target is not None and target < addr:
+            spans.append((target, addr))
+    inner = [(t, a) for t, a in spans
+             if not any(t <= t2 and a2 < a for t2, a2 in spans if (t2, a2) != (t, a))]
+    out = []
+    for t, a in sorted(inner):
+        span = [i for i in insns if t <= i[0] <= a]
+        if not any(i[1] == "BAR" for i in span):
+            out.append(span)
+    return out
+
+
+def loop_kind(span, points: int = 1) -> str:
+    """What a sweep loop over ``points`` points per thread computes, from
+    its instructions: the closest point's two IEEE divisions per point (two
+    FCHK; the atan2 has one) and the solid angle's square roots
+    (MUFU.RSQ)."""
+    ops = collections.Counter(op + rest.split()[0] if op == "MUFU" and rest.strip() else op
+                              for _, op, rest in span)
+    kind = [k for k, hit in (("closest", ops["FCHK"] >= 2 * points),
+                             ("winding", ops["MUFU.RSQ"] > 0)) if hit]
+    return "+".join(kind) or "other"
+
+
+def template_args(fn: str) -> dict:
+    """``kWinding`` and points per thread of a sweep kernel instantiation,
+    from its mangled name (``...ILb1ELi2EE...``)."""
+    m = re.search(r"ILb([01])ELi(\d+)E", fn)
+    return {"winding": m.group(1) == "1", "points_per_thread": int(m.group(2))} if m else {}
 
 
 def census(insns):
@@ -114,8 +141,10 @@ def main():
                               capture_output=True, text=True, check=True).stdout
         funcs, labels = parse(sass)
         for fn, insns in funcs.items():
-            loop = hot_loop(insns, labels[fn])
-            out[f"{name}:{fn}"] = {"kernel": census(insns), "hot_loop": census(loop)}
+            targs = template_args(fn)
+            found = [dict(census(span), kind=loop_kind(span, targs.get("points_per_thread", 1)))
+                     for span in loops(insns, labels[fn])]
+            out[f"{name}:{fn}"] = {"kernel": census(insns), **targs, "loops": found}
     line = json.dumps({"metric": "sass_census", "kernels": out})
     print(line)
     if args.out:

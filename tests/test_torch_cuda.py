@@ -52,28 +52,56 @@ def test_fma_probe_rejects_other_devices():
         fma_probe_cuda(meta, meta, 4)
 
 
+def _case(name, P, device):
+    """``(points, triangles, exterior box)`` of one card case: with and
+    without a padding tail, closed and open, points mixing inside and
+    outside the box, and a symmetric mesh on a symmetric grid (exact
+    ties)."""
+    box = pt.mesh.box_mesh((0.4, 0.6, 0.8)).triangles().astype(np.float32)
+    if name == "padded":
+        tri = _scene(device).tri
+        pts = _points(P, P, device)
+    elif name == "unpadded":
+        tri = torch.as_tensor(pt.mesh.icosphere_mesh(0.3, 2).triangles().astype(np.float32),
+                              device=device)
+        pts = _points(P, P, device)
+    elif name == "open":
+        tri = torch.as_tensor(box[1:], device=device)
+        pts = _points(P, P, device, -0.8, 0.8)
+    elif name == "straddling":
+        tri = pt.mesh.MeshScene.from_mesh(pt.mesh.capsule_mesh(0.045, 0.18, 14, 5),
+                                          device=device).tri
+        pts = torch.as_tensor(np.random.default_rng(P).uniform(
+            [-0.06, -0.06, -0.15], [0.06, 0.06, 0.15], (P, 3)).astype(np.float32), device=device)
+    else:  # ties
+        tri = torch.as_tensor(box, device=device)
+        _, grid = pt.get_coordinates_and_points_in_grid(
+            0.05, np.array([[-0.5, 0.5]] * 3), device=device)
+        pts = grid[:P].contiguous()
+    return pts, tri, pt.mesh.exterior_box(tri.cpu().numpy())
+
+
+CASES = ["padded", "unpadded", "open", "straddling", "ties"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("P", [1, 129, 5000])
-def test_kernel_matches_plain_on_card(card, P):
-    """Distances, closest points and face ids match the plain version bit
-    for bit (both round every operation the same way); the winding sums
-    differ only by summation order."""
-    tri = _scene(card).tri
-    pts = _points(P, P, card)
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("P", [1, 31, 33, 5000])
+def test_kernel_matches_plain_on_card(card, case, P):
+    """Distances, closest points and face ids equal the plain version's bit
+    for bit (both round every operation the same way, and padding, the
+    exterior box and cluster culling skip only what cannot change them);
+    the winding sums differ by summation order, and by the plain sum's
+    rounding where the kernel writes 0 outside a closed mesh's box."""
+    pts, tri, box = _case(case, P, card)
+    assert (box is None) == (case == "open")
     before = mesh_closest_query_cuda.launches
-    d1, c1, f1, w1 = mesh_closest_query_cuda(pts, tri)
+    d1, c1, f1, w1 = mesh_closest_query_cuda(pts, tri, exterior_box=box)
     torch.cuda.synchronize()
     assert mesh_closest_query_cuda.launches == before + 1
     d0, c0, f0, w0 = tpt.mesh_closest_query(pts, tri)
-    assert (d0 - d1).abs().max().item() <= 1e-5
-    assert (c0 - c1).abs().max().item() <= 1e-5
-    assert (w0 - w1).abs().max().item() <= 1e-4
-    # face-id contract: the chosen face reaches the minimal distance
-    chosen = tri.index_select(0, f1)
-    d2, _ = tpt._closest_point_bary(pts[:, None], chosen[:, None, 0],
-                                    (chosen[:, 1] - chosen[:, 0])[:, None],
-                                    (chosen[:, 2] - chosen[:, 0])[:, None])
-    assert (torch.sqrt(d2[:, 0]) - d0).abs().max().item() <= 1e-5
+    assert torch.equal(d0, d1) and torch.equal(c0, c1) and torch.equal(f0, f1)
+    assert (w0.abs() - w1.abs()).abs().max().item() <= 1e-4
 
 
 @pytest.mark.cuda
@@ -115,12 +143,12 @@ def _far_points(seed, n, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P", [1, 129, 5000])
-def test_nowind_kernel_matches_plain_on_card(card, P):
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("P", [1, 31, 33, 5000])
+def test_nowind_kernel_matches_plain_on_card(card, case, P):
     """The no-winding sweep shares K1's arithmetic and build: distances,
     closest points and face ids bit for bit; the winding is all zeros."""
-    tri = _scene(card).tri
-    pts = _points(P, P, card)
+    pts, tri, _ = _case(case, P, card)
     before = mesh_closest_query_nowind_cuda.launches
     d1, c1, f1, w1 = mesh_closest_query_nowind_cuda(pts, tri)
     torch.cuda.synchronize()
@@ -128,6 +156,32 @@ def test_nowind_kernel_matches_plain_on_card(card, P):
     d0, c0, f0, _ = tpt.mesh_closest_query(pts, tri, winding=False)
     assert torch.equal(d0, d1) and torch.equal(c0, c1) and torch.equal(f0, f1)
     assert not w1.any()
+
+
+@pytest.mark.cuda
+def test_exterior_box_and_cull_counters_on_capsule_grid(card):
+    """The main path's sweep (the capsule's cache-build grid with its
+    exterior box): bit-identical to the plain version on a strided subset,
+    and to itself with every lever off; its counters show culled pairs and
+    almost no solid angles, while the lever-off launch evaluates every real
+    pair."""
+    grid, cap = sr.capsule_cache_grid(card)
+    P, F = grid.shape[0], cap.num_faces
+    full = torch.zeros(2, dtype=torch.int64, device=card)
+    off = mesh_closest_query_cuda(grid, cap.tri, counters=full, cull=False)
+    counters = torch.zeros(2, dtype=torch.int64, device=card)
+    out = mesh_closest_query_cuda(grid, cap.tri, exterior_box=cap.exterior_box,
+                                  counters=counters)
+    for a, b in zip(out[:3], off[:3]):
+        assert torch.equal(a, b)
+    assert full.tolist() == [P * F, P * F]
+    closest, winding = counters.tolist()
+    assert 0 < closest < 0.6 * P * F and 0 < winding < 0.01 * P * F
+    sub = grid[::97].contiguous()
+    ref = tpt.mesh_closest_query(sub, cap.tri)
+    for a, b in zip([x[::97] for x in out[:3]], ref[:3]):
+        assert torch.equal(a, b)
+    assert (out[3][::97] - ref[3]).abs().max().item() <= 1e-4
 
 
 @pytest.mark.cuda
