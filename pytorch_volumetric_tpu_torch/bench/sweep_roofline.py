@@ -14,10 +14,10 @@ The counterpart of the JAX package's ``benchmarks/pallas_mfu.py`` and
    accuracy ("mxu", ``csrc/closest_point_mma.cu``, 3xTF32);
 4. what the main path's ``-fmad=false`` build costs ("base_fmad": the same
    source with multiply-add contraction on; its errors are reported, not
-   gated);
-5. what each of the sweep kernel's levers buys (``LEVERS``: select-then-
-   divide and padding skipped, then the exterior winding shortcut, then
-   cluster culling), with the pairs each evaluates.
+   gated).
+
+What each of the sweep kernel's levers buys is measured by
+``scripts/sweep_variants_torch.py``.
 
 Each sweep runs on a procedural torus of 16,384 faces with 2^17 points
 uniform in [-0.2, 0.2]^3, and at the main path's shape, the capsule link's
@@ -91,14 +91,6 @@ SWEEPS = {
 }
 # the sweeps that take the scene's exterior box, as the main path passes it
 TAKES_BOX = ("base", "base_fmad")
-# the sweep kernel's levers, switched on one by one (bench: time_levers)
-# (points per thread, cluster size and occupancy are compile-time choices:
-# scripts/sweep_variants_torch.py)
-LEVERS = {
-    "divide+padding": dict(exterior=False, cull=False),
-    "+exterior": dict(exterior=True, cull=False),
-    "+cull": dict(exterior=True, cull=True),
-}
 # gates against the plain version: distance and closest point (float32
 # rounding of one arithmetic, amplified by the expanded forms up to ~1e-6 at
 # 1 m), |winding| (summation order, and the expanded solid angle for mxu)
@@ -254,30 +246,6 @@ def time_sweeps(pts, scene, names=tuple(SWEEPS), reps: int = 10,
     return results
 
 
-def time_levers(pts, scene, reps: int = 10) -> dict:
-    """The sweep kernel with its levers switched on one by one
-    (``LEVERS``): time (mean of ``reps`` launches) and the pairs evaluated
-    of each configuration.  Every configuration's distances, closest points
-    and face ids must equal the first one's bit for bit (``same``)."""
-    P, F = pts.shape[0], scene.num_faces
-    out, ref = {}, None
-    for name, opt in LEVERS.items():
-        kw = dict(exterior_box=scene.exterior_box if opt["exterior"] else None,
-                  cull=opt["cull"])
-        res = mesh_closest_query_cuda(pts, scene.tri, **kw)
-        if ref is None:
-            ref = res
-        ms = device_time(lambda p, t: mesh_closest_query_cuda(p, t, **kw), pts, scene.tri,
-                         reps=reps, warmup=0) * 1e3
-        r = {"ms": ms, "same": all(torch.equal(a, b) for a, b in zip(res[:3], ref[:3])),
-             "winding_err": (res[3] - ref[3]).abs().max().item()}
-        r.update(evaluated_pairs(mesh_closest_query_cuda, pts, scene.tri, **kw))
-        r["evaluated_share"] = r["closest_pairs"] / (P * F)
-        r["winding_share"] = r["winding_pairs"] / (P * F)
-        out[name] = r
-    return out
-
-
 def fma_errors(x, y, iters: int):
     """(max abs, max rel) error of the probe kernel against its plain
     version on one input."""
@@ -357,19 +325,14 @@ def run(device, points: int = 1 << 17, reps: int = 10, fma_iters: int = 4096) ->
     ceiling = fma["tflops"] * 1e12
     pts, scene = torus_inputs(device, points)
     torus = time_sweeps(pts, scene, reps=reps, fp32_ceiling=ceiling)
-    torus_levers = time_levers(pts, scene, reps=reps)
     grid, cap = capsule_cache_grid(device)
     capsule = time_sweeps(grid, cap, reps=reps, plain_reps=1, fp32_ceiling=ceiling)
-    capsule_levers = time_levers(grid, cap, reps=reps)
     ok = fma["ok"] and all(r["ok"] for sweeps in (torus, capsule)
                            for r in sweeps.values() if r["gated"])
-    ok = ok and all(r["same"] for lv in (torus_levers, capsule_levers) for r in lv.values())
     return {"metric": "sweep_roofline", "ok": ok, "fma": fma,
-            "torus": {"points": points, "faces": scene.num_faces, "sweeps": torus,
-                      "levers": torus_levers},
+            "torus": {"points": points, "faces": scene.num_faces, "sweeps": torus},
             "capsule_grid": {"points": grid.shape[0], "faces": cap.num_faces,
-                             "padded_faces": cap.tri.shape[0], "sweeps": capsule,
-                             "levers": capsule_levers},
+                             "padded_faces": cap.tri.shape[0], "sweeps": capsule},
             "flop_model_per_pair": FLOPS_PER_PAIR,
             "datasheet_fp32_tflops": PEAK_FP32_FLOPS / 1e12}
 

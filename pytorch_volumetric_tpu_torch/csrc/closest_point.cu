@@ -38,12 +38,13 @@
 //    same margins: such faces cannot reach the final minimum).  Clusters
 //    holding a thin triangle (squared area below kThin of its longest
 //    edge's fourth power), whose cascade can round far off the triangle,
-//    are never culled and give no bound.  Faces keep their order.
-// 5. Points per thread (kPointsPerThread): more would spread the 15 shared
-//    loads and the loop's integer and control instructions over several
-//    points, but on the H100 2 and 4 were slower (wider warps cull less,
-//    and take 80 and 96 registers), so it is 1;
-//    scripts/sweep_variants_torch.py measures the others.
+//    are never culled and give no bound.  Faces keep their order.  kCull
+//    switches it off at compile time, for scripts/sweep_variants_torch.py,
+//    which times the levers and other compile-time choices side by side.
+// 5. One point per thread.  Two or four would spread the 15 shared loads
+//    and the loop's integer and control instructions over several points,
+//    but on the H100 they were slower: wider warps cull less, and they took
+//    80 and 96 registers.
 //
 // Every sum and product is written in the same order as the plain PyTorch
 // version (ops/point_triangle.py), and the library is built with
@@ -76,7 +77,7 @@ constexpr int kThreads = 128;   // threads per block
 constexpr int kWarps = kThreads / 32;
 constexpr int kTriTile = 128;   // triangles per shared-memory tile
 constexpr int kCluster = 8;     // triangles per culling cluster
-constexpr int kPointsPerThread = 1;
+constexpr bool kCull = true;    // cluster culling (lever 4)
 constexpr int kClusters = kTriTile / kCluster;
 constexpr float kPad = 1.0e7f;  // mesh.PAD_COORD
 constexpr float kCullRel = 1e-3f;
@@ -92,7 +93,7 @@ struct Tri {
   float ax, ay, az, bx, by, bz, cx, cy, cz, abx, aby, abz, acx, acy, acz;
 };
 
-struct Point {
+struct Point {  // one thread's point and its running state
   float px, py, pz;
   float best;  // running min squared distance
   int fid;
@@ -197,31 +198,28 @@ __device__ __forceinline__ Tri load_tri(const float* __restrict__ s, int k) {
   return t;
 }
 
-// Slots [k0, k1) of the tile against this thread's points: the closest
+// Slots [k0, k1) of the tile against this thread's point: the closest
 // point, the solid angle, or both.
-template <bool kClosest, bool kWind, int kPPT>
+template <bool kClosest, bool kWind>
 __device__ __forceinline__ void sweep_slots(const float* __restrict__ s,
                                             const int* __restrict__ s_id, int k0, int k1,
-                                            Point (&pt)[kPPT]) {
+                                            Point& pt) {
   for (int k = k0; k < k1; ++k) {
     const Tri t = load_tri(s, k);
-#pragma unroll
-    for (int j = 0; j < kPPT; ++j) {
-      if constexpr (kClosest) {
-        float qx, qy, qz;
-        const float d2 = closest_pair(t, pt[j].px, pt[j].py, pt[j].pz, qx, qy, qz);
-        if (d2 < pt[j].best) {
-          pt[j].best = d2;
-          pt[j].fid = s_id[k];
-          pt[j].qx = qx; pt[j].qy = qy; pt[j].qz = qz;
-        }
+    if constexpr (kClosest) {
+      float qx, qy, qz;
+      const float d2 = closest_pair(t, pt.px, pt.py, pt.pz, qx, qy, qz);
+      if (d2 < pt.best) {
+        pt.best = d2;
+        pt.fid = s_id[k];
+        pt.qx = qx; pt.qy = qy; pt.qz = qz;
       }
-      if constexpr (kWind) pt[j].wind += solid_angle(t, pt[j].px, pt[j].py, pt[j].pz);
     }
+    if constexpr (kWind) pt.wind += solid_angle(t, pt.px, pt.py, pt.pz);
   }
 }
 
-template <bool kWinding, int kPPT>
+template <bool kWinding>
 __global__ void __launch_bounds__(kThreads)
 closest_point_sweep_kernel(const float* __restrict__ pts, int num_points,
                            const float* __restrict__ tri, int num_tri,
@@ -229,7 +227,7 @@ closest_point_sweep_kernel(const float* __restrict__ pts, int num_points,
                            float* __restrict__ out_closest,
                            int* __restrict__ out_fid,
                            float* __restrict__ out_wind,
-                           Box ext, int has_ext, int cull,
+                           Box ext, int has_ext,
                            unsigned long long* __restrict__ counters) {
   // compacted tile: a, b, c corners and ab = b - a, ac = c - a, the face
   // ids, each cluster's grown box (lo xyz, hi xyz) and the warps' ballots
@@ -239,39 +237,29 @@ closest_point_sweep_kernel(const float* __restrict__ pts, int num_points,
   __shared__ unsigned s_mask[2 * kWarps];
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int first = (blockIdx.x * kWarps + warp) * 32 * kPPT + lane;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const bool live = i < num_points;
 
-  Point pt[kPPT];
-  unsigned live = 0;     // bit j: point j of this thread exists
-  bool outside = true;   // every live point strictly outside ext
-#pragma unroll
-  for (int j = 0; j < kPPT; ++j) {
-    const int i = first + 32 * j;
-    pt[j].px = 0.f; pt[j].py = 0.f; pt[j].pz = 0.f;
-    if (i < num_points) {
-      live |= 1u << j;
-      pt[j].px = pts[3 * i + 0];
-      pt[j].py = pts[3 * i + 1];
-      pt[j].pz = pts[3 * i + 2];
-      outside = outside && (pt[j].px < ext.lo[0] || pt[j].px > ext.hi[0] ||
-                            pt[j].py < ext.lo[1] || pt[j].py > ext.hi[1] ||
-                            pt[j].pz < ext.lo[2] || pt[j].pz > ext.hi[2]);
-    }
-    pt[j].best = __int_as_float(0x7f800000);  // +inf
-    pt[j].fid = 0;
-    pt[j].qx = 0.f; pt[j].qy = 0.f; pt[j].qz = 0.f;
-    pt[j].wind = 0.f;
-  }
+  Point pt;
+  pt.px = live ? pts[3 * i + 0] : 0.f;
+  pt.py = live ? pts[3 * i + 1] : 0.f;
+  pt.pz = live ? pts[3 * i + 2] : 0.f;
+  pt.best = __int_as_float(0x7f800000);  // +inf
+  pt.fid = 0;
+  pt.qx = 0.f; pt.qy = 0.f; pt.qz = 0.f;
+  pt.wind = 0.f;
+  // a missing point counts as outside: it does not hold its warp back
+  const bool outside = !live || pt.px < ext.lo[0] || pt.px > ext.hi[0] ||
+                       pt.py < ext.lo[1] || pt.py > ext.hi[1] ||
+                       pt.pz < ext.lo[2] || pt.pz > ext.hi[2];
   const bool wind_needed = kWinding && !(has_ext && __all_sync(kFull, outside));
-  const unsigned warp_points = __reduce_add_sync(kFull, __popc(live));
+  const unsigned warp_points = __popc(__ballot_sync(kFull, live));
 
-  // an upper bound on each point's final best: its squared distance to the
+  // an upper bound on the point's final best: its squared distance to the
   // first corner of every kCluster-th triangle (a well-shaped one, whose
   // computed distance cannot exceed it by more than the margins)
-  float bound[kPPT];
-#pragma unroll
-  for (int j = 0; j < kPPT; ++j) bound[j] = __int_as_float(0x7f800000);
-  if (cull) {
+  float bound = __int_as_float(0x7f800000);
+  if constexpr (kCull) {
     for (int f = 0; f < num_tri; f += kCluster) {
       float c[9], m = 0.f;
 #pragma unroll
@@ -283,12 +271,9 @@ closest_point_sweep_kernel(const float* __restrict__ pts, int num_points,
       if (is_thin(c[3] - ax, c[4] - ay, c[5] - az, c[6] - ax, c[7] - ay, c[8] - az)) continue;
       const float eta = kCullAbs * m;
       const float slack = eta * eta * (1.f + 1.f / kCullRel);
-#pragma unroll
-      for (int j = 0; j < kPPT; ++j) {
-        const float dx = ax - pt[j].px, dy = ay - pt[j].py, dz = az - pt[j].pz;
-        const float u = (dx * dx + dy * dy + dz * dz) * (1.f + 2.f * kCullRel) + slack;
-        bound[j] = fminf(bound[j], u);
-      }
+      const float dx = ax - pt.px, dy = ay - pt.py, dz = az - pt.pz;
+      const float u = (dx * dx + dy * dy + dz * dz) * (1.f + 2.f * kCullRel) + slack;
+      bound = fminf(bound, u);
     }
   }
 
@@ -341,7 +326,7 @@ closest_point_sweep_kernel(const float* __restrict__ pts, int num_points,
     __syncthreads();
 
     // ---- cluster boxes: kCluster lanes per cluster, one slot each ----
-    if (cull) {
+    if constexpr (kCull) {
       const int k = threadIdx.x;
       float lo[3], hi[3], m = 0.f;
       bool thin = false;
@@ -385,18 +370,13 @@ closest_point_sweep_kernel(const float* __restrict__ pts, int num_points,
     for (int k0 = 0; k0 < n; k0 += kCluster) {
       const int k1 = min(k0 + kCluster, n);
       bool skip = false;
-      if (cull) {
+      if constexpr (kCull) {
         const float* b = s_box + 6 * (k0 / kCluster);
-        bool all = true;
-#pragma unroll
-        for (int j = 0; j < kPPT; ++j) {
-          const float dx = fmaxf(fmaxf(b[0] - pt[j].px, pt[j].px - b[3]), 0.f);
-          const float dy = fmaxf(fmaxf(b[1] - pt[j].py, pt[j].py - b[4]), 0.f);
-          const float dz = fmaxf(fmaxf(b[2] - pt[j].pz, pt[j].pz - b[5]), 0.f);
-          const float lb = (dx * dx + dy * dy + dz * dz) * (1.f - kCullRel);
-          all = all && (!((live >> j) & 1u) || lb >= pt[j].best || lb > bound[j]);
-        }
-        skip = __all_sync(kFull, all);
+        const float dx = fmaxf(fmaxf(b[0] - pt.px, pt.px - b[3]), 0.f);
+        const float dy = fmaxf(fmaxf(b[1] - pt.py, pt.py - b[4]), 0.f);
+        const float dz = fmaxf(fmaxf(b[2] - pt.pz, pt.pz - b[5]), 0.f);
+        const float lb = (dx * dx + dy * dy + dz * dz) * (1.f - kCullRel);
+        skip = __all_sync(kFull, !live || lb >= pt.best || lb > bound);
       }
       if (!skip) closest_tris += k1 - k0;
       if constexpr (kWinding) {
@@ -417,15 +397,12 @@ closest_point_sweep_kernel(const float* __restrict__ pts, int num_points,
     Tri t;
     t.ax = t.bx = t.cx = kPad; t.ay = t.by = t.cy = kPad; t.az = t.bz = t.cz = kPad;
     t.abx = t.aby = t.abz = t.acx = t.acy = t.acz = 0.f;
-#pragma unroll
-    for (int j = 0; j < kPPT; ++j) {
-      float qx, qy, qz;
-      const float d2 = closest_pair(t, pt[j].px, pt[j].py, pt[j].pz, qx, qy, qz);
-      if (d2 < pt[j].best || (d2 == pt[j].best && pad_id < pt[j].fid)) {
-        pt[j].best = d2;
-        pt[j].fid = pad_id;
-        pt[j].qx = qx; pt[j].qy = qy; pt[j].qz = qz;
-      }
+    float qx, qy, qz;
+    const float d2 = closest_pair(t, pt.px, pt.py, pt.pz, qx, qy, qz);
+    if (d2 < pt.best || (d2 == pt.best && pad_id < pt.fid)) {
+      pt.best = d2;
+      pt.fid = pad_id;
+      pt.qx = qx; pt.qy = qy; pt.qz = qz;
     }
   }
 
@@ -433,23 +410,19 @@ closest_point_sweep_kernel(const float* __restrict__ pts, int num_points,
     atomicAdd(counters + 0, closest_tris * warp_points);
     atomicAdd(counters + 1, wind_tris * warp_points);
   }
-#pragma unroll
-  for (int j = 0; j < kPPT; ++j) {
-    if (!((live >> j) & 1u)) continue;
-    const int i = first + 32 * j;
-    out_d2[i] = pt[j].best;
-    out_closest[3 * i + 0] = pt[j].qx;
-    out_closest[3 * i + 1] = pt[j].qy;
-    out_closest[3 * i + 2] = pt[j].qz;
-    out_fid[i] = pt[j].fid;
-    if constexpr (kWinding) out_wind[i] = wind_needed ? pt[j].wind : 0.f;
-  }
+  if (!live) return;
+  out_d2[i] = pt.best;
+  out_closest[3 * i + 0] = pt.qx;
+  out_closest[3 * i + 1] = pt.qy;
+  out_closest[3 * i + 2] = pt.qz;
+  out_fid[i] = pt.fid;
+  if constexpr (kWinding) out_wind[i] = wind_needed ? pt.wind : 0.f;
 }
 
 template <bool kWinding>
 int launch(const float* pts, int num_points, const float* tri, int num_tri, float* d2,
            float* closest, int* fid, float* wind, const float* exterior_box,
-           unsigned long long* counters, int cull, void* stream) {
+           unsigned long long* counters, void* stream) {
   if (num_points <= 0) return 0;
   Box ext{};
   const int has_ext = exterior_box != nullptr;
@@ -457,11 +430,9 @@ int launch(const float* pts, int num_points, const float* tri, int num_tri, floa
     ext.lo[d] = exterior_box[d];
     ext.hi[d] = exterior_box[3 + d];
   }
-  const int per_block = kThreads * kPointsPerThread;
-  const int blocks = (num_points + per_block - 1) / per_block;
-  closest_point_sweep_kernel<kWinding, kPointsPerThread>
-      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          pts, num_points, tri, num_tri, d2, closest, fid, wind, ext, has_ext, cull, counters);
+  const int blocks = (num_points + kThreads - 1) / kThreads;
+  closest_point_sweep_kernel<kWinding><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      pts, num_points, tri, num_tri, d2, closest, fid, wind, ext, has_ext, counters);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -473,27 +444,25 @@ int launch(const float* pts, int num_points, const float* tri, int num_tri, floa
 // (lo xyz, hi xyz) that the caller gives only for a mesh with no boundary,
 // grown by its margin.  counters: null, or 2 device uint64 to which the
 // launch adds the (point, real triangle) pairs whose closest point, and
-// whose solid angle, it evaluated.  cull: 0 turns cluster culling off.
+// whose solid angle, it evaluated.
 // Launches on `stream` and returns the cudaGetLastError() code of the
 // launch (0 on success).
 extern "C" int pvt_closest_point_sweep(const float* pts, int num_points,
                                        const float* tri, int num_tri,
                                        float* d2, float* closest, int* fid,
                                        float* wind, const float* exterior_box,
-                                       unsigned long long* counters, int cull,
-                                       void* stream) {
+                                       unsigned long long* counters, void* stream) {
   return launch<true>(pts, num_points, tri, num_tri, d2, closest, fid, wind, exterior_box,
-                      counters, cull, stream);
+                      counters, stream);
 }
 
 // The same sweep without the winding sum: d2, closest and fid only.
 extern "C" int pvt_closest_point_sweep_nowind(const float* pts, int num_points,
                                               const float* tri, int num_tri,
                                               float* d2, float* closest, int* fid,
-                                              unsigned long long* counters, int cull,
-                                              void* stream) {
+                                              unsigned long long* counters, void* stream) {
   return launch<false>(pts, num_points, tri, num_tri, d2, closest, fid, nullptr, nullptr,
-                       counters, cull, stream);
+                       counters, stream);
 }
 
 extern "C" const char* pvt_cuda_error_string(int code) {

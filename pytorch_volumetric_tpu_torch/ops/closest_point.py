@@ -25,6 +25,7 @@ import ctypes
 import numpy as np
 import torch
 
+from pytorch_volumetric_tpu_torch.mesh import PAD_COORD
 from pytorch_volumetric_tpu_torch.ops import cuda_build
 from pytorch_volumetric_tpu_torch.ops.point_triangle import (
     _FOUR_PI, mesh_closest_query, mesh_closest_query_expanded)
@@ -34,8 +35,8 @@ KERNEL = "closest_point"
 _p, _i = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (pointers, counts, options, the stream)
 _ARGTYPES = {
-    "pvt_closest_point_sweep": [_p, _i, _p, _i, _p, _p, _p, _p, _p, _p, _i, _p],
-    "pvt_closest_point_sweep_nowind": [_p, _i, _p, _i, _p, _p, _p, _p, _i, _p],
+    "pvt_closest_point_sweep": [_p, _i, _p, _i, _p, _p, _p, _p, _p, _p, _p],
+    "pvt_closest_point_sweep_nowind": [_p, _i, _p, _i, _p, _p, _p, _p, _p],
     "pvt_closest_point_sweep_mma": [_p, _i, _p, _i, _p, _p, _p, _p, _p],
 }
 
@@ -65,8 +66,17 @@ def _check_inputs(points: torch.Tensor, tri: torch.Tensor) -> None:
             raise ValueError(f"{name} is too large for 32-bit indexing")
 
 
-def _sweep_options(points: torch.Tensor, exterior_box, counters, cull: bool,
-                   winding: bool):
+def _check_tail_padding(tri: torch.Tensor) -> None:
+    """Raise unless every ``PAD_COORD`` row of ``tri [F, 3, 3]`` comes after
+    the last real one."""
+    pad = (tri.reshape(tri.shape[0], -1) == PAD_COORD).all(dim=1)
+    tail = pad.flip(0).to(torch.int32).cumprod(0).flip(0).bool()
+    if bool((pad & ~tail).any()):
+        raise ValueError("tri has PAD_COORD padding between real faces; the tensor-core "
+                         "sweep takes padding only in the tail")
+
+
+def _sweep_options(points: torch.Tensor, exterior_box, counters, winding: bool):
     """The sweep kernel's trailing arguments (before the stream); the ctypes
     box array is returned too, to live through the call."""
     box = None
@@ -78,7 +88,7 @@ def _sweep_options(points: torch.Tensor, exterior_box, counters, cull: bool,
     if counters is not None and (counters.dtype != torch.int64 or counters.shape != (2,)
                                  or counters.device != points.device):
         raise ValueError("counters must be an int64 tensor [2] on the points' device")
-    args = [None if counters is None else counters.data_ptr(), int(cull)]
+    args = [None if counters is None else counters.data_ptr()]
     if winding:
         args.insert(0, None if box is None else ctypes.addressof(box))
     return args, box
@@ -114,7 +124,7 @@ def _launch(wrapper, library: str, symbol: str, points: torch.Tensor,
 
 def mesh_closest_query_cuda(points: torch.Tensor, tri: torch.Tensor,
                             exterior_box=None, counters: torch.Tensor = None,
-                            cull: bool = True, **plain_kwargs):
+                            **plain_kwargs):
     """Closest point + winding number for ``points [P, 3]`` against
     triangles ``tri [Fp, 3, 3]`` (padding with ``mesh.PAD_COORD`` allowed).
 
@@ -126,28 +136,25 @@ def mesh_closest_query_cuda(points: torch.Tensor, tri: torch.Tensor,
     - ``counters``: an int64 tensor ``[2]`` on the device to which the
       launch adds the (point, real triangle) pairs whose closest point, and
       whose solid angle, it evaluated.
-    - ``cull=False`` turns the kernel's cluster culling off, for the
-      roofline probe's lever readings.
 
     The plain version (a CPU tensor) ignores these; ``plain_kwargs`` (chunk
     sizes) apply to it only.
     """
     if points.device.type == "cpu":
         return mesh_closest_query(points, tri, **plain_kwargs)
-    options, _box = _sweep_options(points, exterior_box, counters, cull, winding=True)
+    options, _box = _sweep_options(points, exterior_box, counters, winding=True)
     return _launch(mesh_closest_query_cuda, KERNEL, "pvt_closest_point_sweep",
                    points, tri, options=options)
 
 
 def mesh_closest_query_nowind_cuda(points: torch.Tensor, tri: torch.Tensor,
-                                   counters: torch.Tensor = None, cull: bool = True,
-                                   **plain_kwargs):
+                                   counters: torch.Tensor = None, **plain_kwargs):
     """:func:`mesh_closest_query_cuda` without the winding sum: the same
     distances, closest points and face ids; the returned winding is all
     zeros (the kernel computes none)."""
     if points.device.type == "cpu":
         return mesh_closest_query(points, tri, winding=False, **plain_kwargs)
-    options, _ = _sweep_options(points, None, counters, cull, winding=False)
+    options, _ = _sweep_options(points, None, counters, winding=False)
     return _launch(mesh_closest_query_nowind_cuda, KERNEL,
                    "pvt_closest_point_sweep_nowind", points, tri, winding=False,
                    options=options)
@@ -156,7 +163,13 @@ def mesh_closest_query_nowind_cuda(points: torch.Tensor, tri: torch.Tensor,
 def mesh_closest_query_mma_cuda(points: torch.Tensor, tri: torch.Tensor,
                                 **plain_kwargs):
     """:func:`mesh_closest_query_cuda` with the pairwise dot products on
-    the tensor cores (3xTF32, float32 accuracy); same inputs and outputs."""
+    the tensor cores (3xTF32, float32 accuracy); same inputs and outputs,
+    except that ``mesh.PAD_COORD`` padding is allowed only in the tail (as
+    ``MeshScene`` pads): the kernel's 8-face frames are centred on real
+    faces, and a padding row between them would centre one far away.
+    Raises ``ValueError`` otherwise, on the CPU and on the card."""
+    if points.device.type in ("cpu", "cuda"):
+        _check_tail_padding(tri)
     if points.device.type == "cpu":
         return mesh_closest_query_expanded(points, tri, **plain_kwargs)
     return _launch(mesh_closest_query_mma_cuda, "closest_point_mma",
@@ -171,7 +184,7 @@ def mesh_closest_query_contracted_cuda(points: torch.Tensor, tri: torch.Tensor,
     to the plain version."""
     if points.device.type == "cpu":
         return mesh_closest_query(points, tri, **plain_kwargs)
-    options, _box = _sweep_options(points, exterior_box, None, True, winding=True)
+    options, _box = _sweep_options(points, exterior_box, None, winding=True)
     return _launch(mesh_closest_query_contracted_cuda, "closest_point_fmad",
                    "pvt_closest_point_sweep", points, tri, options=options)
 

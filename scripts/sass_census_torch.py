@@ -9,7 +9,7 @@ Builds every library of ``pytorch_volumetric_tpu_torch/csrc`` (as
 counts, per kernel, the static SASS instructions by class: of the whole
 kernel and of each innermost loop (a span closed by a backward branch that
 holds no barrier and no other loop), labelled by what it computes.  A sweep
-loop's count over its points per thread is its instructions per pair.
+loop's count is its instructions per pair (one point per thread).
 The classes say what the loop spends its issue slots on: FP32 arithmetic,
 special-function unit (MUFU: reciprocals, square roots, the atan2's
 pieces), compares and selects, integer and address arithmetic, memory,
@@ -101,23 +101,22 @@ def loops(insns, labels):
     return out
 
 
-def loop_kind(span, points: int = 1) -> str:
-    """What a sweep loop over ``points`` points per thread computes, from
-    its instructions: the closest point's two IEEE divisions per point (two
-    FCHK; the atan2 has one) and the solid angle's square roots
-    (MUFU.RSQ)."""
+def loop_kind(span) -> str:
+    """What a sweep loop computes, from its instructions: the closest
+    point's two IEEE divisions (two FCHK; the atan2 has one) and the solid
+    angle's square roots (MUFU.RSQ)."""
     ops = collections.Counter(op + rest.split()[0] if op == "MUFU" and rest.strip() else op
                               for _, op, rest in span)
-    kind = [k for k, hit in (("closest", ops["FCHK"] >= 2 * points),
+    kind = [k for k, hit in (("closest", ops["FCHK"] >= 2),
                              ("winding", ops["MUFU.RSQ"] > 0)) if hit]
     return "+".join(kind) or "other"
 
 
 def template_args(fn: str) -> dict:
-    """``kWinding`` and points per thread of a sweep kernel instantiation,
-    from its mangled name (``...ILb1ELi2EE...``)."""
-    m = re.search(r"ILb([01])ELi(\d+)E", fn)
-    return {"winding": m.group(1) == "1", "points_per_thread": int(m.group(2))} if m else {}
+    """``kWinding`` of a sweep kernel instantiation, from its mangled name
+    (``...closest_point_sweep_kernelILb1EE...``)."""
+    m = re.search(r"sweep_kernelILb([01])E", fn)
+    return {"winding": m.group(1) == "1"} if m else {}
 
 
 def census(insns):
@@ -141,10 +140,10 @@ def main():
                               capture_output=True, text=True, check=True).stdout
         funcs, labels = parse(sass)
         for fn, insns in funcs.items():
-            targs = template_args(fn)
-            found = [dict(census(span), kind=loop_kind(span, targs.get("points_per_thread", 1)))
+            found = [dict(census(span), kind=loop_kind(span))
                      for span in loops(insns, labels[fn])]
-            out[f"{name}:{fn}"] = {"kernel": census(insns), **targs, "loops": found}
+            out[f"{name}:{fn}"] = {"kernel": census(insns), **template_args(fn),
+                                   "loops": found}
     line = json.dumps({"metric": "sass_census", "kernels": out})
     print(line)
     if args.out:

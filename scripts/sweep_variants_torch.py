@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""Design variants of the sweep kernel, timed side by side on one GPU.
+"""The sweep kernel's levers and design variants, timed side by side on
+one GPU.
 
     python3 scripts/sweep_variants_torch.py [--reps N]
 
 Builds copies of ``pytorch_volumetric_tpu_torch/csrc/closest_point.cu``
-with one compile-time choice changed (2 or 4 points per thread, clusters
-of 4 or 16 faces, a minimum of 8 resident blocks per SM, which caps
-registers at 64), each as its own library under ``_build/``, and times
-each on the capsule's cache-build grid, on the probe's torus (both with
-the scene's exterior box, as the main path calls it) and on the exact-link
-robot's forward query (200 configurations x 15,251 points), with the
-pairs each evaluates on the grid and the torus.  Every variant's
-distances, closest points and face ids must equal the shipped kernel's
-(``same``).  Prints one JSON line; exits non-zero without a CUDA device or
-when a variant differs.
+with one compile-time choice changed (cluster culling off, clusters of 4 or
+16 faces, a minimum of 8 resident blocks per SM, which caps registers at
+64), each as its own library under ``_build/``.  Each row of ``ROWS`` is
+one of them, called with or without the scene's exterior box; the first
+three switch the levers on one by one (select-then-divide and padding
+skipped are always on).  Each row is timed on the capsule's cache-build
+grid and on the probe's torus, with the pairs it evaluates there, and the
+rows that take the box on the exact-link robot's forward query (200
+configurations x 15,251 points) too.  Every row's distances, closest
+points and face ids must equal the shipped kernel's (``same``).  Prints one
+JSON line; exits non-zero without a CUDA device or when a row differs.
 """
 
 import argparse
@@ -28,14 +30,23 @@ import torch  # noqa: E402
 
 LAUNCH = "__global__ void __launch_bounds__(kThreads)"
 CLUSTER = "constexpr int kCluster = 8;"
-PPT = "constexpr int kPointsPerThread = 1;"
+CULL = "constexpr bool kCull = true;"
+
+# row -> (source variant, whether the call passes the scene's exterior box)
+ROWS = {
+    "levers 1+2: select-then-divide, padding skipped": ("no culling", False),
+    "+3: exterior winding": ("no culling", True),
+    "+4: cluster culling (shipped)": ("shipped", True),
+    "clusters of 4": ("clusters of 4", True),
+    "clusters of 16": ("clusters of 16", True),
+    "at most 64 registers": ("min 8 blocks/SM", True),
+}
 
 
 def variants(src: str) -> dict:
     """name -> source text of each variant (``shipped`` is the source)."""
     out = {"shipped": src,
-           "2 points/thread": src.replace(PPT, PPT.replace("1", "2")),
-           "4 points/thread": src.replace(PPT, PPT.replace("1", "4")),
+           "no culling": src.replace(CULL, CULL.replace("true", "false")),
            "clusters of 4": src.replace(CLUSTER, CLUSTER.replace("8", "4")),
            "clusters of 16": src.replace(CLUSTER, CLUSTER.replace("8", "16")),
            "min 8 blocks/SM": src.replace(LAUNCH, LAUNCH[:-1] + ", 8)")}
@@ -95,28 +106,33 @@ def main() -> int:
     out, ok = {}, True
     saved = cp.KERNEL
     try:
-        for name, lib in libs.items():
-            cp.KERNEL = lib
-            row = {}
+        for name, (variant, use_box) in ROWS.items():
+            cp.KERNEL = libs[variant]
+            row = {"variant": variant, "exterior_box": use_box}
             for cell, (p, s) in cells.items():
-                def sweep(a, t, box=s.exterior_box):
+                def sweep(a, t, box=s.exterior_box if use_box else None):
                     return cp.mesh_closest_query_cuda(a, t, exterior_box=box)
                 res = sweep(p, s.tri)
-                same = all(torch.equal(a, b) for a, b in zip(res[:3], refs[cell][:3]))
+                P, F = p.shape[0], s.num_faces
+                ev = sr.evaluated_pairs(cp.mesh_closest_query_cuda, p, s.tri,
+                                        exterior_box=s.exterior_box if use_box else None)
                 reps = args.reps if cell == "capsule_grid" else max(1, args.reps // 3)
-                row[cell] = dict(sr.evaluated_pairs(cp.mesh_closest_query_cuda, p, s.tri,
-                                                    exterior_box=s.exterior_box),
+                row[cell] = dict(ev, closest_share=ev["closest_pairs"] / (P * F),
+                                 winding_share=ev["winding_pairs"] / (P * F),
                                  ms=device_time(sweep, p, s.tri, reps=reps, warmup=0) * 1e3,
-                                 same=same)
-            v, g = fwd()
-            same = torch.equal(v, ref_robot[0]) and torch.equal(g, ref_robot[1])
-            row["exact_forward"] = {"ms": cs.time_ms(fwd, dev, reps=5), "same": same}
-            ok = ok and all(r["same"] for r in row.values())
+                                 same=all(torch.equal(a, b)
+                                          for a, b in zip(res[:3], refs[cell][:3])),
+                                 winding_err=(res[3] - refs[cell][3]).abs().max().item())
+            if use_box:  # MeshSDF always passes the box
+                v, g = fwd()
+                same = torch.equal(v, ref_robot[0]) and torch.equal(g, ref_robot[1])
+                row["exact_forward"] = {"ms": cs.time_ms(fwd, dev, reps=5), "same": same}
+            ok = ok and all(r["same"] for r in row.values() if isinstance(r, dict))
             out[name] = row
     finally:
         cp.KERNEL = saved
     print(json.dumps({"metric": "sweep_variants", "ok": ok, "card": sr.card_name(),
-                      "variants": out}), flush=True)
+                      "rows": out}), flush=True)
     return 0 if ok else 1
 
 

@@ -21,6 +21,9 @@ from pytorch_volumetric_tpu import mesh as jm
 from pytorch_volumetric_tpu import transforms as jtf
 from pytorch_volumetric_tpu_torch import chamfer as tch
 from pytorch_volumetric_tpu_torch import transforms as ttf
+from torch_cpu_guard import warm_sqrt
+
+warm_sqrt()
 
 RTOL, ATOL = 1e-4, 1e-6
 

@@ -162,21 +162,21 @@ def test_nowind_kernel_matches_plain_on_card(card, case, P):
 def test_exterior_box_and_cull_counters_on_capsule_grid(card):
     """The main path's sweep (the capsule's cache-build grid with its
     exterior box): bit-identical to the plain version on a strided subset,
-    and to itself with every lever off; its counters show culled pairs and
-    almost no solid angles, while the lever-off launch evaluates every real
-    pair."""
+    and to itself without the box; its counters show culled pairs, and
+    almost no solid angles with the box but every one without it."""
     grid, cap = sr.capsule_cache_grid(card)
     P, F = grid.shape[0], cap.num_faces
-    full = torch.zeros(2, dtype=torch.int64, device=card)
-    off = mesh_closest_query_cuda(grid, cap.tri, counters=full, cull=False)
+    no_box = torch.zeros(2, dtype=torch.int64, device=card)
+    summed = mesh_closest_query_cuda(grid, cap.tri, counters=no_box)
     counters = torch.zeros(2, dtype=torch.int64, device=card)
     out = mesh_closest_query_cuda(grid, cap.tri, exterior_box=cap.exterior_box,
                                   counters=counters)
-    for a, b in zip(out[:3], off[:3]):
+    for a, b in zip(out[:3], summed[:3]):
         assert torch.equal(a, b)
-    assert full.tolist() == [P * F, P * F]
     closest, winding = counters.tolist()
+    assert no_box.tolist() == [closest, P * F]
     assert 0 < closest < 0.6 * P * F and 0 < winding < 0.01 * P * F
+    assert (out[3] - summed[3]).abs().max().item() <= 1e-4
     sub = grid[::97].contiguous()
     ref = tpt.mesh_closest_query(sub, cap.tri)
     for a, b in zip([x[::97] for x in out[:3]], ref[:3]):

@@ -15,6 +15,9 @@ import pytorch_volumetric_tpu_torch as pt
 from pytorch_volumetric_tpu import kinematics as jk
 from pytorch_volumetric_tpu_torch import kinematics as tk
 from pytorch_volumetric_tpu_torch.utils.robots import make_serial_arm, serial_arm_mjcf
+from torch_cpu_guard import warm_sqrt
+
+warm_sqrt()
 
 URDF = """
 <robot name="two_link">

@@ -15,6 +15,9 @@ from pytorch_volumetric_tpu_torch import mesh as tm
 from pytorch_volumetric_tpu_torch.ops import point_triangle as tpt
 from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
 from pytorch_volumetric_tpu_torch.state import scene_from_numpy
+from torch_cpu_guard import warm_sqrt
+
+warm_sqrt()
 
 INTERPRET = jax.default_backend() != "tpu"
 

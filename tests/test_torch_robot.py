@@ -13,6 +13,9 @@ import pytorch_volumetric_tpu_torch as pt
 from pytorch_volumetric_tpu.utils.robots import make_serial_arm
 from pytorch_volumetric_tpu_torch import state
 from pytorch_volumetric_tpu_torch.utils import robots as trobots
+from torch_cpu_guard import warm_sqrt
+
+warm_sqrt()
 
 BRANCHING_URDF = """
 <robot name="two_arm">

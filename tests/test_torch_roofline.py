@@ -26,6 +26,9 @@ from pytorch_volumetric_tpu_torch.ops.closest_point import (
     mesh_closest_query_nowind_cuda)
 from pytorch_volumetric_tpu_torch.ops.fma_probe import fma_probe, fma_probe_cuda, flops
 from pytorch_volumetric_tpu_torch.utils import profiling
+from torch_cpu_guard import warm_sqrt
+
+warm_sqrt()
 
 CPU = torch.device("cpu")
 
@@ -113,6 +116,26 @@ def test_wrappers_run_plain_versions_on_cpu():
         for a, b in zip(wrapper(pts, tri), plain(pts, tri)):
             assert torch.equal(a, b)
         assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("where", ["none", "tail", "middle", "head"])
+def test_mma_wrapper_takes_padding_only_in_the_tail(where):
+    """The tensor-core sweep's 8-face frames are centred on real faces, so
+    its wrapper refuses ``PAD_COORD`` rows between or before real ones (on
+    every device); tail padding gives the plain version's result."""
+    tri = torch.as_tensor(tm.torus_mesh(0.1, 0.03, 8, 6).triangles().astype(np.float32))
+    pad = torch.full((5, 3, 3), tm.PAD_COORD)
+    tri = {"none": tri, "tail": torch.cat([tri, pad]),
+           "middle": torch.cat([tri[:40], pad, tri[40:]]), "head": torch.cat([pad, tri])}[where]
+    pts = torch.as_tensor(np.random.default_rng(3).uniform(-0.2, 0.2, (100, 3))
+                          .astype(np.float32))
+    if where in ("middle", "head"):
+        with pytest.raises(ValueError, match="padding between real faces"):
+            mesh_closest_query_mma_cuda(pts, tri)
+        return
+    for a, b in zip(mesh_closest_query_mma_cuda(pts, tri),
+                    tpt.mesh_closest_query_expanded(pts, tri)):
+        assert torch.equal(a, b)
 
 
 def _fma_jax(x, y, iters):

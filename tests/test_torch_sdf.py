@@ -13,6 +13,9 @@ import torch
 import pytorch_volumetric_tpu as pv
 import pytorch_volumetric_tpu_torch as pt
 from pytorch_volumetric_tpu_torch import state
+from torch_cpu_guard import warm_sqrt
+
+warm_sqrt()
 
 RES = 0.04
 

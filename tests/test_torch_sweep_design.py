@@ -27,7 +27,9 @@ from pytorch_volumetric_tpu_torch.bench import sweep_roofline as sr
 from pytorch_volumetric_tpu_torch.ops import cuda_build
 from pytorch_volumetric_tpu_torch.ops import point_triangle as tpt
 from pytorch_volumetric_tpu_torch.utils.robots import make_serial_arm
+from torch_cpu_guard import warm_sqrt
 
+warm_sqrt()
 CPU = torch.device("cpu")
 F32 = np.float32
 
@@ -41,16 +43,6 @@ def _kernel_constants():
 
 
 K = _kernel_constants()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _warm_sqrt():
-    """Two large ``torch.sqrt`` calls before the tests: with this CPU build
-    of torch, the first parallel sqrt of a process now and then returns
-    ~12-bit results on one thread's share of the elements, which would
-    move the plain version's winding by ~1e-3."""
-    for _ in range(2):
-        torch.sqrt(torch.rand(1 << 20))
 
 
 def _t(x):
@@ -415,15 +407,18 @@ def _script(name):
 
 def test_variant_sources_apply_to_the_kernel():
     """Each compile-time variant of ``scripts/sweep_variants_torch.py``
-    changes the shipped source (it raises if one no longer applies)."""
+    changes the shipped source (it raises if one no longer applies), and
+    every row names one of them."""
     with open(os.path.join(cuda_build.CSRC_DIR, "closest_point.cu")) as f:
         src = f.read()
-    out = _script("sweep_variants_torch").variants(src)
+    sv = _script("sweep_variants_torch")
+    out = sv.variants(src)
     assert out["shipped"] == src and len(set(out.values())) == len(out)
+    assert {v for v, _ in sv.ROWS.values()} == set(out)
 
 
 _SASS = """
-        Function : _ZN4anon26closest_point_sweep_kernelILb1ELi1EEEvPKf
+        Function : _ZN4anon26closest_point_sweep_kernelILb1EEEvPKf
         /*0000*/                   MOV R1, c[0x0][0x28] ;
 .L_x_0:
         /*0010*/                   LDS R2, [R3] ;
@@ -449,7 +444,10 @@ def test_sass_census_finds_innermost_loops():
     found = sc.loops(insns, labels[fn])
     assert [len(span) for span in found] == [5]
     assert sc.loop_kind(found[0]) == "closest+winding"
-    assert sc.loop_kind(found[0], points=2) == "winding"
+    assert sc.loop_kind([i for i in found[0] if i[1] != "FCHK"]) == "winding"
+    assert sc.loop_kind([i for i in found[0] if i[1] != "MUFU"]) == "closest"
     assert sc.census(found[0])["by_class"] == {"compare_select": 2, "mufu": 1, "fp32": 1,
                                                "control": 1}
-    assert sc.template_args(fn) == {"winding": True, "points_per_thread": 1}
+    assert sc.template_args(fn) == {"winding": True}
+    assert sc.template_args("_ZN4anon26closest_point_sweep_kernelILb0EEEvPKf") == {
+        "winding": False}
