@@ -32,7 +32,13 @@ Phases, each fatal on failure:
    the sweep on the torus and at the capsule's cache-build grid;
 7. the headline arm written as MJCF (mesh geoms on the same OBJ files):
    its 200 x 15,251 exact query must equal the URDF arm's;
-8. one JSON line with every kernel's launches and times, then the result
+8. the coherent grid path: the headline arm from a fresh cache (the kernel
+   runs in its build), ``RobotSDF.query_grid`` over 200 configurations x
+   the 151 x 1 x 101 grid in 12-point tiles, its values, gradients and
+   d/dq against ``RobotSDF.query`` on the card, ``values_only``, the
+   residual lane's overflow, small single-child and trilinear cases, and
+   its times beside phase 4's;
+9. one JSON line with every kernel's launches and times, then the result
    line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
@@ -392,6 +398,189 @@ def phase_cached_robot(device, arm_dir, cache_dir, card, n_configs=N_CONFIGS,
         f"forward {fwd_ms:.3f} ms ({n / fwd_ms / 1e3:.4g} M queries/s), forward+backward "
         f"{fb_ms:.3f} ms ({n / fb_ms / 1e3:.4g} M queries/s) [{card}]; "
         f"kernel launches on the path: {launches}")
+    return launches, fwd_ms, fb_ms
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the coherent grid path
+# ---------------------------------------------------------------------------
+
+def exact_or_gate(name, v, g, vr, gr):
+    """The brick path's values and gradients ``(v, g)`` against the generic
+    path's ``(vr, gr)`` on the same device: equal, or else the count and
+    the kind of each difference printed and JAX's non-CPU tolerance
+    (1e-6 value, 1e-5 gradient) applied."""
+    dv = v != vr
+    dg = (g != gr).any(dim=-1)
+    if not bool(dv.any() or dg.any()):
+        log(f"    {name}: bit-identical to the generic path ({v.numel()} points)")
+        return True
+    err_v = (v - vr).abs().max().item()
+    err_g = (g - gr).abs().max().item()
+    ulp = (v - vr).abs() <= torch.finfo(v.dtype).eps * vr.abs()
+    log(f"    {name}: differs from the generic path at {int(dv.sum())} values (max |d| "
+        f"{err_v:.3g}; {int((dv & ulp).sum())} within one ulp, so rounding, not a voxel "
+        f"or winner) and {int(dg.sum())} gradients (max |d| {err_g:.3g}; "
+        f"{int((dg & ~dv).sum())} with equal values: a tie or the rotation's rounding)")
+    check(err_v <= 1e-6 and err_g <= 1e-5,
+          f"{name}: beyond 1e-6 (value) / 1e-5 (gradient) of the generic path")
+    return False
+
+
+def coherent_small_cases(device, tmp):
+    """``(name, composition, resolution, range, cache resolution)``: sphere
+    caches through the single-child, single-trilinear and trilinear-union
+    routes (the headline arm takes the nearest per-tile union)."""
+    import pytorch_volumetric_tpu_torch as pt
+    rng_pd = np.array([[-0.6, 0.6], [0.0, 0.0], [-0.6, 0.6]])
+    c, s = np.cos(0.7), np.sin(0.7)
+    rot = np.array([[c, -s, 0, 0.1], [s, c, 0, -0.05], [0, 0, 1, 0.02], [0, 0, 0, 1]],
+                   np.float32)
+    cases = []
+    for interp in ("nearest", "trilinear"):
+        cache = pt.CachedSDF(f"ball_{interp}", 0.04, np.array([[-0.5, 0.5]] * 3),
+                             pt.SphereSDF(0.3, device=device), interpolation=interp,
+                             cache_path=os.path.join(tmp, "coherent_small.npz"))
+        tsf = pt.Transform3d(matrix=torch.as_tensor(np.stack([rot, np.eye(4, dtype=np.float32)]),
+                                                    device=device))
+        cases.append((f"single {interp} child", pt.ComposedSDF([cache], tsf), 0.02, rng_pd, 0.04))
+    children, mats = [], []
+    for i in range(4):
+        children.append(pt.CachedSDF(f"j{i}", 0.04, np.array([[-0.5, 0.5]] * 3),
+                                     pt.SphereSDF(0.05, device=device), interpolation="trilinear",
+                                     cache_path=os.path.join(tmp, "coherent_small.npz")))
+        m = np.eye(4, dtype=np.float32)
+        ang = np.pi / 2 * i + 0.3
+        m[0, 3], m[1, 3] = -0.03 * np.cos(ang), -0.03 * np.sin(ang)
+        mats.append(m)
+    cases.append(("trilinear union of 4", pt.ComposedSDF(
+        children, pt.Transform3d(matrix=torch.as_tensor(np.stack(mats), device=device))),
+        0.02, np.array([[-0.2, 0.2], [-0.2, 0.2], [-0.1, 0.1]]), 0.04))
+    return cases
+
+
+def phase_coherent(device, arm_dir, tmp, card, generic_ms, n_configs=N_CONFIGS,
+                   query_res=QUERY_RES, resolution=0.02, reps=5):
+    """``RobotSDF.query_grid`` on the headline arm from a fresh cache:
+    8 nearest links on the per-tile winner union, ``seg`` = 12."""
+    import pytorch_volumetric_tpu_torch as pt
+    from pytorch_volumetric_tpu_torch import sdf as tsdf
+    from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
+
+    text = open(os.path.join(arm_dir, "arm.urdf")).read()
+    q, pts_g = headline_inputs(device, n_configs, query_res)
+
+    def objective_grad(fn):
+        qq = q.detach().clone().requires_grad_(True)
+        v, g = fn(qq)
+        (dq,) = torch.autograd.grad(v.sum() + g.sum(), qq)
+        return v.detach().reshape(q.shape[0], -1), g.detach().reshape(q.shape[0], -1, 3), dq
+
+    # the main path, from a fresh cache: the build (K1) and the grid query
+    # with its gradient w.r.t. the joint angles
+    mesh_closest_query_cuda.launches = 0
+    robot = pt.RobotSDF(pt.build_serial_chain_from_urdf(text, "link7", device=device),
+                        path_prefix=arm_dir,
+                        link_sdf_cls=pt.cache_link_sdf_factory(
+                            resolution=resolution, padding=1.0,
+                            cache_path=os.path.join(tmp, "coherent_cache.npz")))
+    v, g, dq = objective_grad(lambda qq: robot.query_grid(qq, QUERY_RANGE, query_res))
+    sync(device)
+    launches = mesh_closest_query_cuda.launches
+
+    children = tuple(robot.sdf.sdfs)
+    fast, _, generic = tsdf._coherent_classify(children)
+    min_res = tsdf.coherent_min_cache_resolution(children)
+    pts, take, seg = pt.get_coherent_tile_points(query_res, QUERY_RANGE, cache_resolution=min_res,
+                                                 device=device)
+    tables = tsdf.coherent_fast_tables(children)
+    T = q.shape[0] * pts.shape[0] // seg
+    cap = min(T, max(int(np.ceil(T * 0.04)), 32))
+    log(f"  {len(fast)} nearest links on the brick path, {len(generic)} generic; seg = {seg}, "
+        f"{pts.shape[0]} padded points in {pts.shape[0] // seg} tiles ({len(take)} taken); "
+        f"brick rows per link {T} (the generic path's rows: {q.shape[0] * len(take)}); "
+        f"tables per link (MB): vg {tables[0].vg.numel() * 4 / 1e6:.1f}, bricks "
+        f"{tables[0].bricks.numel() * 4 / 1e6:.1f}, "
+        f"gbricks {tables[0].gbricks.numel() * 4 / 1e6:.1f}")
+    check(seg == 12 and len(fast) == len(children) == 8 and not generic,
+          "coherent path: expected 8 nearest links on 12-point tiles")
+    check(all(t.gbricks is not None and t.bricks4 is None for t in tables),
+          "coherent path: the 8-link union must carry gradient bricks and no bricks4")
+    robot.set_joint_configuration(q[:N_CHECK])
+    check(robot.sdf.check_coherent_contract(pts, seg=seg),
+          f"coherent path: the tiles break the contract on {N_CHECK} configurations")
+    check(bool(torch.isfinite(v).all() and torch.isfinite(g).all() and torch.isfinite(dq).all()),
+          "coherent path: non-finite output")
+
+    vr, gr, dqr = objective_grad(lambda qq: robot.query(qq, pts_g))
+    exact = exact_or_gate(f"query_grid vs query ({q.shape[0]} x {len(take)})", v, g, vr, gr)
+    # d/dq sums 15,251 points' terms per configuration in float32, so the
+    # order of the sums alone moves a small component by ~1e-3: the gate is
+    # 2e-4 of each configuration's largest |d/dq|, and the generic path's
+    # own noise (its points in another order) is printed beside it
+    perm = torch.as_tensor(np.random.default_rng(1).permutation(pts_g.shape[0]), device=device)
+    _, _, dqp = objective_grad(lambda qq: robot.query(qq, pts_g[perm]))
+    scale = dqr.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+
+    def dq_errs(a):
+        return (((a - dqr).abs() / (2e-4 + 2e-4 * dqr.abs())).max().item(),
+                ((a - dqr).abs() / (2e-4 * scale)).max().item())
+
+    (tile_el, tile_sc), (perm_el, perm_sc) = dq_errs(dq), dq_errs(dqp)
+    log(f"    d(v.sum()+g.sum())/dq: max |d| {(dq - dqr).abs().max().item():.3g}; of the gate "
+        f"2e-4 x each configuration's largest |d/dq| (max {dqr.abs().max().item():.4g}): "
+        f"{tile_sc:.3g}; of rtol = atol = 2e-4 per component: {tile_el:.3g}. The generic "
+        f"path on its points reordered: max |d| {(dqp - dqr).abs().max().item():.3g}, "
+        f"{perm_sc:.3g} and {perm_el:.3g} of the same gates")
+    check(tile_sc <= 1.0, "coherent path: d/dq beyond 2e-4 of the generic path")
+    with torch.no_grad():
+        vo = robot.query_grid(q, QUERY_RANGE, query_res, values_only=True)
+    check(torch.equal(vo.reshape(q.shape[0], -1), v), "values_only differs from the full values")
+
+    # the residual lane: middle tiles (>= 4 distinct winners) beyond a
+    # capacity of 1 get NaN gradients, each holding at least one
+    m, m_inv = robot._link_transforms(q)
+    with torch.no_grad():
+        _, g_of = tsdf.compose_query_coherent(children, m, m_inv, q.shape[0], pts, seg=seg,
+                                              residual_frac=1e-9)
+    nan_tiles = int(torch.isnan(g_of).reshape(q.shape[0], -1, seg * 3).any(dim=-1).sum())
+    log(f"    middle tiles (>= 4 distinct winners): {nan_tiles + 1} of {T} "
+        f"({(nan_tiles + 1) / T * 100:.3f}%), capacity {cap} at residual_frac 0.04; "
+        f"at residual_frac 1e-9 (capacity 1) {nan_tiles} tiles NaN")
+    check(nan_tiles > 0, "residual_frac=1e-9 left every gradient finite")
+    check(nan_tiles + 1 <= cap, "more middle tiles than the default capacity")
+
+    for name, comp, res, rng_pd, cache_res in coherent_small_cases(device, tmp):
+        pts_t, take_t, seg_t = pt.get_coherent_tile_points(res, rng_pd, cache_resolution=cache_res,
+                                                           device=device)
+        _, pts_r = pt.get_coordinates_and_points_in_grid(res, rng_pd, device=device)
+        check(comp.check_coherent_contract(pts_t, seg=seg_t), f"{name}: contract")
+        vc, gc = comp.query_coherent(pts_t, seg=seg_t)
+        vs, gs = comp(pts_r)
+        tk = torch.as_tensor(take_t, device=device)
+        exact &= exact_or_gate(f"{name}, seg {seg_t}", vc[..., tk], gc[..., tk, :], vs, gs)
+
+    robot.set_joint_configuration(q)
+
+    def fwd():
+        with torch.no_grad():
+            robot.query_grid(q, QUERY_RANGE, query_res)
+
+    def values_only():
+        robot.query_grid(q, QUERY_RANGE, query_res, values_only=True)
+
+    def fwd_bwd():
+        objective_grad(lambda qq: robot.query_grid(qq, QUERY_RANGE, query_res))
+
+    fwd_ms = time_ms(fwd, device, reps=reps)
+    fb_ms = time_ms(fwd_bwd, device, reps=reps)
+    vo_ms = time_ms(values_only, device, reps=reps)
+    n = q.shape[0] * len(take)
+    log(f"  coherent grid path {q.shape[0]} x {len(take)}: forward {fwd_ms:.3f} ms "
+        f"({n / fwd_ms / 1e3:.4g} M queries/s), forward+backward {fb_ms:.3f} ms, values_only "
+        f"{vo_ms:.3f} ms; the generic cached path in phase 4: forward {generic_ms[0]:.3f} ms, "
+        f"forward+backward {generic_ms[1]:.3f} ms [{card}]; kernel launches on the path "
+        f"(its cache build): {launches}; bit-identical everywhere: {exact}")
     return launches
 
 
@@ -638,7 +827,7 @@ def main():
         exact_launches = phase_exact_robot(device, arm_dir, card)
         check(exact_launches > 0, "exact robot path launched no kernel")
         log("== phase 4: headline cached-link robot")
-        cached_launches = phase_cached_robot(device, arm_dir, tmp, card)
+        cached_launches, *generic_ms = phase_cached_robot(device, arm_dir, tmp, card)
         check(cached_launches > 0, "cached robot path launched no kernel")
         log("== phase 5: chamfer metrics")
         chamfer_launches = phase_chamfer(device, tmp, card)
@@ -650,11 +839,14 @@ def main():
         log("== phase 7: the arm as MJCF")
         mjcf_launches = phase_mjcf(device, arm_dir, card)
         check(mjcf_launches > 0, "MJCF robot path launched no kernel")
+        log("== phase 8: the coherent grid path")
+        coherent_launches = phase_coherent(device, arm_dir, tmp, card, generic_ms)
+        check(coherent_launches > 0, "the coherent path's cache build launched no kernel")
 
-    log("== phase 8: kernels")
+    log("== phase 9: kernels")
     log(f"  closest_point_sweep launches: exact-link path {exact_launches}, cached-link "
-        f"path {cached_launches}, chamfer exact/cached {chamfer_launches}, MJCF arm {mjcf_launches}; "
-        f"total {time.perf_counter() - t_start:.1f} s")
+        f"path {cached_launches}, chamfer exact/cached {chamfer_launches}, "
+        f"MJCF arm {mjcf_launches}, coherent grid path {coherent_launches}; total {time.perf_counter() - t_start:.1f} s")
     grid = probe["grid"]
 
     def bounds(r):
@@ -676,7 +868,8 @@ def main():
     log(json.dumps({"kernels": [
         {"name": "closest_point_sweep", "route": "cuda", "source": csrc + "closest_point.cu",
          "replaces": "pytorch_volumetric_tpu/ops/pallas/closest_point.py:62",
-         "launches": cached_launches, "max_abs_err": k1["max_abs_err"],
+         "launches": cached_launches, "launches_coherent_path": coherent_launches,
+         "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], **bounds(k1), "library_ms": None},
         probe_row("closest_point_sweep_nowind", csrc + "closest_point.cu",
                   "benchmarks/pallas_mxu_ab.py:48", "mesh_closest_query_nowind_cuda",

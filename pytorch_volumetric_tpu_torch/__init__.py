@@ -3,7 +3,8 @@ distance-field engine.
 
 The flat public namespace mirrors the JAX package's for what has been
 ported: batched SDF value+gradient queries on meshes, voxel-cached SDFs,
-min-union composition, robot model (URDF, SDF, MJCF) -> SDF over batched
+min-union composition (with the coherent brick-gather path for grid
+sweeps), robot model (URDF, SDF, MJCF) -> SDF over batched
 joint configurations, and chamfer metrics.  Entry points run on CUDA unless
 given ``device="cpu"``; the closest-point + winding sweep is a hand-written
 CUDA kernel (``csrc/closest_point.cu``).
@@ -12,8 +13,8 @@ CUDA kernel (``csrc/closest_point.cu``).
 from pytorch_volumetric_tpu_torch.sdf import (
     SDFQuery, ObjectFactory, MeshObjectFactory, ObjectFrameSDF, SphereSDF,
     BoxSDF, CylinderSDF, CapsuleSDF, MeshSDF, ComposedSDF, CachedSDF,
-    OutOfBoundsStrategy, aabb_corners, compose_query, pad_aabb,
-    sample_mesh_points,
+    OutOfBoundsStrategy, aabb_corners, compose_query, compose_query_coherent,
+    pad_aabb, sample_mesh_points,
 )
 from pytorch_volumetric_tpu_torch.chamfer import (
     batch_chamfer_dist, PlausibleDiversity, PlausibleDiversityReturn,
@@ -21,7 +22,8 @@ from pytorch_volumetric_tpu_torch.chamfer import (
 )
 from pytorch_volumetric_tpu_torch.voxel import (
     VoxelGrid, GridView, get_divisible_range_by_resolution,
-    get_coordinates_and_points_in_grid,
+    get_coordinates_and_points_in_grid, get_coherent_grid_points,
+    get_coherent_tile_points,
 )
 from pytorch_volumetric_tpu_torch.transforms import Transform3d, Translate
 from pytorch_volumetric_tpu_torch.model_to_sdf import (

@@ -20,6 +20,8 @@ from pytorch_volumetric_tpu_torch import transforms as tfm
 from pytorch_volumetric_tpu_torch.kinematics import Chain
 from pytorch_volumetric_tpu_torch.sdf import compose_query
 from pytorch_volumetric_tpu_torch.utils.batching import as_float_tensor
+from pytorch_volumetric_tpu_torch.voxel import (
+    get_coherent_tile_points, get_coordinates_and_points_in_grid)
 
 logger = logging.getLogger(__name__)
 
@@ -41,6 +43,8 @@ class RobotSDF(sdf.ObjectFrameSDF):
         self.sdf: typing.Optional[sdf.ComposedSDF] = None
         self.sdf_to_link_name = []
         self.configuration_batch = None
+        # query_grid's tiled points per grid, see query_grid
+        self._grid_layouts = {}
 
         sdfs = []
         offsets = []
@@ -129,6 +133,60 @@ class RobotSDF(sdf.ObjectFrameSDF):
         vv, gg = compose_query(queries, m, m_inv, q_flat.shape[0], pts_flat)
         out_batch = q.shape[:-1] + pts.shape[:-1]
         return vv.reshape(out_batch), gg.reshape(out_batch + (3,))
+
+    def query_grid(self, joint_config, query_range, resolution, values_only: bool = False):
+        """:meth:`query` over a regular world-frame grid through the brick
+        path (:func:`sdf.compose_query_coherent`), with identical results.
+        The grid is laid out in the largest tiles that fit a brick of every
+        cached link (``voxel.get_coherent_tile_points``); when a cached link
+        is finer than twice the grid's resolution, no tile fits and the
+        generic :meth:`query` runs instead.
+
+        :param joint_config: ``[A x] M``
+        :param query_range: ``(min, max)`` per dimension
+        :param resolution: grid step
+        :param values_only: return the values alone, detached
+        :return: ``(val [A x] n1 x n2 x n3, grad ... x 3)`` over the grid,
+            or ``val`` alone with ``values_only``
+        """
+        coords, _ = get_coordinates_and_points_in_grid(resolution, query_range,
+                                                       device="cpu", get_points=False)
+        grid_shape = tuple(len(c) for c in coords)
+        q, q_flat = self._flat_configs(joint_config)
+        out_shape = q.shape[:-1] + grid_shape
+        children = tuple(self.sdf.sdfs)
+        min_cache_res = sdf.coherent_min_cache_resolution(children)
+        if min_cache_res is not None and 2.0 * resolution > min_cache_res:
+            logger.info(
+                "query_grid: sweep resolution %.4g too coarse for cached "
+                "link resolution %.4g (needs <= half); using the generic "
+                "query path", resolution, min_cache_res)
+            _, pts_g = get_coordinates_and_points_in_grid(resolution, query_range,
+                                                          device=self.device)
+            vv, gg = self.query(joint_config, pts_g)
+            if values_only:
+                return vv.detach().reshape(out_shape)
+            return vv.reshape(out_shape), gg.reshape(out_shape + (3,))
+
+        key = (float(resolution), np.asarray(query_range, dtype=np.float64).tobytes(),
+               min_cache_res)
+        if key not in self._grid_layouts:
+            # built once per grid: the points and the un-tiling index stay on
+            # the device (a host-to-device copy on every call would wait for
+            # the card)
+            pts, take_idx, seg = get_coherent_tile_points(
+                resolution, query_range, cache_resolution=min_cache_res, device=self.device)
+            self._grid_layouts[key] = (pts, torch.as_tensor(take_idx, device=self.device), seg)
+        pts, take, seg = self._grid_layouts[key]
+        m, m_inv = self._link_transforms(q_flat)
+        out = sdf.compose_query_coherent(
+            children, m, m_inv, q_flat.shape[0], pts,
+            fast_tables=sdf.coherent_fast_tables(children), values_only=values_only,
+            generic_aux=sdf.coherent_generic_aux(children), seg=seg)
+        if values_only:
+            return out[:, take].reshape(out_shape)
+        vv, gg = out
+        return vv[:, take].reshape(out_shape), gg[:, take].reshape(out_shape + (3,))
 
     # -- geometry ----------------------------------------------------------------
     def surface_bounding_box(self, **kwargs):

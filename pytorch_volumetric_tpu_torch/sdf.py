@@ -36,7 +36,7 @@ from pytorch_volumetric_tpu_torch.utils.batching import (
     as_float_tensor, resolve_device)
 from pytorch_volumetric_tpu_torch.utils.cache import get_store
 from pytorch_volumetric_tpu_torch.voxel import (
-    GridView, get_coordinates_and_points_in_grid,
+    GridView, VoxelGrid, get_coherent_tile_points, get_coordinates_and_points_in_grid,
     get_divisible_range_by_resolution,
 )
 
@@ -211,6 +211,25 @@ class ObjectFrameSDF(abc.ABC):
     def outside_surface(self, points_in_object_frame, surface_level=0):
         sdf_values, _ = self(points_in_object_frame)
         return sdf_values > surface_level
+
+    def get_voxel_view(self, voxels: Optional[VoxelGrid] = None, dtype=torch.float32,
+                       device=None) -> GridView:
+        """This SDF rasterized onto ``voxels`` (by default a 0.01 grid over
+        the surface box padded by 0.1); points outside the grid evaluate the
+        SDF itself."""
+        if voxels is None:
+            bb = self.surface_bounding_box(padding=0.1).cpu().numpy()
+            voxels = VoxelGrid(0.01, bb, dtype=dtype, device=self.device)
+        sdf_val, _ = self(voxels.get_voxel_center_points())
+        shape = [len(c) for c in voxels.coords]
+        return GridView(sdf_val.reshape(shape), voxels.range_per_dim,
+                        invalid_value=lambda p: self(p)[0])
+
+    def get_filtered_points(self, unary_filter, voxels: Optional[VoxelGrid] = None,
+                            dtype=torch.float32, device=None) -> torch.Tensor:
+        """Voxel-center points whose SDF value passes ``unary_filter``."""
+        view = self.get_voxel_view(voxels, dtype=dtype)
+        return view.ensure_value_key(torch.nonzero(unary_filter(view.raw_data)))
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
@@ -430,6 +449,680 @@ def compose_query(child_raw_queries: Tuple[Callable, ...],
     return best_v, best_g
 
 
+# ---------------------------------------------------------------------------
+# Coherent (brick-gather) union query
+# ---------------------------------------------------------------------------
+#
+# When consecutive groups of ``seg`` query points are spatially coherent (a
+# tile of a regular grid sweep, see voxel.get_coherent_tile_points), each
+# group's integer voxel keys land inside one 4x4x4 voxel BRICK anchored at
+# an even key, ``2 * floor(min_key / 2)``, for every cached child under any
+# rigid transform.  The lookup then reads one brick row per (child, tile)
+# and takes each point's cell from it.  Bricks overlap at stride 2 per
+# dimension (8x the value grid in memory), so that any tile whose keys span
+# at most 2 voxels per dimension fits the brick at its anchor.  Results are
+# bit-identical to compose_query's: every point computes the same keys
+# (_voxel_keys), reads the same cell value and goes through the same
+# arithmetic.  Tensors keep the tile layout ``[B, FS, seg]``: ``FS`` tiles of
+# ``seg`` consecutive points, a view of the flat ``[B, F]``.
+
+COHERENT_SEG = 4
+
+
+class _CoherentTables(NamedTuple):
+    lo: torch.Tensor        # [3] grid origin
+    inv_res: torch.Tensor   # [3] float32 reciprocal of the voxel size (_voxel_keys)
+    n: torch.Tensor         # [3] int64 grid dims
+    strides: torch.Tensor   # [3] int64 ravel strides of the value grid
+    vg: torch.Tensor        # [G, 4] packed (value, grad) rows
+    bstrides: torch.Tensor  # [3] int64 ravel strides of the brick-anchor grid
+    bb: torch.Tensor        # [3, 2] surface AABB of the out-of-bounds fallback
+    # [NB, 64] overlapping 4x4x4 VALUE bricks
+    bricks: Optional[torch.Tensor] = None
+    # [NB, 4, 64] (value, gx, gy, gz) 4x4x4 bricks, channel-major: built only
+    # for a union with one cached child (no winner to find)
+    bricks4: Optional[torch.Tensor] = None
+    # [NB, 4, 125] (value, gx, gy, gz) 5x5x5 bricks of the single trilinear child
+    bricks5: Optional[torch.Tensor] = None
+    # [NB, 3, 64] gradient-only 4x4x4 bricks of the multi-child union's winners
+    gbricks: Optional[torch.Tensor] = None
+    # [NB, 125] value and [NB, 3, 125] gradient 5x5x5 bricks of the
+    # multi-child trilinear union
+    tbricks: Optional[torch.Tensor] = None
+    tgbricks: Optional[torch.Tensor] = None
+
+
+def _is_coherent_fast_child(s) -> bool:
+    """True iff the nearest brick path serves this union child."""
+    return (isinstance(s, CachedSDF)
+            and s.out_of_bounds_strategy == OutOfBoundsStrategy.BOUNDING_BOX
+            and s.interpolation == "nearest")
+
+
+def _is_coherent_trilinear_child(s) -> bool:
+    """True iff ``s`` is a trilinear BOUNDING_BOX ``CachedSDF``."""
+    return (isinstance(s, CachedSDF)
+            and s.out_of_bounds_strategy == OutOfBoundsStrategy.BOUNDING_BOX
+            and s.interpolation == "trilinear")
+
+
+def _coherent_single_trilinear_child(children):
+    """The lone child iff the composition is one trilinear BOUNDING_BOX
+    ``CachedSDF`` (the 5x5x5 single-child path), else ``None``."""
+    if len(children) == 1 and _is_coherent_trilinear_child(children[0]):
+        return children[0]
+    return None
+
+
+def _coherent_classify(children) -> tuple:
+    """``(fast_idx, tri_idx, generic_idx)``: which children take which path
+    in :func:`compose_query_coherent`.
+
+    - ``fast_idx``: nearest BOUNDING_BOX caches (the 4x4x4 brick union);
+    - ``tri_idx``: trilinear BOUNDING_BOX caches, when there are at least
+      two of them and no nearest fast child (the trilinear union);
+    - ``generic_idx``: everything else (per-point ``raw_query``).
+
+    A composition whose only child is a trilinear cache is routed before
+    this classification (:func:`_coherent_single_trilinear_child`)."""
+    fast = [i for i, s in enumerate(children) if _is_coherent_fast_child(s)]
+    tri = [i for i, s in enumerate(children) if _is_coherent_trilinear_child(s)]
+    if fast or len(tri) < 2:
+        tri = []
+    generic = [i for i in range(len(children)) if i not in fast and i not in tri]
+    return fast, tri, generic
+
+
+def coherent_fast_tables(children: Sequence[ObjectFrameSDF]):
+    """The ``_CoherentTables`` of the children that take a brick path, in
+    child order, for :func:`compose_query_coherent`'s ``fast_tables``.
+    One nearest fast child carries ``bricks4``; a multi-child union carries
+    ``gbricks`` and never ``bricks4`` (stripped if an earlier single-child
+    composition built it); the single trilinear child carries ``bricks5``;
+    the trilinear union ``tbricks`` and ``tgbricks``."""
+    tri = _coherent_single_trilinear_child(children)
+    if tri is not None:
+        return (tri._coherent_tables(with_tri_bricks=True, with_value_bricks=False),)
+    fast_idx, tri_idx, _ = _coherent_classify(children)
+    if tri_idx:
+        return tuple(children[i]._coherent_tables(
+            with_value_bricks=False, with_tri_value_bricks=True,
+            with_tri_gradonly_bricks=True) for i in tri_idx)
+    single = len(fast_idx) == 1
+    tables = tuple(children[i]._coherent_tables(with_grad_bricks=single,
+                                                with_gradonly_bricks=not single)
+                   for i in fast_idx)
+    if single:
+        return tuple(t._replace(gbricks=None) for t in tables)
+    return tuple(t._replace(bricks4=None) for t in tables)
+
+
+def coherent_min_cache_resolution(children) -> Optional[float]:
+    """Smallest voxel resolution among the children that take a brick path
+    (``None`` when none does): the ``cache_resolution`` that decides a safe
+    tile in :func:`voxel.get_coherent_tile_points`."""
+    tri = _coherent_single_trilinear_child(children)
+    if tri is not None:
+        return float(tri.resolution)
+    fast_idx, tri_idx, _ = _coherent_classify(children)
+    vals = [float(children[i].resolution) for i in fast_idx + tri_idx]
+    return min(vals) if vals else None
+
+
+def coherent_generic_aux(children: Sequence[ObjectFrameSDF]):
+    """``raw_query_aux`` of the children that take the generic per-point
+    sub-path of :func:`compose_query_coherent`, in that order."""
+    if _coherent_single_trilinear_child(children) is not None:
+        return ()
+    _, _, generic = _coherent_classify(children)
+    return tuple(children[i].raw_query_aux() for i in generic)
+
+
+def _coherent_row_bases(tables: Sequence[torch.Tensor]) -> np.ndarray:
+    """Row offset of each child's table in the children's concatenation
+    (child order, trailing total)."""
+    return np.cumsum([0] + [int(t.shape[0]) for t in tables])
+
+
+def _cells(table: torch.Tensor, row: torch.Tensor, cell: torch.Tensor) -> torch.Tensor:
+    """Each point's cell of its tile's brick row, read straight from the
+    table (no one-hot, no row copy).  ``table [NR, W]`` or channel-major
+    ``[NR, CH, W]``; ``row [B, FS]`` the brick row of each tile; ``cell [B,
+    FS, seg]`` each point's cell in ``[0, W)``.  Returns ``[B, FS, seg]``,
+    or ``[CH, B, FS, seg]`` for a channel-major table."""
+    base = row[..., None] * table[0].numel() + cell
+    if table.dim() == 2:
+        return torch.take(table, base)
+    W = table.shape[-1]
+    ch = torch.arange(table.shape[1], device=base.device) * W
+    return torch.take(table, base + ch.view(-1, 1, 1, 1))
+
+
+def _brick_anchor(keys: torch.Tensor, bstrides: torch.Tensor):
+    """``(row [.., FS], off [.., FS, seg, 3])``: the brick row of each tile,
+    anchored at ``2 * floor(min_key / 2)`` per dimension over the tile's
+    keys ``[.., FS, seg, 3]``, and each key's offset from the anchor,
+    clamped to 3: in range under the coherence contract, and inside the
+    brick row for a tile that breaks it."""
+    corner2 = keys.amin(dim=-2) // 2
+    off = (keys - 2 * corner2[..., None, :]).clamp(max=3)
+    return (corner2 * bstrides).sum(dim=-1), off
+
+
+def _stacked(tables: Sequence[_CoherentTables], name: str, lead: int) -> torch.Tensor:
+    """Field ``name`` of every child stacked, shaped ``[C, 1 x lead, ..]``
+    to broadcast over the children's tile layout."""
+    x = torch.stack([getattr(t, name) for t in tables])
+    return x.view((len(tables),) + (1,) * lead + x.shape[1:])
+
+
+def _vg_offsets(tables: Sequence[_CoherentTables]) -> torch.Tensor:
+    """``[C, 1, 1, 1]`` row offset of each child's packed (value, grad)
+    rows in their concatenation, computed on the device."""
+    n = _stacked(tables, "n", 0).prod(dim=-1)
+    return (n.cumsum(0) - n).view(-1, 1, 1, 1)
+
+
+def _first_min(v: torch.Tensor):
+    """Each point's winner over the children's values ``v [C, B, FS,
+    seg]``: the first child of least value, as ``compose_query``'s strict
+    ``<`` in child order.  Returns ``(win, pick)``, with ``pick(x)`` each
+    point's winner entry of a per-child ``[C, B, FS, seg(, k)]`` tensor."""
+    win = torch.argmin(v, dim=0)
+
+    def pick(x):
+        idx = win.view((1,) + win.shape + (1,) * (x.dim() - 4))
+        return x.gather(0, idx.expand((1,) + x.shape[1:]))[0]
+
+    return win, pick
+
+
+def _nearest_union(tables: Sequence[_CoherentTables], pts_c: torch.Tensor):
+    """Every nearest child at once on the tile layout ``pts_c [C, B, FS,
+    seg, 3]``: ``(v, valid, flat, row, cell, g_oob)``, each with the
+    children leading: the value (the brick cell in the grid, the AABB
+    distance outside), the in-grid mask, the row of the children's
+    concatenated (value, grad) rows, each tile's brick row, each point's
+    cell in it, and the AABB fallback's gradient."""
+    valid, kc = _voxel_keys(pts_c, _stacked(tables, "lo", 3), _stacked(tables, "inv_res", 3),
+                            _stacked(tables, "n", 3))
+    row, off = _brick_anchor(kc, _stacked(tables, "bstrides", 2))
+    cell = off[..., 0] * 16 + off[..., 1] * 4 + off[..., 2]
+    v_oob, g_oob = _aabb_distance_grad(_stacked(tables, "bb", 3), pts_c)
+    v = torch.where(valid, torch.stack([_cells(t.bricks, r, c) for t, r, c in
+                                        zip(tables, row, cell)]), v_oob)
+    flat = (kc * _stacked(tables, "strides", 3)).sum(dim=-1) + _vg_offsets(tables)
+    return v, valid, flat, row, cell, g_oob
+
+
+def _trilinear_anchor(tables: Sequence[_CoherentTables], pts_c: torch.Tensor):
+    """Every trilinear child at once on the tile layout ``pts_c [C, B, FS,
+    seg, 3]``: ``(valid, flat0, w, row, base5, v_oob, g_oob)`` with the
+    children leading: the in-grid mask, the lower corner's row of the
+    children's concatenated (value, grad) rows, the weights, each tile's
+    5x5x5 brick row, each point's lower-corner cell in it (its 8 corners
+    are ``base5 + delta``, ``delta`` in :data:`_DELTA5`) and the AABB
+    fallback."""
+    valid, i0, w = _trilinear_cell(pts_c, _stacked(tables, "lo", 3),
+                                   _stacked(tables, "inv_res", 3), _stacked(tables, "n", 3))
+    # the tile contract bounds the clipped lower corners' span by 2, so
+    # every corner stays inside the 5-window at the anchor
+    row, off = _brick_anchor(i0, _stacked(tables, "bstrides", 2))
+    base5 = off[..., 0] * 25 + off[..., 1] * 5 + off[..., 2]
+    flat0 = (i0 * _stacked(tables, "strides", 3)).sum(dim=-1) + _vg_offsets(tables)
+    v_oob, g_oob = _aabb_distance_grad(_stacked(tables, "bb", 3), pts_c)
+    return valid, flat0, w, row, base5, v_oob, g_oob
+
+
+def _lerp5(table: torch.Tensor, row, base5, w) -> torch.Tensor:
+    """Trilinear interpolation from 5x5x5 brick rows, in ``gather_trilinear``'s
+    corner and weight order: ``[B, FS, seg]`` or ``[CH, B, FS, seg]``."""
+    acc = None
+    for offs, delta in zip(_CORNERS, _DELTA5):
+        term = _corner_weight(w, offs) * _cells(table, row, base5 + delta)
+        acc = torch.zeros_like(term) + term if acc is None else acc + term
+    return acc
+
+
+def _coherent_union_values(tables: Sequence[_CoherentTables], pts_c: torch.Tensor):
+    """Values only of the nearest brick union: ``pts_c [C, B, FS, seg, 3]
+    -> val [B, FS, seg]`` (no winner, no gradient; callers detach)."""
+    return _nearest_union(tables, pts_c)[0].amin(dim=0)
+
+
+class _WinnerRowLookup(torch.autograd.Function):
+    """``_coherent_union_lookup``'s straight-through derivative: d val /
+    d pts_c[ci] = (win == ci) * the winner's link-frame gradient."""
+
+    @staticmethod
+    def forward(ctx, pts_c, tables):
+        val, g_link, win = _winner_rows_eval(tables, pts_c)
+        ctx.save_for_backward(g_link, win)
+        ctx.n_children = len(tables)
+        ctx.mark_non_differentiable(g_link, win)
+        return val, g_link, win
+
+    @staticmethod
+    def backward(ctx, ct_val, _ct_g, _ct_win):
+        g_link, win = ctx.saved_tensors
+        ci = torch.arange(ctx.n_children, device=win.device).view(-1, 1, 1, 1)
+        oh = (win[None] == ci).to(g_link.dtype)
+        return oh[..., None] * (ct_val[..., None] * g_link)[None], None
+
+
+def _winner_rows_eval(tables, pts_c):
+    v, valid, flat, _, _, g_oob = _nearest_union(tables, pts_c)
+    win, pick = _first_min(v)
+    g = torch.cat([t.vg for t in tables])[pick(flat)][..., 1:4]
+    return pick(v), torch.where(pick(valid)[..., None], g, pick(g_oob)), win
+
+
+def _coherent_union_lookup(tables: Sequence[_CoherentTables], pts_c: torch.Tensor):
+    """Nearest brick union with per-point winner rows: ``pts_c [C, B, FS,
+    seg, 3] -> (val [B, FS, seg], g_link [B, FS, seg, 3], win [B, FS,
+    seg])``.  Values come from the value bricks; the winner's gradient, in
+    its own link frame, from its packed (value, grad) row; ``win`` indexes
+    ``tables``.  Used when the tables carry no gradient bricks."""
+    return _WinnerRowLookup.apply(pts_c, tuple(tables))
+
+
+def _tile_candidates(best_i, best_valid, C: int, evaluate):
+    """The per-tile winner candidates: the first and the last distinct
+    in-bounds winner of each tile, then the smallest one not yet covered.
+    ``evaluate(ceff [B, FS]) -> [B, FS, seg, 3]`` is candidate ``ceff``'s
+    result at every point (``ceff`` is ``-1`` or ``C`` where a tile has no
+    such candidate; it matches no point).  Returns ``(selected, covered)``:
+    each point's result from the candidate that is its winner, and whether
+    one is."""
+    eff_min = torch.where(best_valid, best_i, C).amin(dim=2)
+    specs = [eff_min]
+    if C >= 2:
+        eff_max = torch.where(best_valid, best_i, -1).amax(dim=2)
+        specs.append(torch.where(eff_max > eff_min, eff_max, -1))
+    if C >= 3:
+        specs.append(None)  # resolved from `covered` below
+    selected, covered = None, torch.zeros_like(best_valid)
+    for ceff in specs:
+        if ceff is None:
+            eff_mid = torch.where(best_valid & ~covered, best_i, C).amin(dim=2)
+            ceff = torch.where(eff_mid < C, eff_mid, -1)
+        g_k = evaluate(ceff)
+        mask = best_i == ceff[:, :, None]
+        selected = g_k if selected is None else torch.where(mask[..., None], g_k, selected)
+        covered = covered | mask
+    return selected, covered
+
+
+def _residual_tiles(middle: torch.Tensor, residual_frac: float):
+    """The residual lane's tiles, without a host sync: ``(idx [cap],
+    overflow [B, FS])``.  ``idx`` holds the flat indices ``b * FS + f`` of
+    the first ``cap`` middle tiles in order, then ``B * FS`` for unused
+    slots; ``overflow`` marks the middle tiles beyond ``cap``.  ``cap`` is
+    ``residual_frac`` of all tiles, at least 32 (for ``residual_frac >=
+    1e-6``) and at most all of them."""
+    B, FS = middle.shape
+    T = B * FS
+    cap = min(T, max(int(math.ceil(T * residual_frac)),
+                     min(32, T) if residual_frac >= 1e-6 else 1))
+    mflat = middle.reshape(-1)
+    mint = mflat.to(torch.int64)
+    rank = torch.cumsum(mint, 0) - mint
+    slot = torch.where(mflat & (rank < cap), rank, cap)  # slot cap: dropped
+    idx = torch.full((cap + 1,), T, dtype=torch.int64, device=middle.device).scatter_(
+        0, slot, torch.arange(T, device=middle.device))[:cap]
+    return idx, middle & (rank.reshape(B, FS) >= cap)
+
+
+def _scatter_residual(res: torch.Tensor, idx: torch.Tensor, B: int, FS: int):
+    """``res [cap, seg, 3]`` of the residual tiles ``idx`` back onto ``[B,
+    FS, seg, 3]`` (zeros elsewhere; unused slots land on a dropped row)."""
+    T = B * FS
+    out = res.new_zeros((T + 1,) + res.shape[1:]).index_copy_(0, idx, res)
+    return out[:T].reshape((B, FS) + res.shape[1:])
+
+
+def _finish_tile_union(best_v, best_i, best_valid, g_cand, g_oob, covered, residual,
+                       residual_frac, Rb):
+    """The per-tile unions' last step, on link-frame gradients: the
+    candidates' ``g_cand`` where a candidate is the point's winner, the
+    residual lane's winner rows (``residual(tb, tf) -> [cap, seg, 3]`` for
+    residual tiles ``(tb, tf)``) in middle tiles (``covered`` is None when
+    three candidates cover every winner), NaN in middle tiles beyond the
+    lane's capacity, the AABB fallback ``g_oob`` out of bounds, then
+    rotated with each point's winner's rotation.  Returns ``(val, g_obj,
+    win, g_link)``."""
+    B, FS = best_v.shape[:2]
+    if covered is not None:
+        middle = (best_valid & ~covered).any(dim=2)
+        idx, overflow = _residual_tiles(middle, residual_frac)
+        tile = idx.clamp(max=B * FS - 1)
+        res = _scatter_residual(residual(tile // FS, tile % FS), idx, B, FS)
+        g_cand = torch.where(middle[:, :, None, None], res, g_cand)
+        # beyond the lane's capacity: NaN, never a wrong gradient
+        g_cand = torch.where(overflow[:, :, None, None], float("nan"), g_cand)
+    g_link = torch.where(best_valid[..., None], g_cand, g_oob)
+    return best_v, _rotate_winners(Rb, best_i, g_link), best_i, g_link
+
+
+def _rotate_winners(Rb: torch.Tensor, win: torch.Tensor, g_link: torch.Tensor):
+    """``g_link [B, FS, seg, 3]`` rotated into the object frame, each point
+    with its winner's rotation ``Rb[win]`` (``Rb [C, B, 3, 3]``), in
+    ``rotate_vectors``' term order: the arithmetic of the generic path."""
+    R = Rb[win, torch.arange(win.shape[0], device=Rb.device).view(-1, 1, 1)]
+    return tfm.rotate_vectors(R, g_link[..., None, :])[..., 0, :]
+
+
+def _union_tile_eval(tables, residual_frac, pts_c, Rb):
+    """Forward of :func:`_coherent_union_lookup_tile`, plus the winner's
+    link-frame gradient for the backward."""
+    C = len(tables)
+    v, valid, flat, row, cell, g_oob = _nearest_union(tables, pts_c)
+    win, pick = _first_min(v)
+    best_valid, best_cell = pick(valid), pick(cell)
+    bases = _coherent_row_bases([t.gbricks for t in tables])
+    rows = torch.stack([r + int(base) for r, base in zip(row, bases)])  # [C, B, FS]
+    g_cat = torch.cat([t.gbricks for t in tables])
+
+    def candidate(ceff):
+        # each point's cell of candidate ceff's gradient brick at its tile
+        row = rows.gather(0, ceff.clamp(0, C - 1)[None])[0]
+        return _cells(g_cat, row, best_cell).permute(1, 2, 3, 0)
+
+    def residual(tb, tf):
+        # each point's winner row of the packed (value, grad) tables
+        return torch.cat([t.vg for t in tables])[pick(flat)[tb, tf]][..., 1:4]
+
+    g_cand, covered = _tile_candidates(win, best_valid, C, candidate)
+    # three candidates cover every winner of up to 3 children: no residual lane
+    return _finish_tile_union(pick(v), win, best_valid, g_cand, pick(g_oob),
+                              covered if C > 3 else None, residual, residual_frac, Rb)
+
+
+class _TileWinnerLookup(torch.autograd.Function):
+    """Straight-through derivative of the per-tile winner unions: d val /
+    d pts_c[ci] = (win == ci) * the winner's link-frame gradient, and the
+    gradient output's derivative w.r.t. ``Rb``: d R[o, i] = the sum over
+    the child's winners of ``ct_g[o] * g_link[i]``, as for
+    ``transforms.rotate_vectors`` in the generic path."""
+
+    @staticmethod
+    def forward(ctx, pts_c, Rb, evaluate):
+        val, g_obj, win, g_link = evaluate(pts_c, Rb)
+        ctx.save_for_backward(g_link, win)
+        ctx.n_children = Rb.shape[0]
+        ctx.mark_non_differentiable(win)
+        return val, g_obj, win
+
+    @staticmethod
+    def backward(ctx, ct_val, ct_g, _ct_win):
+        g_link, win = ctx.saved_tensors
+        ci = torch.arange(ctx.n_children, device=win.device).view(-1, 1, 1, 1)
+        mask = (win[None] == ci).to(g_link.dtype)[..., None]    # [C, B, FS, seg, 1]
+        d_pts = mask * (ct_val[..., None] * g_link)[None]
+        d_Rb = ((ct_g[None] * mask)[..., :, None] * g_link[None, ..., None, :]).sum(dim=(2, 3))
+        return d_pts, d_Rb, None
+
+
+def _coherent_union_lookup_tile(tables: Sequence[_CoherentTables], pts_c: torch.Tensor,
+                                Rb: torch.Tensor, residual_frac: float = 0.04):
+    """Nearest brick union with per-TILE winner gradients: ``pts_c [C, B,
+    FS, seg, 3]``, ``Rb [C, B, 3, 3]`` (link -> object rotations) -> ``(val
+    [B, FS, seg], g_obj [B, FS, seg, 3], win [B, FS, seg])`` with ``g_obj``
+    in the OBJECT frame.
+
+    Values come from the value bricks.  Gradients: three candidate children
+    per tile (its first and last distinct in-bounds winners, then the
+    smallest remaining one) give each point covered by one its cell of that
+    child's gradient brick.  Tiles with >= 4 distinct winners ("middle"
+    tiles) take a residual lane of per-point winner rows; its capacity is
+    ``residual_frac`` of all tiles, and middle tiles beyond it get NaN
+    gradients (values unaffected).  Each point's gradient is then rotated
+    with its winner's rotation (:func:`_finish_tile_union`)."""
+    return _TileWinnerLookup.apply(pts_c, Rb, partial(_union_tile_eval, tuple(tables),
+                                                      residual_frac))
+
+
+def _union_tile_tri_eval(tables, residual_frac, pts_c, Rb=None):
+    """Forward of :func:`_coherent_union_lookup_tile_tri` (values only
+    without ``Rb``)."""
+    C = len(tables)
+    valid, flat0, w, row, base5, v_oob, g_oob = _trilinear_anchor(tables, pts_c)
+    v = torch.where(valid, torch.stack([_lerp5(t.tbricks, r, b, ww) for t, r, b, ww in
+                                        zip(tables, row, base5, w)]), v_oob)
+    if Rb is None:
+        return v.amin(dim=0)
+    win, pick = _first_min(v)
+    best_valid, best_base5, best_w = pick(valid), pick(base5), pick(w)
+    bases = _coherent_row_bases([t.tgbricks for t in tables])
+    rows = torch.stack([r + int(base) for r, base in zip(row, bases)])  # [C, B, FS]
+    tg_cat = torch.cat([t.tgbricks for t in tables])
+
+    def candidate(ceff):
+        # the point's lerp of candidate ceff's gradient brick at its tile;
+        # the rotation comes after the lerp, as in the generic path (it does
+        # not distribute over the lerp's sum bit for bit)
+        row = rows.gather(0, ceff.clamp(0, C - 1)[None])[0]
+        return _lerp5(tg_cat, row, best_base5, best_w).permute(1, 2, 3, 0)
+
+    def residual(tb, tf):
+        # the exact 8-corner lerp of each point's winner rows
+        res_flat0, res_w = pick(flat0)[tb, tf], best_w[tb, tf]   # [cap, seg(, 3)]
+        strides = _stacked(tables, "strides", 0)[win[tb, tf]]
+        vg_cat = torch.cat([t.vg for t in tables])
+        acc = torch.zeros(res_w.shape, dtype=res_w.dtype, device=res_w.device)
+        for offs in _CORNERS:
+            doff = offs[0] * strides[..., 0] + offs[1] * strides[..., 1] + offs[2] * strides[..., 2]
+            acc = acc + _corner_weight(res_w, offs)[..., None] * vg_cat[res_flat0 + doff][..., 1:4]
+        return acc
+
+    g_cand, covered = _tile_candidates(win, best_valid, C, candidate)
+    return _finish_tile_union(pick(v), win, best_valid, g_cand, pick(g_oob),
+                              covered if C > 3 else None, residual, residual_frac, Rb)
+
+
+def _coherent_union_lookup_tile_tri(tables: Sequence[_CoherentTables], pts_c: torch.Tensor,
+                                    Rb: Optional[torch.Tensor] = None,
+                                    residual_frac: float = 0.04):
+    """Multi-child TRILINEAR union on the per-tile winner design of
+    :func:`_coherent_union_lookup_tile`: values lerp the 8 corners of each
+    point's cell from one 5x5x5 value brick per (child, tile), in
+    ``gather_trilinear``'s corner order; each point covered by a tile
+    candidate lerps its winner's gradient brick in the link frame, then
+    rotates it with the winner's rotation; middle tiles take a
+    residual lane of exact 8-corner winner rows, NaN beyond its capacity.
+    Without ``Rb``: just ``val [B, FS, seg]`` (no gradient; callers
+    detach)."""
+    evaluate = partial(_union_tile_tri_eval, tuple(tables), residual_frac)
+    if Rb is None:
+        return evaluate(pts_c)
+    return _TileWinnerLookup.apply(pts_c, Rb, evaluate)
+
+
+def _single_brick_lookup(bricks4, p, t):
+    valid, kc = _voxel_keys(p, t.lo, t.inv_res, t.n)
+    row, off = _brick_anchor(kc, t.bstrides)
+    ch = _cells(bricks4, row, off[..., 0] * 16 + off[..., 1] * 4 + off[..., 2])
+    v_oob, g_oob = _aabb_distance_grad(t.bb, p)
+    return (torch.where(valid, ch[0], v_oob),
+            torch.where(valid[..., None], ch[1:4].permute(1, 2, 3, 0), g_oob))
+
+
+def _coherent_single_lookup(t: _CoherentTables, p: torch.Tensor):
+    """One nearest cached child: ``(val [B, FS, seg], g_link [B, FS, seg,
+    3])`` in its link frame, both from one (value, gradient) brick row
+    ``bricks4`` per tile, with the straight-through derivative w.r.t. the
+    points ``p [B, FS, seg, 3]``."""
+    return _StraightThrough.apply(partial(_single_brick_lookup, t=t), p, t.bricks4)
+
+
+def _single_trilinear_lookup(bricks5, p, t, values_only=False):
+    valid, _, w, row, base5, v_oob, g_oob = (x[0] for x in _trilinear_anchor([t], p[None]))
+    if values_only:  # the value channel only
+        return torch.where(valid, _lerp5(bricks5[:, :1], row, base5, w)[0], v_oob)
+    acc = _lerp5(bricks5, row, base5, w)
+    return (torch.where(valid, acc[0], v_oob),
+            torch.where(valid[..., None], acc[1:4].permute(1, 2, 3, 0), g_oob))
+
+
+def _coherent_single_trilinear_lookup(t: _CoherentTables, p: torch.Tensor,
+                                      values_only: bool = False):
+    """One trilinear cached child: one 5x5x5 (value, gradient) brick row
+    ``bricks5`` per tile replaces the 8 corner rows per point.  The tile
+    contract bounds each tile's clipped lower-corner keys to a span of 2,
+    so the 8 corners of every point fit the 5-window at the anchor.  The
+    lerp follows ``gather_trilinear``'s corner and weight order (bit for
+    bit).  Returns ``(val, g_link)`` with the straight-through derivative,
+    or ``val`` alone with ``values_only`` (callers detach)."""
+    if values_only:
+        return _single_trilinear_lookup(t.bricks5, p, t, values_only=True)
+    return _StraightThrough.apply(partial(_single_trilinear_lookup, t=t), p, t.bricks5)
+
+
+def compose_query_coherent(children: Sequence[ObjectFrameSDF],
+                           obj_to_link: torch.Tensor, link_to_obj: torch.Tensor,
+                           batch: int, points: torch.Tensor,
+                           fast_tables=None, values_only: bool = False,
+                           generic_aux=None, seg: int = COHERENT_SEG,
+                           residual_frac: float = 0.04):
+    """Min-union query like :func:`compose_query`, with the brick-gather
+    path for ``CachedSDF`` children; results are bit-identical to it.
+
+    Contract: ``points [F, 3]`` with ``F % seg == 0``, and every group of
+    ``seg`` consecutive points has its integer voxel keys inside one
+    stride-2-anchored 4x4x4 brick of every cached child (rigid transforms
+    keep this for the layouts of :func:`voxel.get_coherent_grid_points`
+    and :func:`voxel.get_coherent_tile_points`).
+
+    Nearest BOUNDING_BOX caches take the brick union: one child reads
+    (value, gradient) bricks (:func:`_coherent_single_lookup`), several take
+    the per-tile winner union (:func:`_coherent_union_lookup_tile`), or per-
+    point winner rows when ``fast_tables`` carry no gradient bricks
+    (:func:`_coherent_union_lookup`).  A lone trilinear BOUNDING_BOX cache
+    takes the 5x5x5 path, two or more with no nearest one the trilinear
+    union.  Other children (primitives, meshes, other caches) take the
+    generic per-point sub-path, merged last with ties broken on the
+    original child index, as in ``compose_query``.
+
+    ``fast_tables``: :func:`coherent_fast_tables` of the children (built
+    when omitted); ``generic_aux``: :func:`coherent_generic_aux`.
+    ``residual_frac``: capacity of the per-tile union's residual lane as a
+    fraction of all (configuration, tile) pairs; middle tiles beyond it get
+    NaN gradients.  ``values_only=True`` returns just ``val [B, F]``,
+    detached.  Otherwise returns ``(val [B, F], grad [B, F, 3])``."""
+    if values_only:
+        with torch.no_grad():
+            return _compose_coherent(children, obj_to_link, link_to_obj, batch, points,
+                                     fast_tables, True, generic_aux, seg, residual_frac)
+    return _compose_coherent(children, obj_to_link, link_to_obj, batch, points,
+                             fast_tables, False, generic_aux, seg, residual_frac)
+
+
+def _compose_coherent(children, obj_to_link, link_to_obj, batch, points, fast_tables,
+                      values_only, generic_aux, seg, residual_frac):
+    S = len(children)
+    F = points.shape[0]
+    if F % seg:
+        raise ValueError(f"points count {F} must be a multiple of seg={seg}")
+    FS = F // seg
+    # tile layout [S, B, FS, seg, 3]: a view of compose_query's [S*B, F, 3]
+    pts_all = tfm.transform_points(obj_to_link, points).reshape(S, batch, FS, seg, 3)
+    R_back = link_to_obj.reshape(S, batch, 4, 4)[..., :3, :3]
+
+    def out(v, g=None):
+        v = v.reshape(batch, F)
+        return v if values_only else (v, g.reshape(batch, F, 3))
+
+    tri_child = _coherent_single_trilinear_child(children)
+    if tri_child is not None:
+        t = (fast_tables[0] if fast_tables is not None and len(fast_tables) == 1
+             and fast_tables[0].bricks5 is not None
+             else tri_child._coherent_tables(with_tri_bricks=True, with_value_bricks=False))
+        if values_only:
+            return out(_coherent_single_trilinear_lookup(t, pts_all[0], values_only=True))
+        val, g_link = _coherent_single_trilinear_lookup(t, pts_all[0])
+        return out(val, tfm.rotate_vectors(R_back[0][:, None], g_link))
+
+    fast, tri_u, generic = _coherent_classify(children)
+    if generic_aux is None:
+        generic_aux = tuple(children[i].raw_query_aux() for i in generic)
+
+    def generic_query(k, i):
+        pts_flat = pts_all[i].reshape(batch * F, 3)
+        if generic_aux[k] is None:
+            return children[i].raw_query(pts_flat)
+        return children[i].raw_query_with(generic_aux[k], pts_flat)
+
+    def of(x, idx):
+        # the children idx of a per-child tensor (every child: x itself)
+        return x if len(idx) == S else torch.stack([x[i] for i in idx])
+
+    def child_index(win, idx):
+        # the winners' original child indices (no host-to-device copy)
+        out = torch.zeros_like(win)
+        for ci, i in enumerate(idx):
+            out = torch.where(win == ci, i, out)
+        return out
+
+    def tables_for(idx, build):
+        if fast_tables is None:
+            return [build(children[i]) for i in idx]
+        if len(fast_tables) != len(idx):
+            raise ValueError(f"fast_tables holds {len(fast_tables)} table sets but "
+                             f"{len(idx)} children take a brick path")
+        return list(fast_tables)
+
+    best_v = best_g = best_i = None
+    if tri_u:
+        tables = tables_for(tri_u, lambda s: s._coherent_tables(
+            with_value_bricks=False, with_tri_value_bricks=True,
+            with_tri_gradonly_bricks=True))
+        if values_only:
+            best_v = _coherent_union_lookup_tile_tri(tables, of(pts_all, tri_u))
+        else:
+            best_v, best_g, win = _coherent_union_lookup_tile_tri(
+                tables, of(pts_all, tri_u), of(R_back, tri_u), residual_frac=residual_frac)
+            best_i = child_index(win, tri_u)
+    if fast:
+        tables = tables_for(fast, lambda s: s._coherent_tables(
+            with_grad_bricks=len(fast) == 1, with_gradonly_bricks=len(fast) > 1))
+        pts_fast = of(pts_all, fast)
+        if values_only:
+            best_v = _coherent_union_values(tables, pts_fast)
+        elif len(fast) == 1 and tables[0].bricks4 is not None:
+            # one cached child: no union to win, value and gradient from one
+            # brick row per tile
+            best_v, g_link = _coherent_single_lookup(tables[0], pts_fast[0])
+            best_g = tfm.rotate_vectors(R_back[fast[0]][:, None], g_link)
+            best_i = torch.full(best_v.shape, fast[0], dtype=torch.int64,
+                                device=best_v.device)
+        elif all(t.gbricks is not None for t in tables):
+            best_v, best_g, win = _coherent_union_lookup_tile(
+                tables, pts_fast, of(R_back, fast), residual_frac=residual_frac)
+            best_i = child_index(win, fast)
+        else:
+            best_v, g_link, win = _coherent_union_lookup(tables, pts_fast)
+            best_g = _rotate_winners(of(R_back, fast), win, g_link)
+            best_i = child_index(win, fast)
+    for k, i in enumerate(generic):
+        v, g = generic_query(k, i)
+        v = v.reshape(batch, FS, seg)
+        if values_only:
+            best_v = v if best_v is None else torch.minimum(best_v, v)
+            continue
+        g = tfm.rotate_vectors(R_back[i][:, None], g.reshape(batch, FS, seg, 3))
+        if best_v is None:
+            best_v, best_g = v, g
+            best_i = torch.full(v.shape, i, dtype=torch.int64, device=v.device)
+        else:
+            # ties go to the lower ORIGINAL child index, as in compose_query,
+            # though the brick children were evaluated first
+            better = (v < best_v) | ((v == best_v) & (i < best_i))
+            best_v = torch.where(better, v, best_v)
+            best_g = torch.where(better[..., None], g, best_g)
+            best_i = torch.where(better, i, best_i)
+    return out(best_v, best_g)
+
+
 class ComposedSDF(ObjectFrameSDF):
     def __init__(self, sdfs: Sequence[ObjectFrameSDF],
                  obj_frame_to_each_frame: Optional[tfm.Transform3d] = None):
@@ -486,6 +1179,99 @@ class ComposedSDF(ObjectFrameSDF):
             vv, gg = vv[0], gg[0]
         return vv.reshape(out_batch), gg.reshape(out_batch + (pts.shape[-1],))
 
+    def check_coherent_contract(self, points_in_object_frame,
+                                seg: int = COHERENT_SEG) -> bool:
+        """True iff every group of ``seg`` consecutive points lands inside
+        its brick for every child that takes a brick path, under the current
+        transforms: the precondition of :meth:`query_coherent`.  Computed
+        on the host from the transformed points, without building bricks."""
+        pts = as_float_tensor(points_in_object_frame, self.device)
+        S, B, F = len(self.sdfs), self._batch, pts.shape[0]
+        if F % seg:
+            return False
+        with torch.no_grad():
+            pts_all = tfm.transform_points(self.obj_frame_to_link_frame.get_matrix(), pts)
+        pts_all = pts_all.cpu().numpy().reshape(S, B, F, 3)
+        tri = _coherent_single_trilinear_child(self.sdfs)
+        fast_idx, tri_idx, _ = _coherent_classify(self.sdfs)
+        for i, s in enumerate(self.sdfs):
+            is_tri = s is tri or i in tri_idx
+            if not (i in fast_idx or is_tri):
+                continue
+            lo = np.asarray(s.voxels.lo, dtype=np.float32)
+            res = np.asarray(s.voxels.res, dtype=np.float32)
+            n = np.asarray(s.voxels.shape)
+            f = (pts_all[i] - lo) / res
+            if is_tri:
+                # the 8 corners of the clipped lower-corner cell must fit
+                # the 5-window at the stride-2 anchor
+                fc = np.clip(f, 0.0, (n - 1).astype(np.float32))
+                ks = np.clip(np.floor(fc), 0, n - 2).astype(np.int64).reshape(
+                    B, F // seg, seg, 3)
+                if (ks.max(axis=2) + 1 - 2 * (ks.min(axis=2) // 2)).max() > 4:
+                    return False
+                continue
+            ks = np.clip(np.round(f), 0, n - 1).astype(np.int64).reshape(B, F // seg, seg, 3)
+            if (ks.max(axis=2) - 2 * (ks.min(axis=2) // 2)).max() > 3:
+                return False
+        return True
+
+    def query_coherent(self, points_in_object_frame, debug_check=False,
+                       values_only: bool = False, seg: int = COHERENT_SEG):
+        """``__call__`` on coherent points ``[F, 3]`` (groups of ``seg``
+        consecutive points inside one brick; see
+        :func:`compose_query_coherent`), bit-identical to it.
+        ``debug_check=True`` checks the contract on the host first and
+        raises ``ValueError`` if it fails.  ``values_only=True`` returns the
+        values alone, detached.  ``seg``: 4 for
+        :func:`voxel.get_coherent_grid_points`, or the tile size that
+        :func:`voxel.get_coherent_tile_points` returns."""
+        pts = as_float_tensor(points_in_object_frame, self.device)
+        if debug_check and not self.check_coherent_contract(pts, seg=seg):
+            raise ValueError(
+                f"points violate the coherence contract (a {seg}-point group "
+                "spans more than its 4x4x4 voxel brick for some cached child); "
+                "use get_coherent_grid_points / get_coherent_tile_points or "
+                "the generic __call__ path")
+        out = compose_query_coherent(
+            tuple(self.sdfs), self.obj_frame_to_link_frame.get_matrix(),
+            self.link_frame_to_obj_frame, self._batch, pts,
+            fast_tables=coherent_fast_tables(self.sdfs), values_only=values_only,
+            generic_aux=coherent_generic_aux(self.sdfs), seg=seg)
+        F = pts.shape[0]
+        lead = self.tsf_batch + (F,) if self.tsf_batch is not None else None
+        if values_only:
+            return out[0] if lead is None else out.reshape(lead)
+        vv, gg = out
+        if lead is None:
+            return vv[0], gg[0]
+        return vv.reshape(lead), gg.reshape(lead + (pts.shape[-1],))
+
+    def get_voxel_view(self, voxels: Optional[VoxelGrid] = None, dtype=torch.float32,
+                       device=None) -> GridView:
+        """The union rasterized onto ``voxels``.  A voxel raster is the
+        tile layout's shape, so with unbatched transforms and the contract
+        holding it runs the brick path (values only)."""
+        if voxels is None:
+            bb = self.surface_bounding_box(padding=0.1).cpu().numpy()
+            voxels = VoxelGrid(0.01, bb, dtype=dtype, device=self.device)
+        if self.tsf_batch is not None:
+            return super().get_voxel_view(voxels, dtype=dtype, device=device)
+        shape = [len(c) for c in voxels.coords]
+        min_res = coherent_min_cache_resolution(self.sdfs)
+        vals = None
+        if min_res is not None:
+            pts_t, take, seg = get_coherent_tile_points(
+                voxels.resolution, voxels.range_per_dim, cache_resolution=min_res,
+                device=self.device)
+            if self.check_coherent_contract(pts_t, seg=seg):
+                vals = self.query_coherent(pts_t, seg=seg, values_only=True)[
+                    torch.as_tensor(take, device=self.device)]
+        if vals is None:
+            vals, _ = self(voxels.get_voxel_center_points())
+        return GridView(vals.reshape(shape), voxels.range_per_dim,
+                        invalid_value=lambda p: self(p)[0])
+
     def surface_bounding_box(self, **kwargs):
         """Batched AABB of the union: every child's AABB corners moved into
         the object frame, then min/max over children and corners."""
@@ -523,10 +1309,46 @@ GRID_SWEEP_CHUNK = 131072
 def _aabb_distance_grad(bb: torch.Tensor, pts: torch.Tensor):
     """Distance-to-AABB under-approximation and its gradient, in the
     one-clamp form ``p - clip(p, lo, hi)``."""
-    dtotal = pts - torch.clamp(pts, min=bb[:, 0], max=bb[:, 1])
+    dtotal = pts - torch.clamp(pts, min=bb[..., 0], max=bb[..., 1])
     dist = _norm(dtotal)
     grad = dtotal / dist.clamp(min=1e-12)[..., None]
     return dist, grad
+
+
+def _voxel_keys(pts: torch.Tensor, lo, inv_res, n):
+    """Nearest voxel keys ``round((p - lo) * (1 / res))``, with the
+    reciprocal rounded to float32: the arithmetic of the JAX package's
+    compiled lookup, where XLA folds the division by a constant into this
+    multiply.  Every nearest lookup (generic and brick path) computes its
+    keys here, so borderline ``round``\\ s agree.  Returns the in-grid mask
+    and the keys clamped into the grid."""
+    keys = torch.round((pts - lo) * inv_res).to(torch.int64)
+    valid = ((keys >= 0) & (keys < n)).all(dim=-1)
+    return valid, torch.minimum(keys.clamp(min=0), n - 1)
+
+
+def _trilinear_cell(pts: torch.Tensor, lo, inv_res, n):
+    """Trilinear cell of every point: the in-grid mask of its nearest key
+    (the nearest contract), the cell's lower corner ``i0`` clamped into the
+    grid and the interpolation weights ``w`` in it."""
+    f = (pts - lo) * inv_res
+    keys = torch.round(f).to(torch.int64)
+    valid = ((keys >= 0) & (keys < n)).all(dim=-1)
+    f = torch.minimum(f.clamp(min=0.0), (n - 1).to(pts.dtype))
+    i0 = torch.minimum(torch.floor(f).to(torch.int64).clamp(min=0), n - 2)
+    return valid, i0, f - i0.to(pts.dtype)
+
+
+# the 8 corners of a trilinear cell, bit d of the corner number = offset in dim d
+_CORNERS = tuple(tuple((corner >> d) & 1 for d in range(3)) for corner in range(8))
+# their offsets from the lower corner in a 5x5x5 brick row
+_DELTA5 = tuple(o[0] * 25 + o[1] * 5 + o[2] for o in _CORNERS)
+
+
+def _corner_weight(w: torch.Tensor, offs) -> torch.Tensor:
+    """Trilinear weight of corner ``offs``: the product in order x, y, z."""
+    wd = [w[..., d] if offs[d] else 1.0 - w[..., d] for d in range(3)]
+    return wd[0] * wd[1] * wd[2]
 
 
 def _grid_sweep(gt_sdf: ObjectFrameSDF, pts: torch.Tensor,
@@ -613,6 +1435,7 @@ class CachedSDF(ObjectFrameSDF):
         self.voxels_grad = torch.tensor(np.asarray(grad_np, dtype=np.float32),
                                         device=self.device).reshape(-1, 3)
         self.bb = self.surface_bounding_box().to(torch.float32)
+        self._coherent_cache: Optional[_CoherentTables] = None
         self._build_raw()
 
     def _build_raw(self):
@@ -625,6 +1448,7 @@ class CachedSDF(ObjectFrameSDF):
             np.float32(1.0) / self.voxels.res.astype(np.float32), device=dev)
         n = torch.as_tensor(self.voxels.shape, dtype=torch.int64, device=dev)
         strides = torch.as_tensor(self.voxels._strides, dtype=torch.int64, device=dev)
+        self._grid = (lo, inv_res, n, strides)
         # one packed [G, 4] (value, grad) row per voxel: one gather per point
         self._vg = torch.cat([self.voxels.raw_data.reshape(-1, 1), self.voxels_grad],
                              dim=1).contiguous()
@@ -639,30 +1463,19 @@ class CachedSDF(ObjectFrameSDF):
                 flat_idx.shape + (4,))
 
         def gather_nearest(vg, pts):
-            keys = torch.round((pts - lo) * inv_res).to(torch.int64)
-            valid = ((keys >= 0) & (keys < n)).all(dim=-1)
             # out-of-range lanes read a clamped in-range row; the caller's
             # select discards them
-            flat_idx = (torch.minimum(keys.clamp(min=0), n - 1) * strides).sum(dim=-1)
-            r = rows(vg, flat_idx)
+            valid, kc = _voxel_keys(pts, lo, inv_res, n)
+            r = rows(vg, (kc * strides).sum(dim=-1))
             return r[..., 0], r[..., 1:4], valid
 
         def gather_trilinear(vg, pts):
-            f = (pts - lo) * inv_res
-            # valid if the nearest-voxel key is in range (the nearest
-            # contract); the interpolation cell is clamped to the grid
-            keys = torch.round(f).to(torch.int64)
-            valid = ((keys >= 0) & (keys < n)).all(dim=-1)
-            f = torch.minimum(f.clamp(min=0.0), (n - 1).to(pts.dtype))
-            i0 = torch.minimum(torch.floor(f).to(torch.int64).clamp(min=0), n - 2)
-            w = f - i0.to(pts.dtype)
+            valid, i0, w = _trilinear_cell(pts, lo, inv_res, n)
             acc = torch.zeros(pts.shape[:-1] + (4,), dtype=pts.dtype, device=pts.device)
-            for corner in range(8):
-                offs = [(corner >> d) & 1 for d in range(3)]
-                wd = [w[..., d] if offs[d] else 1.0 - w[..., d] for d in range(3)]
-                wt = wd[0] * wd[1] * wd[2]
+            for offs in _CORNERS:
                 idx = i0 + torch.tensor(offs, dtype=torch.int64, device=pts.device)
-                acc = acc + wt[..., None] * rows(vg, (idx * strides).sum(dim=-1))
+                acc = acc + (_corner_weight(w, offs)[..., None]
+                             * rows(vg, (idx * strides).sum(dim=-1)))
             return acc[..., 0], acc[..., 1:4], valid
 
         gather = gather_trilinear if self.interpolation == "trilinear" else gather_nearest
@@ -687,6 +1500,101 @@ class CachedSDF(ObjectFrameSDF):
 
     def raw_query_with(self, aux, points):
         return self._raw(aux, points)
+
+    def _coherent_tables(self, with_grad_bricks: bool = False,
+                         with_tri_bricks: bool = False,
+                         with_value_bricks: bool = True,
+                         with_gradonly_bricks: bool = False,
+                         with_tri_value_bricks: bool = False,
+                         with_tri_gradonly_bricks: bool = False) -> "_CoherentTables":
+        """Tables of the brick-gather path, built lazily on the cache's
+        device from the packed (value, grad) rows; a later call asking for
+        more brick kinds upgrades the cache in place.  Flags: ``bricks``
+        (4x4x4 values, on by default), ``bricks4`` (4x4x4 value + gradient,
+        single-child unions), ``gbricks`` (4x4x4 gradient, multi-child
+        unions), ``bricks5`` (5x5x5 value + gradient, the single trilinear
+        child), ``tbricks`` / ``tgbricks`` (5x5x5 value / gradient, the
+        trilinear union)."""
+        c = self._coherent_cache
+        if (c is not None and (not with_grad_bricks or c.bricks4 is not None)
+                and (not with_tri_bricks or c.bricks5 is not None)
+                and (not with_value_bricks or c.bricks is not None)
+                and (not with_gradonly_bricks or c.gbricks is not None)
+                and (not with_tri_value_bricks or c.tbricks is not None)
+                and (not with_tri_gradonly_bricks or c.tgbricks is not None)):
+            return c
+        return self._build_coherent_tables(
+            with_grad_bricks=with_grad_bricks, with_tri_bricks=with_tri_bricks,
+            with_value_bricks=with_value_bricks,
+            with_gradonly_bricks=with_gradonly_bricks,
+            with_tri_value_bricks=with_tri_value_bricks,
+            with_tri_gradonly_bricks=with_tri_gradonly_bricks)
+
+    @staticmethod
+    def _brick_expand(vol: torch.Tensor, nb: np.ndarray, width: int = 4) -> torch.Tensor:
+        """Overlapping stride-2 ``width^3`` bricks of a zero-padded volume
+        ``[npad_x, npad_y, npad_z, CH]`` -> ``[NB, CH, width^3]`` rows,
+        channel-major, cells raveled x-major (``ux * width^2 + uy * width +
+        uz``) and bricks raveled like the value grid."""
+        w = vol
+        for d in range(3):
+            w = w.unfold(d, width, 2)  # [nbx, nby, nbz, CH, wx, wy, wz] after all three
+        return w.reshape(int(np.prod(nb)), vol.shape[3], width ** 3)
+
+    def _build_coherent_tables(self, with_grad_bricks: bool = False,
+                               with_tri_bricks: bool = False,
+                               with_value_bricks: bool = True,
+                               with_gradonly_bricks: bool = False,
+                               with_tri_value_bricks: bool = False,
+                               with_tri_gradonly_bricks: bool = False) -> "_CoherentTables":
+        n = np.asarray(self.voxels.shape, dtype=np.int64)
+        nb = (n - 1) // 2 + 1          # brick-anchor grid dims (anchors at even keys)
+        shape = tuple(int(d) for d in n)
+
+        def expand(cols, width):
+            # anchor 2 * (nb - 1) plus the brick's extent, zero-padded
+            pad = 2 * nb + width - 2 - n
+            vol = self._vg[:, cols].reshape(shape + (len(cols),))
+            vol = torch.nn.functional.pad(
+                vol, (0, 0, 0, int(pad[2]), 0, int(pad[1]), 0, int(pad[0])))
+            return self._brick_expand(vol, nb, width)
+
+        prev = self._coherent_cache
+        old = prev._asdict() if prev is not None else {}
+        wanted = {"bricks": (with_value_bricks, [0], 4),
+                  "bricks4": (with_grad_bricks, [0, 1, 2, 3], 4),
+                  "gbricks": (with_gradonly_bricks, [1, 2, 3], 4),
+                  "bricks5": (with_tri_bricks, [0, 1, 2, 3], 5),
+                  "tbricks": (with_tri_value_bricks, [0], 5),
+                  "tgbricks": (with_tri_gradonly_bricks, [1, 2, 3], 5)}
+        built = {}
+        for name, (want, cols, width) in wanted.items():
+            built[name] = old.get(name)
+            if want and built[name] is None:
+                b = expand(cols, width)
+                # value-only kinds are plain [NB, width^3] rows
+                built[name] = b[:, 0] if len(cols) == 1 else b
+        lo, inv_res, n_t, strides = self._grid
+        self._coherent_cache = _CoherentTables(
+            lo=lo, inv_res=inv_res, n=n_t, strides=strides, vg=self._vg,
+            bstrides=torch.as_tensor([nb[1] * nb[2], nb[2], 1], dtype=torch.int64,
+                                     device=self.device),
+            bb=self.bb, **built)
+        return self._coherent_cache
+
+    def get_voxel_view(self, voxels=None, dtype=torch.float32, device=None) -> GridView:
+        """The cached grid itself, or the ground truth evaluated on another
+        grid ``voxels``."""
+        if voxels is None:
+            return self.voxels
+        if self.gt_sdf is None:
+            raise RuntimeError(
+                "get_voxel_view with a custom grid re-evaluates the ground "
+                "truth; this CachedSDF was restored from cache without one")
+        sdf_val, _ = self.gt_sdf(voxels.get_voxel_center_points())
+        shape = [len(c) for c in voxels.coords]
+        return GridView(sdf_val.reshape(shape), voxels.range_per_dim,
+                        invalid_value=self._fallback_sdf_value_func)
 
     def surface_bounding_box(self, padding=0.0, padding_ratio=0.0):
         if self.gt_sdf is not None:

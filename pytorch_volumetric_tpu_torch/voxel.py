@@ -44,6 +44,105 @@ def get_coordinates_and_points_in_grid(resolution: float, range_per_dim,
     return coords, pts
 
 
+def get_coherent_grid_points(resolution: float, range_per_dim,
+                             dtype=torch.float32, device=None):
+    """Grid point list arranged for the brick-gather path
+    (``ComposedSDF.query_coherent``): the last dimension is padded to a
+    multiple of 4 by repeating its final coordinate, so every consecutive
+    quadruple of points is collinear with span ``3 * resolution``, which
+    satisfies the coherence contract of ``sdf.compose_query_coherent``
+    whenever the cached voxel resolution is at least ``2 * resolution``.
+
+    Returns ``(pts [F, d] on device, take_idx [N] numpy)``; ``pts[take_idx]``
+    is :func:`get_coordinates_and_points_in_grid`'s point order."""
+    coords, _ = get_coordinates_and_points_in_grid(resolution, range_per_dim, dtype=dtype,
+                                                   device=device, get_points=False)
+    sizes = [len(c) for c in coords]
+    nz = sizes[-1]
+    nzp = -(-nz // 4) * 4
+    coords[-1] = torch.cat([coords[-1], coords[-1][-1:].expand(nzp - nz)])
+    pts = torch.stack(torch.meshgrid(*coords, indexing="ij"), dim=-1).reshape(-1, len(coords))
+    lead = int(np.prod(sizes[:-1], dtype=np.int64))
+    take_idx = (np.arange(lead, dtype=np.int64)[:, None] * nzp
+                + np.arange(nz, dtype=np.int64)[None, :]).reshape(-1)
+    return pts, take_idx
+
+
+def get_coherent_tile_points(resolution: float, range_per_dim,
+                             cache_resolution: float = None,
+                             dtype=torch.float32, device=None):
+    """Grid point list arranged in box TILES for the brick-gather path:
+    every consecutive group of ``seg`` points is a tile of grid points that
+    lands inside one stride-2-anchored 4x4x4 voxel brick under any rigid
+    transform, so one brick row serves ``seg`` points.
+
+    A tile with ``t_d - 1`` steps of ``resolution`` per dimension spans at
+    most ``resolution * ||t - 1||_2`` along any rotated axis, and integer
+    voxel keys spanning ``sigma`` fit the brick iff ``sigma < 2 *
+    cache_resolution``.  The largest-volume tile with ``||t - 1||_2 < 2 *
+    rho`` (``rho = cache_resolution / resolution``, default 2) is chosen:
+    4-point lines in 1D, (4, 3) tiles for 2D slices and (3, 3, 3) for 3D
+    sweeps at ``rho = 2``.  ``cache_resolution`` is the smallest voxel
+    resolution among the cached children to be queried
+    (``sdf.coherent_min_cache_resolution``).
+
+    Returns ``(pts [F, d] on device, take_idx [N] numpy, seg)``;
+    ``pts[take_idx]`` is :func:`get_coordinates_and_points_in_grid`'s point
+    order (padded duplicates discarded)."""
+    coords, _ = get_coordinates_and_points_in_grid(resolution, range_per_dim, dtype=dtype,
+                                                   device=device, get_points=False)
+    sizes = [len(c) for c in coords]
+    rho = 2.0 if cache_resolution is None else float(cache_resolution) / float(resolution)
+    tile = _tile_shape(sizes, rho)
+    seg = int(np.prod(tile))
+    padded = []
+    for c, t in zip(coords, tile):
+        n_pad = -(-len(c) // t) * t
+        padded.append(torch.cat([c, c[-1:].expand(n_pad - len(c))]))
+    P = [len(c) for c in padded]
+    d = len(P)
+    pts = torch.stack(torch.meshgrid(*padded, indexing="ij"), dim=-1)
+    # [P1..Pd, d] -> [T1, t1, .., Td, td, d] -> tiles-major, within-tile-minor
+    shape = []
+    for Pd, td in zip(P, tile):
+        shape += [Pd // td, td]
+    perm = [2 * i for i in range(d)] + [2 * i + 1 for i in range(d)] + [2 * d]
+    pts = pts.reshape(*shape, d).permute(*perm).reshape(-1, d)
+    # original raster index -> position in the tiled order
+    idxs = np.meshgrid(*[np.arange(s, dtype=np.int64) for s in sizes], indexing="ij")
+    pos_tile = np.zeros((), dtype=np.int64)
+    pos_within = np.zeros((), dtype=np.int64)
+    for i_d, td, Pd in zip(idxs, tile, P):
+        pos_tile = pos_tile * (Pd // td) + i_d // td
+        pos_within = pos_within * td + i_d % td
+    take_idx = (pos_tile * seg + pos_within).reshape(-1)
+    return pts, take_idx, seg
+
+
+def _tile_shape(sizes, rho):
+    """Largest-volume integer tile with ``||t - 1||_2 < 2 * rho`` over the
+    non-degenerate dims (ties broken toward less padding waste)."""
+    from itertools import product
+    active = [i for i, s in enumerate(sizes) if s > 1]
+    limit = (2.0 * rho) ** 2 - 1e-9
+    # the all-ones tile is always admissible (a single point spans nothing),
+    # so degenerate ratios (rho ~ 0) give seg = 1
+    best = ((1, 0.0), (1,) * len(active))
+    for combo in product(range(1, 9), repeat=len(active)):
+        if sum((t - 1) ** 2 for t in combo) >= limit:
+            continue
+        waste = 1.0
+        for a, t in zip(active, combo):
+            waste *= -(-sizes[a] // t) * t / sizes[a]
+        key = (int(np.prod(combo)), -waste)
+        if key > best[0]:
+            best = (key, combo)
+    tile = [1] * len(sizes)
+    for a, t in zip(active, best[1]):
+        tile[a] = t
+    return tile
+
+
 class GridView:
     """A dense tensor viewed through value-space coordinates."""
 

@@ -7,8 +7,10 @@ Builds the headline robot (7-DOF ``make_serial_arm``) twice, with cached
 links (``cache_link_sdf_factory(0.02, 1.0)``) and with exact ``MeshSDF``
 links, and traces one forward and one forward+backward (``d(v.sum() +
 g.sum())/dq``) of ``RobotSDF.query`` over 200 configurations x 15,251
-points with ``torch.profiler``.  Prints, per run, the wall time, the summed
-device-kernel time and the device's idle share of the window, and the
+points with ``torch.profiler``, and of the cached robot's
+``RobotSDF.query_grid`` (the coherent brick path) over the same grid.
+Prints, per run, the wall time, the summed device-kernel time and the
+number of kernel launches, the device's idle share of the window, and the
 kernels with the most device time; with ``--out DIR``, writes Chrome
 traces there.
 """
@@ -42,8 +44,9 @@ def trace(name, fn, out_dir, top=12):
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0]
     kernel_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"== {name}: wall {wall_ms:.3f} ms, device kernels {kernel_ms:.3f} ms, "
-          f"device idle {max(0.0, 1 - kernel_ms / wall_ms) * 100:.1f}% of the window")
+    launches = sum(e.count for e in events)
+    print(f"== {name}: wall {wall_ms:.3f} ms, device kernels {kernel_ms:.3f} ms in {launches} "
+          f"launches, device idle {max(0.0, 1 - kernel_ms / wall_ms) * 100:.1f}% of the window")
     events.sort(key=lambda e: -e.self_device_time_total)
     for e in events[:top]:
         print(f"   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
@@ -84,6 +87,20 @@ def main():
 
             trace(f"{name}_forward", fwd, args.out)
             trace(f"{name}_forward_backward", fwd_bwd, args.out)
+
+        cached = robots["cached"]
+
+        def grid_fwd():
+            with torch.no_grad():
+                cached.query_grid(q, chip_smoke.QUERY_RANGE, chip_smoke.QUERY_RES)
+
+        def grid_fwd_bwd():
+            qq = q.detach().clone().requires_grad_(True)
+            v, g = cached.query_grid(qq, chip_smoke.QUERY_RANGE, chip_smoke.QUERY_RES)
+            torch.autograd.grad(v.sum() + g.sum(), qq)
+
+        trace("coherent_forward", grid_fwd, args.out)
+        trace("coherent_forward_backward", grid_fwd_bwd, args.out)
 
 
 if __name__ == "__main__":
