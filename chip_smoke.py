@@ -8,7 +8,9 @@ Phases, each fatal on failure:
 
 1. setup: the card's name and power limit, TF32 off, every kernel built from
    ``pytorch_volumetric_tpu_torch/csrc`` (one ``nvcc`` per source, in
-   parallel);
+   parallel) and, beside them, the host runtime from
+   ``pytorch_volumetric_tpu_torch/native`` (``g++``), all into the
+   git-ignored ``pytorch_volumetric_tpu_torch/_build/``;
 2. the closest-point + winding kernel against its plain PyTorch version on
    the card (distances, closest points and face ids exactly equal), on
    ragged and tiny shapes, padded, open and symmetric meshes, points
@@ -38,11 +40,37 @@ Phases, each fatal on failure:
    d/dq against ``RobotSDF.query`` on the card, ``values_only``, the
    residual lane's overflow, small single-child and trilinear cases, and
    its times beside phase 4's;
-9. one JSON line with every kernel's launches and times, then the result
-   line ``{"ok": true, "device": {...}}``.
+9. the sweep kernel's launch counts on the paths of phases 3-8;
+10. the narrow-band SDF of large meshes: its kernel (``csrc/narrow_band.cu``)
+    against its plain version on the card (values, gradients and slots
+    equal, else within 1e-6 / 1e-5 with the first difference printed) on
+    the torus of the JAX package's tests with uniform, near-surface,
+    on-surface, out-of-grid and cell-face points and ragged counts, a
+    ``max_k=8`` build with demoted cells and an inverted mesh; then
+    ``bench/bigmesh.py`` at the JAX package's bigmesh shape (327,680 faces,
+    262,144 points, ``max_k`` 256 and 1024): the kernel beside its bound,
+    its plain version and the exact sweep (K1), in-band values within 2e-5
+    of K1's and the far field within a cell's diagonal; then the headline
+    arm with ``narrow_band_link_sdf_factory()`` links, 200 configurations x
+    15,251 points: its values, gradients and d/dq held to the same arm
+    with ``backend="torch"`` links (the plain version on the card, on the
+    kernel's own launches: equal, else within 1e-6 / 1e-5), to the
+    exact-link arm where its links are exact (1e-4) and above it nowhere by
+    more than 0.01, ``query_grid`` equal to
+    ``query``, and the same arm on the JAX package's test build (a 0.06
+    band) held to 1e-4 within 0.02 of the surface;
+11. one JSON line with every kernel's launches and times, then the result
+    line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
+
+Rehearse a phase on the CPU by importing this file and calling its phase
+function with ``torch.device("cpu")`` and small sizes (the kernels' wrappers
+run their plain versions on CPU tensors, so launch counts stay 0); for
+phase 10: ``phase_narrow_band(cpu, arm_dir, tmp, card, n_configs=4,
+query_res=0.05, bigmesh=dict(max_ks=(8, 64), points=4096, reps=1,
+plain_reps=1, subdiv=3, exact_points=1024))``.
 """
 
 import json
@@ -50,6 +78,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -790,10 +819,142 @@ def phase_mjcf(device, arm_dir, card, n_configs=N_CONFIGS, query_res=QUERY_RES, 
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the narrow-band SDF
+# ---------------------------------------------------------------------------
+
+def arm_gates(name, v, v_ex, exact_within):
+    """A narrow-band arm's values ``v`` against the exact-link arm's
+    ``v_ex``: within 1e-4 where ``|v_ex| < exact_within``, and above it
+    nowhere by more than 0.01 (the far field and the box fallback
+    underestimate)."""
+    near = v_ex.abs() < exact_within
+    err_near = (v - v_ex)[near].abs().max().item() if bool(near.any()) else float("nan")
+    over = (v - v_ex).max().item()
+    log(f"  narrow-band arm ({name}) vs exact-link arm ({v.shape[0]} x {v.shape[1]}): |val| "
+        f"err {err_near:.3g} at the {int(near.sum())} points within {exact_within:.4g} of the "
+        f"surface; largest v_nb - v_exact {over:.3g}; largest |v_nb - v_exact| "
+        f"{(v - v_ex).abs().max().item():.3g}")
+    check(bool(near.any()) and err_near <= 1e-4,
+          f"narrow-band arm ({name}): beyond 1e-4 of the exact-link arm near the surface")
+    check(over <= 0.01, f"narrow-band arm ({name}): above the exact-link arm by more than 0.01")
+
+
+def phase_narrow_band(device, arm_dir, tmp, card, n_configs=N_CONFIGS, query_res=QUERY_RES,
+                      bigmesh=None, reps=3):
+    """The narrow-band kernel against its plain version, the bigmesh
+    benchmark (``bench.bigmesh.run``) and the headline arm with
+    narrow-band links."""
+    import pytorch_volumetric_tpu_torch as pt
+    from pytorch_volumetric_tpu_torch.bench import bigmesh as bm
+    from pytorch_volumetric_tpu_torch.ops.narrow_band_cuda import narrow_band_query_cuda
+
+    err = 0.0
+    log("  kernel vs plain version:")
+    for name, smalls, big, pts in bm.kernel_cases(device):
+        c = bm.compare(smalls, big, pts)
+        log(f"    {name}: P={pts.shape[0]}, K={big.cand.shape[1]}: equal {c['equal']}, slots "
+            f"equal {c['slots_equal']}, max |d| value {c['value_err']:.3g} gradient "
+            f"{c['grad_err']:.3g}" + (f"; first difference: {c['first_difference']}"
+                                      if "first_difference" in c else ""))
+        check(c["ok"], f"narrow band, {name}: beyond 1e-6 / 1e-5 of the plain version or "
+              "slots differ")
+        err = max(err, c["max_abs_err"])
+
+    log("  bigmesh (bench/bigmesh.py):")
+    narrow_band_query_cuda.launches = 0
+    big_out = bm.run(device, log=lambda m: log(f"    {m}"), **(bigmesh or {}))
+    sync(device)
+    bigmesh_launches = narrow_band_query_cuda.launches
+    check(big_out["ok"], "bigmesh: a gate failed (kernel vs plain, in-band vs the exact "
+          "sweep, or the far field)")
+    for r in big_out["builds"].values():
+        err = max(err, r["kernel_vs_plain"]["max_abs_err"])
+
+    # the headline arm with narrow-band links, from a fresh cache (the 7
+    # capsule links share one build)
+    text = open(os.path.join(arm_dir, "arm.urdf")).read()
+    q, pts = headline_inputs(device, n_configs, query_res)
+    narrow_band_query_cuda.launches = 0
+    t0 = time.perf_counter()
+    robot = pt.RobotSDF(pt.build_serial_chain_from_urdf(text, "link7", device=device),
+                        path_prefix=arm_dir, link_sdf_cls=pt.narrow_band_link_sdf_factory(
+                            cache_path=os.path.join(tmp, "narrow_band.npz")))
+    build_s = time.perf_counter() - t0
+    v, g, dq = query_objective_grad(robot, q, pts)
+    sync(device)
+    arm_launches = narrow_band_query_cuda.launches
+    check(v.shape == (n_configs, pts.shape[0]) and g.shape == v.shape + (3,),
+          "narrow-band robot: output shape")
+    check(bool(torch.isfinite(v).all() and torch.isfinite(g).all() and torch.isfinite(dq).all()),
+          "narrow-band robot: non-finite output")
+
+    # the kernel on the arm's own launches (its points, mostly far field and
+    # outside the grids) against the plain version on the card: the same
+    # arm on the same cached tables with backend="torch"
+    plain = pt.RobotSDF(pt.build_serial_chain_from_urdf(text, "link7", device=device),
+                        path_prefix=arm_dir, link_sdf_cls=pt.narrow_band_link_sdf_factory(
+                            cache_path=os.path.join(tmp, "narrow_band.npz"), backend="torch"))
+    before = narrow_band_query_cuda.launches
+    vp, gp, dqp = query_objective_grad(plain, q, pts)
+    sync(device)
+    check(narrow_band_query_cuda.launches == before, "the plain narrow-band arm launched the kernel")
+    dv, dg = v != vp, (g != gp).any(dim=-1)
+    err_v, err_g = (v - vp).abs().max().item(), (g - gp).abs().max().item()
+    err_dq = ((dq - dqp).abs() / dqp.abs().clamp(min=1.0)).max().item()
+    first = ""
+    if bool(dv.any() or dg.any()):
+        c, i = (int(x) for x in torch.nonzero(dv | dg)[0])
+        first = (f"; first difference: configuration {c}, point {i} {pts[i].tolist()}: kernel "
+                 f"{v[c, i].item()!r} {g[c, i].tolist()}, plain {vp[c, i].item()!r} "
+                 f"{gp[c, i].tolist()}")
+    log(f"  narrow-band arm, kernel vs plain version on the card ({v.shape[0]} x {v.shape[1]}, "
+        f"{arm_launches} launches): {int(dv.sum())} values and {int(dg.sum())} gradients "
+        f"differ, max |d| value {err_v:.3g} gradient {err_g:.3g}, d/dq rel {err_dq:.3g}{first}")
+    check(err_v <= 1e-6 and err_g <= 1e-5 and err_dq <= 1e-5,
+          "narrow-band arm: the kernel beyond 1e-6 / 1e-5 of its plain version")
+    err = max(err, err_v, err_g)
+    del plain, vp, gp, dqp
+
+    exact = pt.RobotSDF(pt.build_serial_chain_from_urdf(text, "link7", device=device),
+                        path_prefix=arm_dir)
+    with torch.no_grad():
+        v_ex, _ = exact.query(q, pts)
+    # at the defaults (cells of diag / 96, a band of 4 cells) a link is exact
+    # within band - half_diag of its surface, and its far field
+    # underestimates by at most a cell diagonal: the union is exact where
+    # the exact arm's value is below band - 3 half diagonals
+    half = max(0.5 * float(torch.linalg.vector_norm(s.tables.res)) for s in robot.sdf.sdfs)
+    exact_within = min(s.band for s in robot.sdf.sdfs) - 3 * half
+    arm_gates("defaults", v, v_ex, exact_within)
+    # the JAX package's own robot test build (tests/test_narrow_band.py:116):
+    # a 0.06 band, exact within 0.02 of the surface
+    jax_build = pt.RobotSDF(pt.build_serial_chain_from_urdf(text, "link7", device=device),
+                            path_prefix=arm_dir, link_sdf_cls=pt.narrow_band_link_sdf_factory(
+                                cell_res=0.015, band=0.06, padding=0.1,
+                                cache_path=os.path.join(tmp, "narrow_band.npz")))
+    with torch.no_grad():
+        arm_gates("cells 0.015, band 0.06", jax_build.query(q, pts)[0], v_ex, 0.02)
+    vg, gg = robot.query_grid(q, QUERY_RANGE, query_res)
+    exact_or_gate("query_grid vs query (narrow-band links)", vg.reshape(v.shape),
+                  gg.reshape(g.shape), v, g)
+    fwd_ms, fb_ms = time_robot(robot, q, pts, device, reps)
+    n = q.shape[0] * pts.shape[0]
+    cells = sorted({tuple(s.tables.dims.tolist()) + (s.tables.cand.shape[1],)
+                    for s in robot.sdf.sdfs})
+    log(f"  narrow-band arm {q.shape[0]} x {pts.shape[0]}: build {build_s:.2f} s (grids and K "
+        f"{cells}), forward {fwd_ms:.2f} ms ({n / fwd_ms / 1e3:.4g} M queries/s), "
+        f"forward+backward {fb_ms:.2f} ms [{card}]; narrow-band launches on the path "
+        f"{arm_launches}, in the bigmesh run {bigmesh_launches}")
+    return {"max_abs_err": err, "bigmesh": big_out, "arm_launches": arm_launches,
+            "bigmesh_launches": bigmesh_launches, "arm_fwd_ms": fwd_ms, "arm_fb_ms": fb_ms}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs one CUDA device")
     import pytorch_volumetric_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from pytorch_volumetric_tpu_torch import native
     from pytorch_volumetric_tpu_torch.ops import cuda_build
     from pytorch_volumetric_tpu_torch.utils.robots import make_serial_arm
 
@@ -810,8 +971,14 @@ def main():
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmul is enabled")
     t0 = time.perf_counter()
+    # the host runtime (g++) builds beside the kernels (nvcc)
+    native_build = threading.Thread(target=native.get_lib, daemon=True)
+    native_build.start()
     built = cuda_build.build()
-    log(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    native_build.join()
+    native.get_lib()  # raises here if its build failed
+    log(f"  built {sorted(built)} and {os.path.basename(native.library_path())} in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name, (_, out) in built.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
@@ -842,11 +1009,17 @@ def main():
         log("== phase 8: the coherent grid path")
         coherent_launches = phase_coherent(device, arm_dir, tmp, card, generic_ms)
         check(coherent_launches > 0, "the coherent path's cache build launched no kernel")
+        log("== phase 9: the sweep's launches")
+        log(f"  closest_point_sweep launches: exact-link path {exact_launches}, cached-link "
+            f"path {cached_launches}, chamfer exact/cached {chamfer_launches}, "
+            f"MJCF arm {mjcf_launches}, coherent grid path {coherent_launches}")
+        log("== phase 10: the narrow-band SDF")
+        nb = phase_narrow_band(device, arm_dir, tmp, card)
+        check(nb["bigmesh_launches"] > 0, "bigmesh launched no narrow-band kernel")
+        check(nb["arm_launches"] > 0, "the narrow-band robot launched no narrow-band kernel")
 
-    log("== phase 9: kernels")
-    log(f"  closest_point_sweep launches: exact-link path {exact_launches}, cached-link "
-        f"path {cached_launches}, chamfer exact/cached {chamfer_launches}, "
-        f"MJCF arm {mjcf_launches}, coherent grid path {coherent_launches}; total {time.perf_counter() - t_start:.1f} s")
+    log("== phase 11: kernels")
+    log(f"  total {time.perf_counter() - t_start:.1f} s")
     grid = probe["grid"]
 
     def bounds(r):
@@ -865,6 +1038,23 @@ def main():
                 "ms": r["ms"], "plain_ms": r["plain_ms"], **bounds(r), "library_ms": None}
 
     csrc = "pytorch_volumetric_tpu_torch/csrc/"
+
+    def narrow_band_row(nb):
+        """The narrow-band kernel at bigmesh's shape with no demoted cell
+        (max_k 1024), max_k 256 beside it; launches on the arm's query."""
+        builds = nb["bigmesh"]["builds"]
+        main_b = builds[max(builds, key=int)]
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+        return {"name": "narrow_band_query", "route": "cuda", "source": csrc + "narrow_band.cu",
+                "replaces": "pytorch_volumetric_tpu/ops/narrow_band.py:254",
+                "replaces_note": "XLA fusion (_query_impl), no Pallas kernel",
+                "launches": nb["arm_launches"], "launches_bigmesh": nb["bigmesh_launches"],
+                "max_abs_err": nb["max_abs_err"], **{k: main_b[k] for k in keys},
+                "library_ms": None, "shape": f"bigmesh, max_k {main_b['max_k']}, K "
+                f"{main_b['K']}, {main_b['work']['in_band']} in-band points",
+                **{f"max_k_{k}": {x: r[x] for x in keys + ("K",)}
+                   for k, r in builds.items() if r is not main_b}}
+
     log(json.dumps({"kernels": [
         {"name": "closest_point_sweep", "route": "cuda", "source": csrc + "closest_point.cu",
          "replaces": "pytorch_volumetric_tpu/ops/pallas/closest_point.py:62",
@@ -879,6 +1069,7 @@ def main():
                   grid["mxu"], probe["errs"]["mxu"]),
         probe_row("fma_probe", csrc + "fma_probe.cu", "benchmarks/pallas_mfu.py:65",
                   "fma_probe_cuda", probe["fma"], probe["fma"]["max_abs_err"]),
+        narrow_band_row(nb),
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -5,14 +5,15 @@ The flat public namespace mirrors the JAX package's for what has been
 ported: batched SDF value+gradient queries on meshes, voxel-cached SDFs,
 min-union composition (with the coherent brick-gather path for grid
 sweeps), robot model (URDF, SDF, MJCF) -> SDF over batched
-joint configurations, and chamfer metrics.  Entry points run on CUDA unless
-given ``device="cpu"``; the closest-point + winding sweep is a hand-written
-CUDA kernel (``csrc/closest_point.cu``).
+joint configurations, the narrow-band SDF of large meshes, and chamfer
+metrics.  Entry points run on CUDA unless given ``device="cpu"``; the
+closest-point + winding sweep (``csrc/closest_point.cu``) and the
+narrow-band query (``csrc/narrow_band.cu``) are hand-written CUDA kernels.
 """
 
 from pytorch_volumetric_tpu_torch.sdf import (
     SDFQuery, ObjectFactory, MeshObjectFactory, ObjectFrameSDF, SphereSDF,
-    BoxSDF, CylinderSDF, CapsuleSDF, MeshSDF, ComposedSDF, CachedSDF,
+    BoxSDF, CylinderSDF, CapsuleSDF, MeshSDF, NarrowBandMeshSDF, ComposedSDF, CachedSDF,
     OutOfBoundsStrategy, aabb_corners, compose_query, compose_query_coherent,
     pad_aabb, sample_mesh_points,
 )
@@ -27,7 +28,8 @@ from pytorch_volumetric_tpu_torch.voxel import (
 )
 from pytorch_volumetric_tpu_torch.transforms import Transform3d, Translate
 from pytorch_volumetric_tpu_torch.model_to_sdf import (
-    RobotSDF, cache_link_sdf_factory, aabb_to_ordered_end_points,
+    RobotSDF, cache_link_sdf_factory, narrow_band_link_sdf_factory,
+    aabb_to_ordered_end_points,
 )
 from pytorch_volumetric_tpu_torch.kinematics import (
     Chain, SerialChain, build_chain_from_urdf, build_serial_chain_from_urdf,

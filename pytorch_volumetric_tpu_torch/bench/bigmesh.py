@@ -1,0 +1,291 @@
+"""Large-mesh benchmark of the narrow-band SDF on one GPU.
+
+    python -m pytorch_volumetric_tpu_torch.bench.bigmesh [--max-k 256 1024]
+
+The port's twin of the JAX package's ``benchmarks/bigmesh.py``, at its
+shape: a subdivided icosphere (radius 0.5, 7 subdivisions: 327,680 faces),
+262,144 points (half uniform in [-0.7, 0.7]^3, half at radius 0.5 +- twice
+the band, from numpy's generator seeded 0), cells of 0.015, a band of 0.01
+and a grid margin of 0.15.  For each ``max_k`` (256 as bigmesh runs; 1024
+demotes no cell) it builds the tables (the native host runtime) and
+reports:
+
+- the build's seconds, ``K``, the candidate table's MB, the band cells and
+  the cells demoted for having ``max_k`` candidates or more;
+- the kernel's time (``csrc/narrow_band.cu``, the mean of 20
+  launches timed with CUDA events) and queries/s, beside its bound: the
+  larger of the bytes this run must touch (points and outputs, the meta
+  rows of the cells hit, the real candidate rows of the band cells hit,
+  each in-band point's pseudonormal) over 3.35 TB/s and 60.2 FP32
+  operations (``sweep_roofline.CLOSEST_OPS``) per (in-band point, real
+  candidate) pair over 67 TFLOP/s (the rows that pad a cell's list up to
+  ``K`` are left out of both);
+- the plain PyTorch version's time on the card (its reference: it must
+  give the same values, gradients and slots bit for bit);
+- the exact sweep (K1, ``MeshSDF``) on the first and the last 65,536
+  points, with its queries/s on the first, and the narrow band's largest
+  error against it in the band and in the far field, each point classed by
+  its cell's actual slot.  In the band the error must stay within 2e-5; in
+  the far field within the first-order step's bound, the cell's diagonal.
+
+Prints one JSON line; exits non-zero without a CUDA device or when a gate
+fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from pytorch_volumetric_tpu_torch import mesh as mesh_mod
+from pytorch_volumetric_tpu_torch.mesh import PAD_COORD
+# CLOSEST_OPS: FP32 operations per closest-point pair, the count behind the
+# sweep kernel's evaluated-pairs bound
+from pytorch_volumetric_tpu_torch.bench.sweep_roofline import (
+    CLOSEST_OPS, PEAK_BYTES_PER_S, PEAK_FP32_FLOPS, card_name)
+from pytorch_volumetric_tpu_torch.ops import narrow_band as nb
+from pytorch_volumetric_tpu_torch.ops.narrow_band_cuda import narrow_band_query_cuda
+from pytorch_volumetric_tpu_torch.utils.profiling import device_time
+
+RADIUS, SUBDIV, POINTS = 0.5, 7, 262_144
+CELL_RES, BAND, PADDING = 0.015, 0.01, 0.15
+MAX_KS = (256, 1024)
+EXACT_POINTS = 65_536
+# gates: in-band values against the exact sweep (the JAX package's own
+# tests/test_narrow_band.py gate); kernel against plain where not equal
+GATE_BAND = 2e-5
+GATE_VALUE, GATE_GRAD = 1e-6, 1e-5
+
+
+def bigmesh_points(n: int = POINTS, radius: float = RADIUS, band: float = BAND) -> np.ndarray:
+    """bigmesh's points: the first half uniform in [-0.7, 0.7]^3, the second
+    at random directions and radius ``radius`` +- ``2 * band``."""
+    rng = np.random.default_rng(0)
+    n_far = n // 2
+    far = rng.uniform(-0.7, 0.7, (n_far, 3)).astype(np.float32)
+    dirs = rng.normal(size=(n - n_far, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    radii = radius + rng.uniform(-2 * band, 2 * band, (len(dirs), 1)).astype(np.float32)
+    return np.concatenate([far, dirs * radii])
+
+
+def work(smalls: nb.NarrowBandSmalls, big: nb.NarrowBandBig, points: torch.Tensor,
+         slot: torch.Tensor) -> dict:
+    """What a query of ``points`` must touch and compute, from its
+    classification ``slot``: bytes (each input read once, each output
+    written once) and FP32 operations.  Only a cell's real candidates
+    count: the ``PAD_COORD`` rows that fill its list up to ``K`` are never
+    the answer (``pairs_padded`` counts them too, as the kernel runs them)."""
+    in_grid, _, cidx = nb.cell_index(smalls, points)
+    band = slot >= 0
+    K = big.cand.shape[1]
+    n_band = int(band.sum())
+    real = (big.cand[:, :, 0] != PAD_COORD).sum(dim=1)  # [S] real candidates per slot
+    cells = int(torch.unique(cidx[in_grid]).numel())
+    hit = torch.unique(slot[band]).to(torch.int64)
+    slot_rows = int(real[hit].sum())
+    pairs = int(real[slot[band].to(torch.int64)].sum())
+    n = points.shape[0]
+    nbytes = (n * 12 + n * 16          # points in, value and gradient out
+              + cells * 5 * 4          # meta rows of the cells hit
+              + slot_rows * 10 * 4     # real candidate rows of the band cells hit
+              + n_band * 3 * 4)        # each in-band point's pseudonormal
+    ops = pairs * CLOSEST_OPS
+    return {"points": n, "in_band": n_band, "far": int((slot == nb.FAR).sum()),
+            "out_of_grid": int((slot == nb.OUT_OF_GRID).sum()), "cells_hit": cells,
+            "band_cells_hit": int(hit.numel()), "candidate_rows_hit": slot_rows,
+            "mean_candidates": pairs / max(n_band, 1), "pairs": pairs,
+            "pairs_padded": n_band * K, "bytes": nbytes, "fp32_ops": ops}
+
+
+def bound_ms(w: dict):
+    """The least time the card could take for the work ``w``, and which of
+    bytes and operations sets it."""
+    t_bytes = w["bytes"] / PEAK_BYTES_PER_S
+    t_ops = w["fp32_ops"] / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def compare(smalls, big, points, eps: float = 1e-3) -> dict:
+    """One kernel launch against the plain version on the same inputs:
+    slots must be equal; values and gradients equal, or else within
+    1e-6 / 1e-5 with the first differing point and its cause reported."""
+    before = narrow_band_query_cuda.launches
+    v, g, s = narrow_band_query_cuda(smalls, big, points, eps, with_slots=True)
+    if points.device.type == "cuda":
+        torch.cuda.synchronize(points.device)
+        if narrow_band_query_cuda.launches != before + 1:
+            raise RuntimeError("narrow_band_query_cuda did not launch")
+    vr, gr, sr = nb._query_impl(smalls, big, points, eps)
+    dv = v != vr
+    dg = (g != gr).any(dim=-1)
+    out = {"points": points.shape[0], "slots_equal": bool(torch.equal(s, sr)),
+           "equal": not bool(dv.any() or dg.any()),
+           "max_abs_err": max((v - vr).abs().max().item() if v.numel() else 0.0,
+                              (g - gr).abs().max().item() if g.numel() else 0.0),
+           "value_err": (v - vr).abs().max().item() if v.numel() else 0.0,
+           "grad_err": (g - gr).abs().max().item() if g.numel() else 0.0,
+           "finite": bool(torch.isfinite(v).all() and torch.isfinite(g).all())}
+    if not out["equal"]:
+        i = int(torch.nonzero(dv | dg)[0, 0])
+        kind = {nb.FAR: "far field", nb.OUT_OF_GRID: "out of the grid"}.get(
+            int(sr[i]), f"in band (slot {int(sr[i])})")
+        near = abs(vr[i].item()) < eps
+        out["first_difference"] = (
+            f"point {i} {points[i].tolist()}, {kind}{', within eps of the surface' if near else ''}:"
+            f" kernel {v[i].item()!r} {g[i].tolist()}, plain {vr[i].item()!r} {gr[i].tolist()}")
+    out["ok"] = (out["slots_equal"] and out["finite"] and out["value_err"] <= GATE_VALUE
+                 and out["grad_err"] <= GATE_GRAD)
+    return out
+
+
+def kernel_cases(device):
+    """``(name, smalls, big, points)``: the inputs the kernel is held to its
+    plain version on.  The 2,304-face torus of the JAX package's tests with
+    uniform, near-band, on-surface, out-of-grid and cell-face points (3 ulp
+    from a face in every coordinate) and ragged counts; an icosphere built
+    with ``max_k=8`` (demoted cells); an inverted icosphere."""
+    rng = np.random.default_rng(0)
+    torus = mesh_mod.torus_mesh(0.3, 0.12, 48, 24)
+    builds = {"torus": (torus, dict(cell_res=0.03, band=0.1, padding=0.2)),
+              "icosphere, max_k=8": (mesh_mod.icosphere_mesh(0.2, 2),
+                                     dict(cell_res=0.03, band=0.06, padding=0.1, max_k=8))}
+    ico = mesh_mod.icosphere_mesh(0.2, 2)
+    builds["inverted icosphere"] = (mesh_mod.TriangleMesh(ico.vertices, ico.faces[:, ::-1]),
+                                    dict(cell_res=0.03, band=0.06, padding=0.1))
+    tables = {k: nb.build_narrow_band_tables(m, device=device, **kw)
+              for k, (m, kw) in builds.items()}
+
+    def pts(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+
+    def cell_faces(t, n):
+        lo, res, dims = t.lo.numpy(), t.res.numpy(), t.dims.numpy()
+        k = rng.integers(0, dims + 1, (n, 3))
+        p = (lo.astype(np.float64) + k * res.astype(np.float64)).astype(np.float32)
+        return p + rng.integers(-3, 4, (n, 3)).astype(np.float32) * np.spacing(p)
+
+    t = tables["torus"]
+    surf = torus.sample_points_uniformly(5000, seed=1)
+    cases = [("torus, uniform", t, pts(rng.uniform(-0.55, 0.55, (20000, 3)))),
+             ("torus, near the surface", t, pts(surf + rng.normal(0, 0.03, surf.shape))),
+             ("torus, on the surface", t, pts(surf)),
+             ("torus, cell faces", t, pts(cell_faces(t, 50000))),
+             ("torus, out of the grid", t, pts(rng.uniform(-3, 3, (5000, 3))))]
+    cases += [(f"torus, ragged P={n}", t, pts(rng.uniform(-0.5, 0.5, (n, 3))))
+              for n in (1, 7, 31, 33, 129, 5000)]
+    for name in ("icosphere, max_k=8", "inverted icosphere"):
+        cases.append((name, tables[name], pts(rng.uniform(-0.35, 0.35, (20000, 3)))))
+    return [(name, tb.smalls, tb.big, p.contiguous()) for name, tb, p in cases]
+
+
+def run(device, max_ks=MAX_KS, points: int = POINTS, reps: int = 20, plain_reps: int = 3,
+        subdiv: int = SUBDIV, exact_points: int = EXACT_POINTS, log=print) -> dict:
+    """The benchmark on ``device`` for each ``max_k``; ``ok``: every gate
+    held."""
+    import pytorch_volumetric_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    m = mesh_mod.icosphere_mesh(radius=RADIUS, subdivisions=subdiv)
+    with tempfile.TemporaryDirectory(prefix="pvt_bigmesh_") as tmp:
+        # written and read back, as bigmesh does (9 significant digits)
+        path = os.path.join(tmp, "sphere.obj")
+        mesh_mod.save_obj(m, path)
+        fac = pt.MeshObjectFactory(path, device=device)
+    log(f"icosphere: {len(fac._mesh.faces)} faces, written and read back in "
+        f"{time.perf_counter() - t0:.1f} s")
+    pts = torch.as_tensor(bigmesh_points(points), device=device)
+    n_exact = min(exact_points, points)
+    probes = {"first": pts[:n_exact].contiguous(), "last": pts[-n_exact:].contiguous()}
+
+    exact = pt.MeshSDF(fac)
+    with torch.no_grad():
+        ref = {k: exact.raw_query(p)[0] for k, p in probes.items()}
+    exact_ms = device_time(lambda p: exact.raw_query(p), probes["first"], reps=2) * 1e3
+    out = {"faces": len(fac._mesh.faces), "points": points, "exact_points": n_exact,
+           "exact_ms": exact_ms, "exact_qps": n_exact / exact_ms * 1e3, "builds": {}}
+    log(f"exact sweep (K1) on the first {n_exact} points: {exact_ms:.3f} ms = "
+        f"{out['exact_qps'] / 1e6:.4f} M queries/s")
+
+    ok = True
+    for max_k in max_ks:
+        t0 = time.perf_counter()
+        sdf = pt.NarrowBandMeshSDF(fac, cell_res=CELL_RES, band=BAND, padding=PADDING,
+                                   max_k=max_k)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        build_s = time.perf_counter() - t0
+        tb = sdf.tables
+        smalls, big = tb.smalls, tb.big
+        meta = big.meta
+        demoted = int(((meta[:, 0].abs() <= BAND) & (meta[:, 4] < 0)).sum())
+        K, S = big.cand.shape[1], big.cand.shape[0]
+        r = {"max_k": max_k, "build_s": build_s, "K": K, "cells": meta.shape[0],
+             "band_cells": S, "demoted_cells": demoted,
+             "cand_mb": big.cand.numel() * 4 / 1e6}
+
+        cmp = compare(smalls, big, pts)
+        _, _, slot = narrow_band_query_cuda(smalls, big, pts, with_slots=True)
+        w = work(smalls, big, pts, slot)
+        r["bound_ms"], r["bound_by"] = bound_ms(w)
+        r["ms"] = device_time(lambda p: narrow_band_query_cuda(smalls, big, p), pts,
+                              reps=reps) * 1e3
+        r["plain_ms"] = device_time(lambda p: nb._query_impl(smalls, big, p, 1e-3), pts,
+                                    reps=plain_reps) * 1e3
+        r["qps"] = points / r["ms"] * 1e3
+        r.update(work=w, kernel_vs_plain=cmp)
+
+        # against the exact sweep, each point classed by its cell's slot
+        errs = {"band": 0.0, "far": 0.0, "band_points": 0, "far_points": 0}
+        far_bound = float(torch.linalg.vector_norm(smalls.res))
+        for key, p in probes.items():
+            v, _, s = narrow_band_query_cuda(smalls, big, p, with_slots=True)
+            e = (v - ref[key]).abs()
+            for name, mask in (("band", s >= 0), ("far", s == nb.FAR)):
+                if bool(mask.any()):
+                    errs[name] = max(errs[name], e[mask].max().item())
+                    errs[f"{name}_points"] += int(mask.sum())
+        r["vs_exact"] = dict(errs, far_bound=far_bound)
+        r["ok"] = (cmp["ok"] and errs["band"] <= GATE_BAND and errs["far"] <= far_bound
+                   and errs["band_points"] > 0)
+        ok = ok and r["ok"]
+        out["builds"][str(max_k)] = r
+        log(f"max_k={max_k}: build {build_s:.2f} s, K={K}, {S} band cells ({demoted} "
+            f"demoted), {r['cand_mb']:.1f} MB candidates; kernel {r['ms']:.4f} ms = "
+            f"{r['qps'] / 1e6:.2f} M queries/s (bound {r['bound_ms']:.4f} ms, {r['bound_by']}; "
+            f"{w['in_band']} in-band points x {w['mean_candidates']:.1f} real candidates = "
+            f"{w['pairs']} pairs ({w['pairs_padded']} with the padding rows), "
+            f"{w['bytes'] / 1e6:.1f} MB); "
+            f"plain {r['plain_ms']:.3f} ms; kernel vs plain: equal {cmp['equal']}, slots equal "
+            f"{cmp['slots_equal']}, max |d| {cmp['max_abs_err']:.3g}"
+            + (f" ({cmp['first_difference']})" if "first_difference" in cmp else "")
+            + f"; vs exact: band {errs['band']:.3g} ({errs['band_points']} points), far "
+            f"{errs['far']:.3g} ({errs['far_points']} points, bound {far_bound:.4f})")
+        del sdf, tb, smalls, big, meta
+    out["ok"] = ok
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--max-k", type=int, nargs="+", default=list(MAX_KS))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("bigmesh: needs a CUDA device", file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    out = run(device, tuple(args.max_k), log=lambda s: print(s, file=sys.stderr, flush=True))
+    out["device"] = {"name": torch.cuda.get_device_name(0), "card": card_name()}
+    print(json.dumps(out), flush=True)
+    return 0 if out["ok"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

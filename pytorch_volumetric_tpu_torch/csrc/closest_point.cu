@@ -19,7 +19,8 @@
 // 1. Select, then divide.  The six region flags come first; the quotient
 //    each output needs is picked by the cascade's priority and divided once,
 //    two IEEE divisions per pair instead of five.  Each kept quotient is the
-//    same division of the same operands as in the plain version.
+//    same division of the same operands as in the plain version.  The
+//    cascade lives in point_triangle.cuh, shared with narrow_band.cu.
 // 2. Padding is skipped.  A triangle whose nine coordinates all equal
 //    mesh.PAD_COORD is dropped when its tile is compacted into shared
 //    memory; every padding triangle gives the same pair, so the first one
@@ -71,6 +72,8 @@
 
 #include <cuda_runtime.h>
 
+#include "point_triangle.cuh"  // Tri, safe_den, closest_pair
+
 namespace {
 
 constexpr int kThreads = 128;   // threads per block
@@ -89,10 +92,6 @@ struct Box {
   float lo[3], hi[3];
 };
 
-struct Tri {
-  float ax, ay, az, bx, by, bz, cx, cy, cz, abx, aby, abz, acx, acy, acz;
-};
-
 struct Point {  // one thread's point and its running state
   float px, py, pz;
   float best;  // running min squared distance
@@ -100,61 +99,6 @@ struct Point {  // one thread's point and its running state
   float qx, qy, qz;
   float wind;
 };
-
-__device__ __forceinline__ float safe_den(float den) {
-  return fabsf(den) < 1e-30f ? 1e-30f : den;
-}
-
-// Squared distance from p to its closest point q on t (Ericson RTCD 5.1.5),
-// operation for operation as the plain version's _closest_point_bary.
-__device__ __forceinline__ float closest_pair(const Tri& t, float px, float py, float pz,
-                                              float& qx, float& qy, float& qz) {
-  const float apx = px - t.ax, apy = py - t.ay, apz = pz - t.az;
-  const float d1 = t.abx * apx + t.aby * apy + t.abz * apz;
-  const float d2 = t.acx * apx + t.acy * apy + t.acz * apz;
-  const float bpx = apx - t.abx, bpy = apy - t.aby, bpz = apz - t.abz;
-  const float d3 = t.abx * bpx + t.aby * bpy + t.abz * bpz;
-  const float d4 = t.acx * bpx + t.acy * bpy + t.acz * bpz;
-  const float cpx = apx - t.acx, cpy = apy - t.acy, cpz = apz - t.acz;
-  const float d5 = t.abx * cpx + t.aby * cpy + t.abz * cpz;
-  const float d6 = t.acx * cpx + t.acy * cpy + t.acz * cpz;
-
-  const float va = d3 * d6 - d5 * d4;
-  const float vb = d5 * d2 - d1 * d6;
-  const float vc = d1 * d4 - d3 * d2;
-  const float denom = va + vb + vc;
-  const float e43 = d4 - d3, e56 = d5 - d6;
-
-  const bool in_a = (d1 <= 0.f) && (d2 <= 0.f);
-  const bool in_b = (d3 >= 0.f) && (d4 <= d3);
-  const bool in_c = (d6 >= 0.f) && (d5 <= d6);
-  const bool on_ab = (vc <= 0.f) && (d1 >= 0.f) && (d3 <= 0.f);
-  const bool on_ac = (vb <= 0.f) && (d2 >= 0.f) && (d6 <= 0.f);
-  const bool on_bc = (va <= 0.f) && (e43 >= 0.f) && (e56 >= 0.f);
-
-  // priority: A > B > C > AB > AC > BC > interior.  The first quotient is
-  // the one the winning edge needs (v_ab, w_ac or w_bc) or the interior's
-  // v; the second is the interior's w.
-  float num = vb, den = denom;
-  if (on_bc) { num = e43; den = e43 + e56; }
-  if (on_ac) { num = d2; den = d2 - d6; }
-  if (on_ab) { num = d1; den = d1 - d3; }
-  const float q1 = num / safe_den(den);
-  const float q2 = vc / safe_den(denom);
-  float v = q1, w = q2;
-  if (on_bc) { v = 1.f - q1; w = q1; }
-  if (on_ac) { v = 0.f; w = q1; }
-  if (on_ab) { v = q1; w = 0.f; }
-  if (in_c) { v = 0.f; w = 1.f; }
-  if (in_b) { v = 1.f; w = 0.f; }
-  if (in_a) { v = 0.f; w = 0.f; }
-
-  qx = t.ax + v * t.abx + w * t.acx;
-  qy = t.ay + v * t.aby + w * t.acy;
-  qz = t.az + v * t.abz + w * t.acz;
-  const float dx = qx - px, dy = qy - py, dz = qz - pz;
-  return dx * dx + dy * dy + dz * dz;
-}
 
 // Solid angle of t seen from p (van Oosterom & Strackee), as the plain
 // version's _winding_contrib.

@@ -11,7 +11,7 @@ from __future__ import annotations
 import os
 import struct
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -72,6 +72,47 @@ class TriangleMesh:
         n = np.cross(t[:, 1] - t[:, 0], t[:, 2] - t[:, 0])
         norm = np.linalg.norm(n, axis=-1, keepdims=True)
         return n / np.maximum(norm, 1e-30)
+
+    def signed_volume(self) -> float:
+        """Signed enclosed volume (divergence theorem); negative means the
+        faces wind inward (inverted orientation)."""
+        t = self.triangles()
+        return float(np.sum(np.einsum("fi,fi->f", t[:, 0],
+                                      np.cross(t[:, 1], t[:, 2]))) / 6.0)
+
+    def pseudonormals(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Angle-weighted pseudonormals (Baerentzen & Aanaes): the sign of
+        ``(p - q) . n`` at the closest feature's pseudonormal ``n`` tells
+        inside from outside on a watertight manifold mesh.
+
+        Returns ``(n_vert [F, 3, 3], n_edge [F, 3, 3], n_face [F, 3])`` as
+        per-face rows: ``n_vert[f, i]`` belongs to corner ``i`` of face
+        ``f``, ``n_edge[f, i]`` to the edge (corner i, corner i+1 mod 3).
+        """
+        t = self.triangles()
+        n_face = self.face_normals()
+        F = len(self.faces)
+        V = len(self.vertices)
+        # vertex: the face normals weighted by the corner angle at the vertex
+        nv_acc = np.zeros((V, 3))
+        for i in range(3):
+            e1 = t[:, (i + 1) % 3] - t[:, i]
+            e2 = t[:, (i + 2) % 3] - t[:, i]
+            cosang = np.sum(e1 * e2, axis=-1) / np.maximum(
+                np.linalg.norm(e1, axis=-1) * np.linalg.norm(e2, axis=-1), 1e-30)
+            ang = np.arccos(np.clip(cosang, -1.0, 1.0))
+            np.add.at(nv_acc, self.faces[:, i], ang[:, None] * n_face)
+        nv_acc /= np.maximum(np.linalg.norm(nv_acc, axis=-1, keepdims=True), 1e-30)
+        n_vert = nv_acc[self.faces]
+        # edge: the sum of the (up to 2) adjacent face normals
+        edges = np.stack([self.faces, np.roll(self.faces, -1, axis=1)], axis=-1)
+        edges = np.sort(edges.reshape(F * 3, 2), axis=1)
+        keys, inv = np.unique(edges, axis=0, return_inverse=True)
+        ne_acc = np.zeros((len(keys), 3))
+        np.add.at(ne_acc, inv, np.repeat(n_face, 3, axis=0))
+        ne_acc /= np.maximum(np.linalg.norm(ne_acc, axis=-1, keepdims=True), 1e-30)
+        n_edge = ne_acc[inv].reshape(F, 3, 3)
+        return n_vert, n_edge, n_face
 
     def face_areas(self) -> np.ndarray:
         t = self.triangles()

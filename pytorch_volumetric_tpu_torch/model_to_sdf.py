@@ -219,6 +219,19 @@ def cache_link_sdf_factory(resolution=0.01, padding=0.1, **kwargs):
     return create_sdf
 
 
+def narrow_band_link_sdf_factory(cell_res=None, band=None, padding=0.1, max_k=256,
+                                 **kwargs):
+    """Closure producing a :class:`sdf.NarrowBandMeshSDF` per link, the
+    large-mesh counterpart of :func:`cache_link_sdf_factory` (exact near the
+    surface, ``K`` candidates per query instead of every face)."""
+
+    def create_sdf(obj_factory: sdf.ObjectFactory):
+        return sdf.NarrowBandMeshSDF(obj_factory, cell_res=cell_res, band=band,
+                                     padding=padding, max_k=max_k, **kwargs)
+
+    return create_sdf
+
+
 # Corner codes: bit d set <=> take the max bound along dimension d: a plain
 # 8-corner enumeration, and a 16-step wireframe walk in which consecutive
 # points share an edge.

@@ -31,6 +31,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 # the roofline probe only (bench/sweep_roofline.py).
 SOURCES = {
     "closest_point": ("closest_point.cu", ("-fmad=false",)),
+    "narrow_band": ("narrow_band.cu", ("-fmad=false",)),
     "closest_point_mma": ("closest_point_mma.cu", ("-fmad=false",)),
     "fma_probe": ("fma_probe.cu", ("-fmad=false",)),
     "closest_point_fmad": ("closest_point.cu", ("-fmad=true",)),
@@ -82,7 +83,10 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Tuple[float, str]]
     for n in todo:
         out = library_path(n)
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc, *_flags(n), "-o", tmp, os.path.join(CSRC_DIR, SOURCES[n][0])]
+        # -I: a copy of a source elsewhere (scripts/sweep_variants_torch.py)
+        # still finds the headers under csrc/
+        cmd = [nvcc, *_flags(n), "-I", CSRC_DIR, "-o", tmp,
+               os.path.join(CSRC_DIR, SOURCES[n][0])]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out)

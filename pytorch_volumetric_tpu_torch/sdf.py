@@ -1,8 +1,8 @@
 """Object-frame signed distance fields (the central abstraction).
 
 The ``ObjectFrameSDF`` protocol maps ``pts [.., N, 3]`` to ``(val [.., N],
-grad [.., N, 3])``, with concrete primitive, ``MeshSDF``, ``ComposedSDF``
-and ``CachedSDF`` implementations.
+grad [.., N, 3])``, with concrete primitive, ``MeshSDF``,
+``NarrowBandMeshSDF``, ``ComposedSDF`` and ``CachedSDF`` implementations.
 
 - Mesh queries run the brute-force closest-point + winding sweep
   (``ops.point_triangle``; the CUDA kernel on the card); the inside/outside
@@ -407,6 +407,72 @@ class MeshSDF(ObjectFrameSDF):
 
     def raw_query(self, points):
         return self._raw(*self._tables, points)
+
+    def surface_bounding_box(self, padding=0.0, padding_ratio=0.0):
+        return torch.as_tensor(self.obj_factory.bounding_box(padding, padding_ratio),
+                               dtype=torch.float32, device=self.device)
+
+
+class NarrowBandMeshSDF(ObjectFrameSDF):
+    """Large-mesh SDF: exact within ``band`` of the surface through per-cell
+    candidate lists, a first-order-corrected voxel far field beyond it
+    (``ops.narrow_band``; the kernel ``csrc/narrow_band.cu`` on the card).
+
+    A query costs one cell lookup and ``K`` candidate evaluations instead of
+    the sweep's ``F``.  Signs come from angle-weighted pseudonormals, exact
+    for watertight manifold meshes (use :class:`MeshSDF`'s winding numbers
+    for triangle soups).  The build runs the native host runtime.
+
+    :param cell_res: cell size; defaults to the mesh box's diagonal / 96.
+    :param band: half-width of the exact shell; defaults to ``4 * cell_res``.
+    :param padding: grid margin beyond the mesh box; queries outside the
+        grid take the distance to the surface's box (an under-approximation).
+    :param max_k: cells with this many candidates or more take the far field.
+    :param tables: given :class:`ops.narrow_band.NarrowBandTables` instead of
+        a build (``state.narrow_band_sdf_from_numpy``).
+    :param backend: "torch" forces the plain query on the card too (the
+        kernel's reference).
+    """
+
+    def __init__(self, obj_factory: ObjectFactory, cell_res: Optional[float] = None,
+                 band: Optional[float] = None, padding: float = 0.1, max_k: int = 256,
+                 cache_path: Optional[str] = None, tables=None, backend: str = "auto"):
+        from pytorch_volumetric_tpu_torch.ops import narrow_band as nb
+
+        self.obj_factory = obj_factory
+        self.device = obj_factory.device
+        m = obj_factory._mesh
+        if cell_res is None:
+            aabb = m.aabb()
+            cell_res = float(np.linalg.norm(aabb[:, 1] - aabb[:, 0])) / 96.0
+        if band is None:
+            band = 4.0 * cell_res
+        self.cell_res = cell_res
+        self.band = band
+        if tables is None:
+            tables = nb.build_narrow_band_tables(m, cell_res, band, padding=padding,
+                                                 max_k=max_k, cache_path=cache_path,
+                                                 device=self.device)
+        self.tables = tables
+        eps = obj_factory.surface_normal_eps
+        # the small grid fields are fixed here (the JAX package's trace-time
+        # constants); the big tables are passed on every call, so a union
+        # can thread them (raw_query_aux / raw_query_with)
+
+        def raw(meta, cand, pseudo, pts):
+            return nb.narrow_band_query(tables._replace(meta=meta, cand=cand, pseudo=pseudo),
+                                        pts.contiguous(), eps, backend)
+
+        self._raw = _straight_through_sdf(raw)
+
+    def raw_query(self, points):
+        return self._raw(*self.tables.big, points)
+
+    def raw_query_aux(self):
+        return self.tables.big
+
+    def raw_query_with(self, aux, points):
+        return self._raw(*aux, points)
 
     def surface_bounding_box(self, padding=0.0, padding_ratio=0.0):
         return torch.as_tensor(self.obj_factory.bounding_box(padding, padding_ratio),

@@ -1,9 +1,10 @@
 """Build the port's objects from arrays taken as numpy.
 
 The system has no learned weights; its state is the packed triangle arrays
-of each mesh and the value/gradient grids of each cached SDF.  These
-functions install such arrays (for example ones the JAX package built), so
-lookups and unions can be compared on identical tables.
+of each mesh, the value/gradient grids of each cached SDF and the eight
+tables of each narrow-band SDF.  These functions install such arrays (for
+example ones the JAX package built), so lookups and unions can be compared
+on identical tables.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from pytorch_volumetric_tpu_torch import sdf
 from pytorch_volumetric_tpu_torch.mesh import MeshScene
+from pytorch_volumetric_tpu_torch.ops.narrow_band import NarrowBandTables, tables_from_numpy
 from pytorch_volumetric_tpu_torch.utils.batching import resolve_device
 
 
@@ -41,11 +43,23 @@ def cached_sdf_from_numpy(name: str, resolution: float, range_per_dim, val, grad
                                  np.asarray(surface_bb)))
 
 
+def narrow_band_sdf_from_numpy(obj_factory: sdf.ObjectFactory, tables: Sequence[np.ndarray],
+                               cell_res=None, band=None) -> sdf.NarrowBandMeshSDF:
+    """A :class:`sdf.NarrowBandMeshSDF` of ``obj_factory``'s mesh over the
+    given eight tables, in ``NarrowBandTables`` order (lo, res, dims,
+    strides, meta, cand, pseudo, bb), on the factory's device.  The tables
+    fix the grid; ``cell_res`` and ``band`` are only recorded on the SDF
+    (defaulting as in its constructor)."""
+    return sdf.NarrowBandMeshSDF(obj_factory, cell_res=cell_res, band=band,
+                                 tables=tables_from_numpy(tables, obj_factory.device))
+
+
 def load_robot_tables(robot, arrays: Sequence[Mapping[str, np.ndarray]]) -> None:
     """Install per-link tables on ``robot`` in link order
     (``robot.sdf.sdfs``).  A cached link takes ``{"val", "grad"}`` (and
     optionally ``"surface_bb"``); an exact mesh link takes ``{"tri",
-    "normals"}``."""
+    "normals"}``; a narrow-band link takes the eight tables by their
+    ``NarrowBandTables`` names (``"lo"``, ..., ``"bb"``)."""
     children = robot.sdf.sdfs
     if len(arrays) != len(children):
         raise ValueError(f"{len(arrays)} table sets for {len(children)} links")
@@ -65,5 +79,9 @@ def load_robot_tables(robot, arrays: Sequence[Mapping[str, np.ndarray]]) -> None
             fac._scene = scene_from_numpy(a["tri"], a["normals"], fac.scene.num_faces,
                                           device=child.device)
             children[i] = sdf.MeshSDF(fac)
+        elif isinstance(child, sdf.NarrowBandMeshSDF):
+            children[i] = narrow_band_sdf_from_numpy(
+                child.obj_factory, [a[f] for f in NarrowBandTables._fields],
+                cell_res=child.cell_res, band=child.band)
         else:
             raise TypeError(f"link {i} ({type(child).__name__}) holds no tables")

@@ -3,11 +3,13 @@
 
     python3 scripts/profile_torch_query.py [--out DIR]
 
-Builds the headline robot (7-DOF ``make_serial_arm``) twice, with cached
-links (``cache_link_sdf_factory(0.02, 1.0)``) and with exact ``MeshSDF``
-links, and traces one forward and one forward+backward (``d(v.sum() +
-g.sum())/dq``) of ``RobotSDF.query`` over 200 configurations x 15,251
-points with ``torch.profiler``, and of the cached robot's
+Builds the headline robot (7-DOF ``make_serial_arm``) three times, with
+cached links (``cache_link_sdf_factory(0.02, 1.0)``), with exact
+``MeshSDF`` links and with narrow-band links
+(``narrow_band_link_sdf_factory()``), and traces one forward and one
+forward+backward (``d(v.sum() + g.sum())/dq``) of ``RobotSDF.query`` over
+200 configurations x 15,251 points with ``torch.profiler``, and of the
+cached robot's
 ``RobotSDF.query_grid`` (the coherent brick path) over the same grid.
 Prints, per run, the wall time, the summed device-kernel time and the
 number of kernel launches, the device's idle share of the window, and the
@@ -76,6 +78,10 @@ def main():
                     cache_path=os.path.join(tmp, "sdf_cache.npz"))),
             "exact": pt.RobotSDF(
                 pt.build_serial_chain_from_urdf(text, end, device=device), path_prefix=arm),
+            "narrow_band": pt.RobotSDF(
+                pt.build_serial_chain_from_urdf(text, end, device=device), path_prefix=arm,
+                link_sdf_cls=pt.narrow_band_link_sdf_factory(
+                    cache_path=os.path.join(tmp, "narrow_band.npz"))),
         }
         for name, robot in robots.items():
             def fwd(robot=robot):

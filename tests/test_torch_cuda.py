@@ -17,6 +17,9 @@ from pytorch_volumetric_tpu_torch.ops.closest_point import (
     mesh_closest_query_contracted_cuda, mesh_closest_query_cuda,
     mesh_closest_query_mma_cuda, mesh_closest_query_nowind_cuda)
 from pytorch_volumetric_tpu_torch.ops.fma_probe import fma_probe, fma_probe_cuda
+from pytorch_volumetric_tpu_torch.bench import bigmesh
+from pytorch_volumetric_tpu_torch.ops import narrow_band as tnb
+from pytorch_volumetric_tpu_torch.ops.narrow_band_cuda import narrow_band_query_cuda
 
 
 @pytest.fixture
@@ -236,3 +239,50 @@ def test_fma_probe_matches_plain_on_card(card):
         assert fma_probe_cuda.launches == before + 1
         ref = fma_probe(a, b, iters)
         assert ((out - ref).abs() / ref.abs()).max().item() <= 1e-5, iters
+
+
+@pytest.mark.cuda
+def test_narrow_band_kernel_matches_plain_on_card(card):
+    """Values, gradients and slots equal to the plain version's on every
+    case of ``bench.bigmesh.kernel_cases`` (the torus with uniform,
+    near-surface, on-surface, out-of-grid and cell-face points, ragged
+    counts, demoted cells, an inverted mesh): the same keys, cascade and
+    sums, rounded the same way (``-fmad=false``)."""
+    for name, smalls, big, pts in bigmesh.kernel_cases(card):
+        before = narrow_band_query_cuda.launches
+        out = narrow_band_query_cuda(smalls, big, pts, with_slots=True)
+        torch.cuda.synchronize()
+        assert narrow_band_query_cuda.launches == before + 1, name
+        ref = tnb._query_impl(smalls, big, pts, 1e-3)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_narrow_band_kernel_checks_inputs(card):
+    t = tnb.build_narrow_band_tables(pt.mesh.icosphere_mesh(0.2, 1), 0.05, 0.1, device=card)
+    pts = _points(0, 10, card, -0.3, 0.3)
+    with pytest.raises(TypeError, match="float32"):
+        narrow_band_query_cuda(t.smalls, t.big, pts.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        narrow_band_query_cuda(t.smalls, t.big, pts.t().contiguous().t())
+    with pytest.raises(ValueError, match=r"\[P, 3\]"):
+        narrow_band_query_cuda(t.smalls, t.big, pts[:, :2].contiguous())
+    with pytest.raises(ValueError, match="same device"):
+        narrow_band_query_cuda(t.smalls, tnb.NarrowBandBig(*(x.cpu() for x in t.big)), pts)
+
+
+@pytest.mark.cuda
+def test_narrow_band_sdf_on_card_matches_cpu(card):
+    """The narrow-band SDF with its straight-through gradient, card (the
+    kernel) vs CPU (the plain version)."""
+    mesh = pt.mesh.icosphere_mesh(0.2, 2)
+    results = []
+    for dev in (card, torch.device("cpu")):
+        fac = pt.MeshObjectFactory("ball", mesh=mesh, device=dev)
+        p = _points(1, 3000, dev, -0.35, 0.35).requires_grad_(True)
+        v, g = pt.NarrowBandMeshSDF(fac, cell_res=0.03, band=0.06)(p)
+        (dp,) = torch.autograd.grad(v.sum(), p)
+        results.append([x.detach().cpu() for x in (v, g, dp)])
+    for a, b in zip(*results):
+        assert (a - b).abs().max().item() <= 1e-6

@@ -87,7 +87,8 @@ def test_every_port_module_imports():
         if rel.startswith("pytorch_volumetric_tpu_torch"):
             mod = rel[:-3].replace(os.sep, ".")
             names.append(mod[:-len(".__init__")] if mod.endswith(".__init__") else mod)
-    for extra in ("chamfer", "bench.sweep_roofline", "ops.fma_probe", "utils.profiling"):
+    for extra in ("chamfer", "bench.sweep_roofline", "ops.fma_probe", "utils.profiling",
+                  "native", "ops.narrow_band", "ops.narrow_band_cuda", "bench.bigmesh"):
         assert f"pytorch_volumetric_tpu_torch.{extra}" in names
     for name in names:
         importlib.import_module(name)
@@ -110,3 +111,31 @@ def test_new_entry_points_run_on_cuda_unless_asked(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pt.sample_mesh_points(None, name="m", dbpath=str(tmp_path / "p.npz"))
     assert sweep_roofline.main([]) == 1
+
+
+def test_narrow_band_entry_points_run_on_cuda_unless_asked(tmp_path):
+    """The narrow-band SDF, its link factory, its table builders and the
+    bigmesh benchmark default to CUDA: without a GPU they raise (the
+    benchmark exits non-zero) unless given ``device="cpu"``."""
+    from pytorch_volumetric_tpu_torch.bench import bigmesh
+    from pytorch_volumetric_tpu_torch.ops import narrow_band as nb
+    m = pt.mesh.icosphere_mesh(0.2, 1)
+    path = str(tmp_path / "ball.obj")
+    pt.mesh.save_obj(m, path)
+    if torch.cuda.is_available():
+        fac = pt.MeshObjectFactory(path)
+        assert pt.NarrowBandMeshSDF(fac, cell_res=0.05).tables.meta.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt.NarrowBandMeshSDF(pt.MeshObjectFactory(path), cell_res=0.05)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        nb.build_narrow_band_tables(m, 0.05, 0.1)
+    host = nb.build_narrow_band_host(m, 0.05, 0.1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        nb.tables_from_numpy(host)
+    assert nb.tables_from_numpy(host, "cpu").cand.device.type == "cpu"
+    fac = pt.MeshObjectFactory(path, device="cpu")
+    link = pt.narrow_band_link_sdf_factory(cell_res=0.05)(fac)
+    assert isinstance(link, pt.NarrowBandMeshSDF) and link.tables.meta.device.type == "cpu"
+    assert link.tables.lo.device.type == "cpu" and link.raw_query_aux()[0].device.type == "cpu"
+    assert bigmesh.main([]) == 1
