@@ -420,6 +420,7 @@ def phase_cached_robot(device, arm_dir, cache_dir, card, n_configs=N_CONFIGS,
         f"|grad| err {err_g:.3g}; borderline points with a flipped key: "
         f"{int(flipped.sum())} of {flipped.numel()}")
     check(err_v <= 1e-5, "cached robot: values beyond 1e-5 of the CPU path")
+    nonfinite_lookup(robot, ref, q[:2], device)
 
     fwd_ms, fb_ms = time_robot(robot, q, pts, device, reps)
     n = q.shape[0] * pts.shape[0]
@@ -428,6 +429,37 @@ def phase_cached_robot(device, arm_dir, cache_dir, card, n_configs=N_CONFIGS,
         f"{fb_ms:.3f} ms ({n / fb_ms / 1e3:.4g} M queries/s) [{card}]; "
         f"kernel launches on the path: {launches}")
     return launches, fwd_ms, fb_ms
+
+
+NONFINITE = np.array([[np.nan, np.nan, np.nan], [np.nan, 0.0, 0.3], [-0.5, np.nan, 0.1],
+                      [0.1, 0.02, np.nan], [np.inf, 0.02, 0.3], [-np.inf, 0.02, 0.3],
+                      [0.2, np.inf, 0.1], [np.nan, np.inf, 0.0], [0.3, 0.02, 0.4]], np.float32)
+
+
+def nonfinite_lookup(robot, ref, q, device):
+    """NaN and +-inf points through the cached lookup on the card against
+    the CPU path on the same tables: NaN at the same places, the rest
+    within 1e-5 (keys convert as the JAX package's: NaN to 0).  Also
+    prints what a raw float -> int64 cast gives on the card."""
+    pts = torch.as_tensor(NONFINITE, device=device)
+    with torch.no_grad():
+        v, g = robot.query(q, pts)
+        vc, gc = ref.query(q.cpu(), pts.cpu())
+    for name, a, b in (("values", v.cpu(), vc), ("gradients", g.cpu(), gc)):
+        same_nan = torch.equal(torch.isnan(a), torch.isnan(b))
+        fin = torch.isfinite(a) & torch.isfinite(b)
+        err = (a - b)[fin].abs().max().item() if bool(fin.any()) else 0.0
+        same_inf = torch.equal(torch.isinf(a), torch.isinf(b))
+        log(f"  NaN/inf points on the card vs the CPU path, {name}: NaN at the same places "
+            f"{same_nan}, inf at the same places {same_inf}, finite |d| {err:.3g} "
+            f"({int(torch.isnan(b).sum())} NaN of {b.numel()})")
+        check(same_nan and same_inf and err <= 1e-5,
+              f"cached robot: NaN/inf points on the card differ from the CPU path ({name})")
+    check(bool(torch.isfinite(vc[:, 0]).all()),
+          "cached robot: a NaN point did not read the links' first cell")
+    raw = torch.tensor([float("nan"), float("inf"), -float("inf")], device=device)
+    log(f"  a raw float -> int64 cast of (NaN, inf, -inf) on the card: "
+        f"{raw.to(torch.int64).tolist()} (the port converts keys with float_keys)")
 
 
 # ---------------------------------------------------------------------------
@@ -855,10 +887,10 @@ def phase_narrow_band(device, arm_dir, tmp, card, n_configs=N_CONFIGS, query_res
         c = bm.compare(smalls, big, pts)
         log(f"    {name}: P={pts.shape[0]}, K={big.cand.shape[1]}: equal {c['equal']}, slots "
             f"equal {c['slots_equal']}, max |d| value {c['value_err']:.3g} gradient "
-            f"{c['grad_err']:.3g}" + (f"; first difference: {c['first_difference']}"
+            f"{c['grad_err']:.3g}, {c['nan_values']} NaN values"
+            + (f"; first difference: {c['first_difference']}"
                                       if "first_difference" in c else ""))
-        check(c["ok"], f"narrow band, {name}: beyond 1e-6 / 1e-5 of the plain version or "
-              "slots differ")
+        check(c["ok"], f"narrow band, {name}: differs from the plain version")
         err = max(err, c["max_abs_err"])
 
     log("  bigmesh (bench/bigmesh.py):")
@@ -911,10 +943,27 @@ def phase_narrow_band(device, arm_dir, tmp, card, n_configs=N_CONFIGS, query_res
     log(f"  narrow-band arm, kernel vs plain version on the card ({v.shape[0]} x {v.shape[1]}, "
         f"{arm_launches} launches): {int(dv.sum())} values and {int(dg.sum())} gradients "
         f"differ, max |d| value {err_v:.3g} gradient {err_g:.3g}, d/dq rel {err_dq:.3g}{first}")
-    check(err_v <= 1e-6 and err_g <= 1e-5 and err_dq <= 1e-5,
-          "narrow-band arm: the kernel beyond 1e-6 / 1e-5 of its plain version")
+    check(not bool(dv.any() or dg.any()) and torch.equal(dq, dqp),
+          "narrow-band arm: the kernel's values, gradients or d/dq differ from its plain "
+          "version's")
     err = max(err, err_v, err_g)
     del plain, vp, gp, dqp
+    # the kernel on each of the arm's own launches (link-frame points):
+    # equal to the plain version again, timed beside its bound
+    calls = bm.link_launches(robot, q, pts)
+    check(len(calls) == (arm_launches if device.type == "cuda" else len(robot.sdf.sdfs)),
+          "narrow-band arm: bench.bigmesh.link_launches does "
+          "not give the path's launches (one per narrow-band link)")
+    arm = bm.launch_times(calls, reps=reps * 3)
+    del calls
+    check(arm["equal"], "narrow-band arm: a launch differs from the plain version")
+    log(f"  narrow-band kernel per arm launch ({arm['launches']} launches, "
+        f"{arm['points'] // max(arm['launches'], 1)} points and "
+        f"{arm['in_band'] / max(arm['launches'], 1):.0f} in band each): {arm['ms']:.4f} ms "
+        + (f"(device kernels {arm['kernel_ms']:.4f} ms, {arm['kernels_per_call']:g} per call"
+           if arm["kernel_ms"] is not None else "(device kernels not measured")
+        + f"), bound {arm['bound_ms']:.4f} ms, "
+        f"plain {arm['plain_ms']:.3f} ms [{card}]")
 
     exact = pt.RobotSDF(pt.build_serial_chain_from_urdf(text, "link7", device=device),
                         path_prefix=arm_dir)
@@ -947,7 +996,8 @@ def phase_narrow_band(device, arm_dir, tmp, card, n_configs=N_CONFIGS, query_res
         f"forward+backward {fb_ms:.2f} ms [{card}]; narrow-band launches on the path "
         f"{arm_launches}, in the bigmesh run {bigmesh_launches}")
     return {"max_abs_err": err, "bigmesh": big_out, "arm_launches": arm_launches,
-            "bigmesh_launches": bigmesh_launches, "arm_fwd_ms": fwd_ms, "arm_fb_ms": fb_ms}
+            "bigmesh_launches": bigmesh_launches, "arm_fwd_ms": fwd_ms, "arm_fb_ms": fb_ms,
+            "arm_launch": arm}
 
 
 def main():
@@ -1044,7 +1094,8 @@ def main():
         (max_k 1024), max_k 256 beside it; launches on the arm's query."""
         builds = nb["bigmesh"]["builds"]
         main_b = builds[max(builds, key=int)]
-        keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+        keys = ("ms", "kernel_ms", "kernels_per_call", "plain_ms", "bound_ms", "bound_by")
+        arm = nb["arm_launch"]
         return {"name": "narrow_band_query", "route": "cuda", "source": csrc + "narrow_band.cu",
                 "replaces": "pytorch_volumetric_tpu/ops/narrow_band.py:254",
                 "replaces_note": "XLA fusion (_query_impl), no Pallas kernel",
@@ -1053,7 +1104,10 @@ def main():
                 "library_ms": None, "shape": f"bigmesh, max_k {main_b['max_k']}, K "
                 f"{main_b['K']}, {main_b['work']['in_band']} in-band points",
                 **{f"max_k_{k}": {x: r[x] for x in keys + ("K",)}
-                   for k, r in builds.items() if r is not main_b}}
+                   for k, r in builds.items() if r is not main_b},
+                "arm_launch": {k: arm[k] for k in ("ms", "kernel_ms", "kernels_per_call",
+                                                   "plain_ms", "bound_ms", "launches",
+                                                   "points", "in_band")}}
 
     log(json.dumps({"kernels": [
         {"name": "closest_point_sweep", "route": "cuda", "source": csrc + "closest_point.cu",

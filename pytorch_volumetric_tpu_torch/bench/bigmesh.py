@@ -13,7 +13,9 @@ reports:
 - the build's seconds, ``K``, the candidate table's MB, the band cells and
   the cells demoted for having ``max_k`` candidates or more;
 - the kernel's time (``csrc/narrow_band.cu``, the mean of 20
-  launches timed with CUDA events) and queries/s, beside its bound: the
+  calls timed with CUDA events; ``kernel_ms``: its device kernels' own
+  time from a ``torch.profiler`` trace, ``kernels_per_call`` of them) and
+  queries/s, beside its bound: the
   larger of the bytes this run must touch (points and outputs, the meta
   rows of the cells hit, the real candidate rows of the band cells hit,
   each in-band point's pseudonormal) over 3.35 TB/s and 60.2 FP32
@@ -21,7 +23,8 @@ reports:
   candidate) pair over 67 TFLOP/s (the rows that pad a cell's list up to
   ``K`` are left out of both);
 - the plain PyTorch version's time on the card (its reference: it must
-  give the same values, gradients and slots bit for bit);
+  give the same values, gradients and slots bit for bit, NaN at the same
+  places);
 - the exact sweep (K1, ``MeshSDF``) on the first and the last 65,536
   points, with its queries/s on the first, and the narrow band's largest
   error against it in the band and in the far field, each point classed by
@@ -40,6 +43,7 @@ import os
 import sys
 import tempfile
 import time
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -52,16 +56,15 @@ from pytorch_volumetric_tpu_torch.bench.sweep_roofline import (
     CLOSEST_OPS, PEAK_BYTES_PER_S, PEAK_FP32_FLOPS, card_name)
 from pytorch_volumetric_tpu_torch.ops import narrow_band as nb
 from pytorch_volumetric_tpu_torch.ops.narrow_band_cuda import narrow_band_query_cuda
-from pytorch_volumetric_tpu_torch.utils.profiling import device_time
+from pytorch_volumetric_tpu_torch.utils.profiling import device_time, kernel_time
 
 RADIUS, SUBDIV, POINTS = 0.5, 7, 262_144
 CELL_RES, BAND, PADDING = 0.015, 0.01, 0.15
 MAX_KS = (256, 1024)
 EXACT_POINTS = 65_536
-# gates: in-band values against the exact sweep (the JAX package's own
-# tests/test_narrow_band.py gate); kernel against plain where not equal
+# gate: in-band values against the exact sweep (the JAX package's own
+# tests/test_narrow_band.py gate); the kernel must equal its plain version
 GATE_BAND = 2e-5
-GATE_VALUE, GATE_GRAD = 1e-6, 1e-5
 
 
 def bigmesh_points(n: int = POINTS, radius: float = RADIUS, band: float = BAND) -> np.ndarray:
@@ -82,16 +85,21 @@ def work(smalls: nb.NarrowBandSmalls, big: nb.NarrowBandBig, points: torch.Tenso
     classification ``slot``: bytes (each input read once, each output
     written once) and FP32 operations.  Only a cell's real candidates
     count: the ``PAD_COORD`` rows that fill its list up to ``K`` are never
-    the answer (``pairs_padded`` counts them too, as the kernel runs them)."""
+    the answer (``pairs_padded`` counts them too; ``warp_rounds`` counts the
+    kernel's rounds of 32 rows per in-band point, up to the first that
+    meets padding)."""
     in_grid, _, cidx = nb.cell_index(smalls, points)
     band = slot >= 0
     K = big.cand.shape[1]
     n_band = int(band.sum())
-    real = (big.cand[:, :, 0] != PAD_COORD).sum(dim=1)  # [S] real candidates per slot
+    real = real_counts(big)
     cells = int(torch.unique(cidx[in_grid]).numel())
     hit = torch.unique(slot[band]).to(torch.int64)
     slot_rows = int(real[hit].sum())
-    pairs = int(real[slot[band].to(torch.int64)].sum())
+    per_point = real[slot[band].to(torch.int64)]
+    pairs = int(per_point.sum())
+    # the kernel's warp rounds: 32 rows each, up to the first that meets padding
+    rounds = int((per_point // 32 + 1).clamp(max=-(-K // 32)).sum())
     n = points.shape[0]
     nbytes = (n * 12 + n * 16          # points in, value and gradient out
               + cells * 5 * 4          # meta rows of the cells hit
@@ -102,7 +110,8 @@ def work(smalls: nb.NarrowBandSmalls, big: nb.NarrowBandBig, points: torch.Tenso
             "out_of_grid": int((slot == nb.OUT_OF_GRID).sum()), "cells_hit": cells,
             "band_cells_hit": int(hit.numel()), "candidate_rows_hit": slot_rows,
             "mean_candidates": pairs / max(n_band, 1), "pairs": pairs,
-            "pairs_padded": n_band * K, "bytes": nbytes, "fp32_ops": ops}
+            "pairs_padded": n_band * K, "warp_rounds": rounds, "bytes": nbytes,
+            "fp32_ops": ops}
 
 
 def bound_ms(w: dict):
@@ -113,10 +122,24 @@ def bound_ms(w: dict):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _same(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise equality that counts NaN in both as equal."""
+    return (a == b) | (torch.isnan(a) & torch.isnan(b))
+
+
+def _max_diff(a: torch.Tensor, b: torch.Tensor, same: torch.Tensor) -> float:
+    """The largest |a - b| where they differ (inf where one is NaN)."""
+    if not bool((~same).any()):
+        return 0.0
+    return torch.nan_to_num((a - b)[~same].abs(), nan=float("inf")).max().item()
+
+
 def compare(smalls, big, points, eps: float = 1e-3) -> dict:
-    """One kernel launch against the plain version on the same inputs:
-    slots must be equal; values and gradients equal, or else within
-    1e-6 / 1e-5 with the first differing point and its cause reported."""
+    """One kernel launch against the plain version on the same inputs.
+    ``ok``: slots, values and gradients equal bit for bit, NaN at the same
+    places (NaN in both counts as equal, NaN in one as a difference), and
+    finite at every finite point unless the table holds non-finite rows;
+    the first differing point and its cause are reported."""
     before = narrow_band_query_cuda.launches
     v, g, s = narrow_band_query_cuda(smalls, big, points, eps, with_slots=True)
     if points.device.type == "cuda":
@@ -124,15 +147,17 @@ def compare(smalls, big, points, eps: float = 1e-3) -> dict:
         if narrow_band_query_cuda.launches != before + 1:
             raise RuntimeError("narrow_band_query_cuda did not launch")
     vr, gr, sr = nb._query_impl(smalls, big, points, eps)
-    dv = v != vr
-    dg = (g != gr).any(dim=-1)
+    same_v, same_g = _same(v, vr), _same(g, gr)
+    dv = ~same_v
+    dg = ~same_g.all(dim=-1)
     out = {"points": points.shape[0], "slots_equal": bool(torch.equal(s, sr)),
            "equal": not bool(dv.any() or dg.any()),
-           "max_abs_err": max((v - vr).abs().max().item() if v.numel() else 0.0,
-                              (g - gr).abs().max().item() if g.numel() else 0.0),
-           "value_err": (v - vr).abs().max().item() if v.numel() else 0.0,
-           "grad_err": (g - gr).abs().max().item() if g.numel() else 0.0,
-           "finite": bool(torch.isfinite(v).all() and torch.isfinite(g).all())}
+           "value_err": _max_diff(v, vr, same_v), "grad_err": _max_diff(g, gr, same_g),
+           "nan_values": int(torch.isnan(vr).sum())}
+    out["max_abs_err"] = max(out["value_err"], out["grad_err"])
+    fin = torch.isfinite(points).all(dim=-1)
+    out["finite"] = bool(torch.isfinite(v[fin]).all() and torch.isfinite(g[fin]).all()
+                         or not torch.isfinite(big.cand).all())
     if not out["equal"]:
         i = int(torch.nonzero(dv | dg)[0, 0])
         kind = {nb.FAR: "far field", nb.OUT_OF_GRID: "out of the grid"}.get(
@@ -141,25 +166,130 @@ def compare(smalls, big, points, eps: float = 1e-3) -> dict:
         out["first_difference"] = (
             f"point {i} {points[i].tolist()}, {kind}{', within eps of the surface' if near else ''}:"
             f" kernel {v[i].item()!r} {g[i].tolist()}, plain {vr[i].item()!r} {gr[i].tolist()}")
-    out["ok"] = (out["slots_equal"] and out["finite"] and out["value_err"] <= GATE_VALUE
-                 and out["grad_err"] <= GATE_GRAD)
+    out["ok"] = out["slots_equal"] and out["equal"] and out["finite"]
     return out
+
+
+def link_launches(robot, q: torch.Tensor, points: torch.Tensor):
+    """The inputs ``(smalls, big, points)`` of the kernel launches that
+    ``robot.query(q, points)`` makes for its ``NarrowBandMeshSDF`` links
+    (backend "auto"): each such link's tables and the query points in its
+    frame under every configuration, as ``sdf.compose_query`` hands them to
+    the link."""
+    from pytorch_volumetric_tpu_torch import transforms as tfm
+    from pytorch_volumetric_tpu_torch.sdf import NarrowBandMeshSDF
+
+    q_flat, flat = q.reshape(-1, q.shape[-1]), points.reshape(-1, 3)
+    links = robot.sdf.sdfs
+    with torch.no_grad():
+        m, _ = robot._link_transforms(q_flat)
+        pts = tfm.transform_points(m, flat).reshape(len(links), -1, 3)
+    return [(s.tables.smalls, s.tables.big, pts[i].contiguous()) for i, s in enumerate(links)
+            if isinstance(s, NarrowBandMeshSDF) and s.backend == "auto"]
+
+
+def launch_times(calls, reps: int = 10, plain_reps: int = 2) -> dict:
+    """The kernel on the recorded launches ``(smalls, big, points)``, each
+    held to its plain version (``compare``), then timed, as means per
+    launch: ``ms`` (CUDA events around back-to-back runs of all the
+    launches), ``kernel_ms`` (the device kernels' own time, one
+    ``utils.profiling.kernel_time`` trace of them all), the plain version's
+    ``plain_ms`` and ``bound_ms`` (``work`` on each launch's own points and
+    slots)."""
+    n = len(calls)
+    out = {"launches": n, "kernel_ms": None, "plain_ms": 0.0, "bound_ms": 0.0,
+           "equal": True, "points": 0, "in_band": 0}
+    for smalls, big, p in calls:
+        out["equal"] = out["equal"] and compare(smalls, big, p)["ok"]
+        out["plain_ms"] += device_time(lambda x: nb._query_impl(smalls, big, x, 1e-3), p,
+                                       reps=plain_reps) * 1e3 / n
+        _, _, slot = narrow_band_query_cuda(smalls, big, p, with_slots=True)
+        w = work(smalls, big, p, slot)
+        out["bound_ms"] += bound_ms(w)[0] / n
+        out["points"] += w["points"]
+        out["in_band"] += w["in_band"]
+
+    def run_all(_):
+        for smalls, big, p in calls:
+            narrow_band_query_cuda(smalls, big, p)
+
+    probe = calls[0][2]
+    out["ms"] = device_time(run_all, probe, reps=reps) * 1e3 / n
+    if probe.device.type == "cuda":
+        k_s, k_n = kernel_time(run_all, probe, reps=reps)
+        out["kernel_ms"], out["kernels_per_call"] = k_s * 1e3 / n, k_n / n
+    return out
+
+
+def real_counts(big: nb.NarrowBandBig) -> torch.Tensor:
+    """``[S]`` real candidates of each slot (its rows that are not
+    ``PAD_COORD`` padding)."""
+    return (big.cand[:, :, 0] != PAD_COORD).sum(dim=1)
+
+
+def _band_cells(tb) -> Tuple[np.ndarray, np.ndarray]:
+    """The band cells' flat indices and their slots."""
+    slot = tb.meta[:, 4].cpu().numpy()
+    cells = np.nonzero(slot >= 0)[0]
+    return cells, slot[cells].astype(np.int64)
+
+
+def _points_in_cells(tb, cells, n_per: int, rng) -> np.ndarray:
+    """``n_per`` points inside each of ``cells`` (flat indices), kept off
+    the cell faces."""
+    ijk = np.stack(np.unravel_index(cells, tb.dims.numpy()), axis=-1)
+    u = rng.uniform(0.05, 0.95, (len(cells), n_per, 3))
+    lo, res = tb.lo.numpy().astype(np.float64), tb.res.numpy().astype(np.float64)
+    return (lo + (ijk[:, None] + u) * res).reshape(-1, 3).astype(np.float32)
+
+
+def nonfinite_points(tb, n: int, rng) -> np.ndarray:
+    """``n`` points in the grid's box, a third of them with NaN, +inf or
+    -inf in one coordinate and a few with two, plus for each axis NaN
+    points whose other keys name a band cell on the grid's first layer
+    (NaN keys are 0), where one is: those run the cascade on NaN
+    distances."""
+    lo, res, dims = tb.lo.numpy(), tb.res.numpy(), tb.dims.numpy()
+    p = rng.uniform(lo, lo + res * dims, (n, 3)).astype(np.float32)
+    bad = rng.random(n) < 1 / 3
+    p[bad, rng.integers(0, 3, int(bad.sum()))] = rng.choice(
+        np.array([np.nan, np.inf, -np.inf], np.float32), int(bad.sum()))
+    two = np.nonzero(bad)[0][::7]
+    p[two, (rng.integers(0, 3, len(two)) + 1) % 3] = np.nan
+    cells, _ = _band_cells(tb)
+    ijk = np.stack(np.unravel_index(cells, dims), axis=-1)
+    extra = []
+    for d in range(3):
+        first = cells[ijk[:, d] == 0]
+        if len(first):
+            q = _points_in_cells(tb, first[:8], 4, rng)
+            q[:, d] = np.nan
+            extra.append(q)
+    return np.concatenate([p] + extra)
 
 
 def kernel_cases(device):
     """``(name, smalls, big, points)``: the inputs the kernel is held to its
     plain version on.  The 2,304-face torus of the JAX package's tests with
     uniform, near-band, on-surface, out-of-grid and cell-face points (3 ulp
-    from a face in every coordinate) and ragged counts; an icosphere built
-    with ``max_k=8`` (demoted cells); an inverted icosphere."""
+    from a face in every coordinate) and ragged counts; dense cells (many
+    points in a few band cells); cells of 31, 32 and 33 real candidates
+    (one round of the warp, and one row either side of it) where the
+    builds have them; NaN and +-inf coordinates, also on a torus built
+    with no margin, whose first cell layer is in the band; NaN rows in some
+    cells' lists (NaN distances: the first NaN wins, as in argmin); an
+    icosphere built with ``max_k=8`` (demoted cells); an inverted
+    icosphere; and a mesh of every face twice (exact distance ties)."""
     rng = np.random.default_rng(0)
     torus = mesh_mod.torus_mesh(0.3, 0.12, 48, 24)
-    builds = {"torus": (torus, dict(cell_res=0.03, band=0.1, padding=0.2)),
-              "icosphere, max_k=8": (mesh_mod.icosphere_mesh(0.2, 2),
-                                     dict(cell_res=0.03, band=0.06, padding=0.1, max_k=8))}
     ico = mesh_mod.icosphere_mesh(0.2, 2)
-    builds["inverted icosphere"] = (mesh_mod.TriangleMesh(ico.vertices, ico.faces[:, ::-1]),
-                                    dict(cell_res=0.03, band=0.06, padding=0.1))
+    builds = {"torus": (torus, dict(cell_res=0.03, band=0.1, padding=0.2)),
+              "torus, no margin": (torus, dict(cell_res=0.03, band=0.1, padding=0.0)),
+              "icosphere, max_k=8": (ico, dict(cell_res=0.03, band=0.06, padding=0.1, max_k=8)),
+              "inverted icosphere": (mesh_mod.TriangleMesh(ico.vertices, ico.faces[:, ::-1]),
+                                     dict(cell_res=0.03, band=0.06, padding=0.1)),
+              "duplicated faces": (ico.concatenate(ico),
+                                   dict(cell_res=0.03, band=0.06, padding=0.1))}
     tables = {k: nb.build_narrow_band_tables(m, device=device, **kw)
               for k, (m, kw) in builds.items()}
 
@@ -181,7 +311,30 @@ def kernel_cases(device):
              ("torus, out of the grid", t, pts(rng.uniform(-3, 3, (5000, 3))))]
     cases += [(f"torus, ragged P={n}", t, pts(rng.uniform(-0.5, 0.5, (n, 3))))
               for n in (1, 7, 31, 33, 129, 5000)]
-    for name in ("icosphere, max_k=8", "inverted icosphere"):
+    cells, slots = _band_cells(t)
+    real = real_counts(t.big).cpu().numpy()
+    dense = cells[np.argsort(-real[slots], kind="stable")[:4]]
+    cases.append(("torus, dense cells (4 cells x 2,000 points)", t,
+                  pts(_points_in_cells(t, dense, 2000, rng))))
+    for n_real in (31, 32, 33):
+        hit = cells[real[slots] == n_real][:16]
+        if len(hit):
+            cases.append((f"torus, cells of {n_real} real candidates", t,
+                          pts(_points_in_cells(t, hit, 64, rng))))
+    cases.append(("torus, NaN and inf coordinates", t, pts(nonfinite_points(t, 20000, rng))))
+    t0 = tables["torus, no margin"]
+    cases.append(("torus with no margin, NaN and inf coordinates", t0,
+                  pts(nonfinite_points(t0, 20000, rng))))
+    # NaN corners in rows 5 and 40 of the first 64 slots' lists (where
+    # real): the first NaN distance wins in lane 5 or in lane 8's second round
+    cand = t.cand.clone()
+    for k in (5, 40):
+        rows = cand[:64, k]
+        rows[(rows[:, 0] != PAD_COORD), :9] = float("nan")
+    t_nan = nb.NarrowBandTables(*t[:5], cand, *t[6:])
+    first = cells[slots < 64]
+    cases.append(("torus, NaN rows", t_nan, pts(_points_in_cells(t, first, 16, rng))))
+    for name in ("icosphere, max_k=8", "inverted icosphere", "duplicated faces"):
         cases.append((name, tables[name], pts(rng.uniform(-0.35, 0.35, (20000, 3)))))
     return [(name, tb.smalls, tb.big, p.contiguous()) for name, tb, p in cases]
 
@@ -237,6 +390,10 @@ def run(device, max_ks=MAX_KS, points: int = POINTS, reps: int = 20, plain_reps:
         r["bound_ms"], r["bound_by"] = bound_ms(w)
         r["ms"] = device_time(lambda p: narrow_band_query_cuda(smalls, big, p), pts,
                               reps=reps) * 1e3
+        if device.type == "cuda":
+            k_s, r["kernels_per_call"] = kernel_time(
+                lambda p: narrow_band_query_cuda(smalls, big, p), pts, reps=reps)
+            r["kernel_ms"] = k_s * 1e3
         r["plain_ms"] = device_time(lambda p: nb._query_impl(smalls, big, p, 1e-3), pts,
                                     reps=plain_reps) * 1e3
         r["qps"] = points / r["ms"] * 1e3

@@ -44,7 +44,7 @@ import torch
 
 from pytorch_volumetric_tpu_torch.mesh import PAD_COORD, TriangleMesh
 from pytorch_volumetric_tpu_torch.ops.point_triangle import _closest_point_bary, _dot
-from pytorch_volumetric_tpu_torch.utils.batching import resolve_device
+from pytorch_volumetric_tpu_torch.utils.batching import float_keys, resolve_device
 from pytorch_volumetric_tpu_torch.utils.cache import get_store
 
 logger = logging.getLogger(__name__)
@@ -246,18 +246,26 @@ def inverse_res(smalls: NarrowBandSmalls) -> torch.Tensor:
 def cell_index(smalls: NarrowBandSmalls, points: torch.Tensor):
     """Each point's cell: ``(in_grid [P] bool, kc [P, 3] int64 clamped into
     the grid, cidx [P] int64 flat index)``.  Keys are ``floor((p - lo) *
-    f32(1 / res))``, clamped to ``[-1, dims]`` before the integer
-    conversion (NaN to -1), as the kernel computes them."""
+    f32(1 / res))`` converted by :func:`float_keys` (NaN to 0, clamped to
+    ``[-1, dims]``), as the JAX package's keys and the kernel's are."""
     dev = points.device
     lo = smalls.lo.to(dev)
     inv_res = inverse_res(smalls).to(dev)
     dims = smalls.dims.to(device=dev, dtype=torch.int64)
-    fl = torch.nan_to_num(torch.floor((points - lo) * inv_res), nan=-1.0)
-    k = torch.minimum(torch.clamp(fl, min=-1.0), dims.to(points.dtype)).to(torch.int64)
+    k = float_keys(torch.floor((points - lo) * inv_res), dims)
     in_grid = ((k >= 0) & (k < dims)).all(dim=-1)
     kc = torch.minimum(k.clamp(min=0), dims - 1)
     cidx = (kc * smalls.strides.to(device=dev, dtype=torch.int64)).sum(dim=-1)
     return in_grid, kc, cidx
+
+
+def _candidate_pairs(p: torch.Tensor, rows: torch.Tensor):
+    """The cascade of each point against each of its candidate rows: ``p
+    [n, 3]``, ``rows [n, K, 10]`` -> ``(dist2 [n, K], q [n, K, 3], feat [n,
+    K])``."""
+    a = rows[..., 0:3]
+    return _closest_point_bary(p[:, None, :], a, rows[..., 3:6] - a, rows[..., 6:9] - a,
+                               with_features=True)
 
 
 def _candidate_query(p: torch.Tensor, rows: torch.Tensor, fid_bits: torch.Tensor,
@@ -265,10 +273,15 @@ def _candidate_query(p: torch.Tensor, rows: torch.Tensor, fid_bits: torch.Tensor
     """Signed distance and gradient of each point against its candidate
     rows: ``p [n, 3]``, ``rows [n, K, 10]``, ``fid_bits [n, K]`` (column 9
     read as int32), ``pseudo [F, 21]`` -> ``(val [n], grad [n, 3])``."""
-    a = rows[..., 0:3]
-    dist2, q, feat = _closest_point_bary(p[:, None, :], a, rows[..., 3:6] - a,
-                                         rows[..., 6:9] - a, with_features=True)
-    kbest = torch.argmin(dist2, dim=1, keepdim=True)  # the first least value
+    dist2, q, feat = _candidate_pairs(p, rows)
+    # the first least value, or the first NaN
+    kbest = torch.argmin(dist2, dim=1, keepdim=True)
+    return _winner_query(p, dist2, q, feat, fid_bits, kbest, pseudo, surface_normal_eps)
+
+
+def _winner_query(p, dist2, q, feat, fid_bits, kbest, pseudo, surface_normal_eps: float):
+    """Signed distance and gradient from the winning row ``kbest [n, 1]``
+    of each point's pairs (:func:`_candidate_pairs`)."""
     d = torch.sqrt(dist2.gather(1, kbest)[:, 0])
     qw = q.gather(1, kbest[..., None].expand(-1, 1, 3))[:, 0]
     fid = fid_bits.gather(1, kbest)[:, 0].to(torch.int64)

@@ -4,7 +4,8 @@
 equivalent of the plain version ``ops.narrow_band._query_impl``.  For a
 CUDA tensor it launches the kernel on PyTorch's current stream (the library
 is built from ``csrc/`` at first use), or raises; for a CPU tensor it runs
-the plain version.  Its kernel launches are counted in ``.launches``.
+the plain version.  One call launches one device kernel on the current
+stream, without a host sync, and counts one in ``.launches``.
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ def _check_inputs(big: NarrowBandBig, points: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
         if t.device != points.device:
             raise ValueError("points and the tables must be on the same device")
+    if cand.data_ptr() % 8:
+        raise ValueError("cand must be 8-byte aligned (the kernel reads rows in 8-byte words)")
     if points.shape[0] >= 2 ** 31:
         raise ValueError("too many points for 32-bit indexing")
 

@@ -33,7 +33,7 @@ from pytorch_volumetric_tpu_torch import mesh as mesh_mod
 from pytorch_volumetric_tpu_torch import transforms as tfm
 from pytorch_volumetric_tpu_torch.ops.point_triangle import signed_closest_query
 from pytorch_volumetric_tpu_torch.utils.batching import (
-    as_float_tensor, resolve_device)
+    as_float_tensor, float_keys, resolve_device)
 from pytorch_volumetric_tpu_torch.utils.cache import get_store
 from pytorch_volumetric_tpu_torch.voxel import (
     GridView, VoxelGrid, get_coherent_tile_points, get_coordinates_and_points_in_grid,
@@ -449,6 +449,7 @@ class NarrowBandMeshSDF(ObjectFrameSDF):
             band = 4.0 * cell_res
         self.cell_res = cell_res
         self.band = band
+        self.backend = backend
         if tables is None:
             tables = nb.build_narrow_band_tables(m, cell_res, band, padding=padding,
                                                  max_k=max_k, cache_path=cache_path,
@@ -1387,8 +1388,9 @@ def _voxel_keys(pts: torch.Tensor, lo, inv_res, n):
     compiled lookup, where XLA folds the division by a constant into this
     multiply.  Every nearest lookup (generic and brick path) computes its
     keys here, so borderline ``round``\\ s agree.  Returns the in-grid mask
-    and the keys clamped into the grid."""
-    keys = torch.round((pts - lo) * inv_res).to(torch.int64)
+    and the keys clamped into the grid.  NaN keys are 0 (:func:`float_keys`),
+    as in the JAX package."""
+    keys = float_keys(torch.round((pts - lo) * inv_res), n)
     valid = ((keys >= 0) & (keys < n)).all(dim=-1)
     return valid, torch.minimum(keys.clamp(min=0), n - 1)
 
@@ -1398,10 +1400,10 @@ def _trilinear_cell(pts: torch.Tensor, lo, inv_res, n):
     (the nearest contract), the cell's lower corner ``i0`` clamped into the
     grid and the interpolation weights ``w`` in it."""
     f = (pts - lo) * inv_res
-    keys = torch.round(f).to(torch.int64)
+    keys = float_keys(torch.round(f), n)
     valid = ((keys >= 0) & (keys < n)).all(dim=-1)
     f = torch.minimum(f.clamp(min=0.0), (n - 1).to(pts.dtype))
-    i0 = torch.minimum(torch.floor(f).to(torch.int64).clamp(min=0), n - 2)
+    i0 = torch.minimum(float_keys(torch.floor(f), n).clamp(min=0), n - 2)
     return valid, i0, f - i0.to(pts.dtype)
 
 

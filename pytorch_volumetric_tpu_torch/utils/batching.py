@@ -33,6 +33,26 @@ def as_float_tensor(x, device: DeviceLike = None,
     return torch.as_tensor(arr, dtype=dtype, device=resolve_device(device))
 
 
+# XLA's float -> int32 conversion saturates at these bounds (2^31 is
+# exact in float32; int32's largest value is not)
+_INT32_LO, _INT32_HI = -2.0 ** 31, 2.0 ** 31
+
+
+def float_keys(x: torch.Tensor, n: Union[torch.Tensor, None] = None) -> torch.Tensor:
+    """Integer keys (int64) of a float tensor that is already rounded or
+    floored, converted as the JAX package's keys are: XLA's float -> int
+    ``convert`` maps NaN to 0 and saturates.  With ``n`` (the grid's
+    extent, broadcast against ``x``) the keys are clamped to ``[-1, n]``,
+    which keeps every in-grid / out-of-grid decision ``0 <= k < n``;
+    without it to int32's range, exactly XLA's conversion to int32.  The
+    same on every device (a raw ``.to(torch.int64)`` of NaN gives INT64_MIN
+    on x86 and 0 on CUDA)."""
+    x = torch.nan_to_num(x, nan=0.0)
+    if n is not None:
+        return torch.minimum(x.clamp(min=-1.0), n.to(x.dtype)).to(torch.int64)
+    return x.clamp(_INT32_LO, _INT32_HI).to(torch.int64).clamp(max=2 ** 31 - 1)
+
+
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 

@@ -2,6 +2,8 @@
 
 - :func:`device_time`: seconds per call, timed with CUDA events around
   ``reps`` calls after a warm-up (``time.perf_counter`` for CPU tensors).
+- :func:`kernel_time`: the card's kernel time per call (no launch gaps)
+  and the device kernels per call, from a ``torch.profiler`` trace.
 - :func:`span`: a named wall-clock span that also shows in profiler traces.
 - :func:`trace`: a ``torch.profiler`` trace of the CPU and the card.
 """
@@ -51,6 +53,37 @@ def device_time(fn: Callable, *args, reps: int = 10, warmup: int = 1) -> float:
         dt = (time.perf_counter() - t0) / reps
     logger.debug("device_time: %.3f ms/call on %s", dt * 1e3, device)
     return dt
+
+
+def kernel_time(fn: Callable, *args, reps: int = 10, warmup: int = 1, by_name: bool = False):
+    """``(seconds, kernels)`` per call of ``fn(*args)`` on the card: the
+    device time of every kernel and memset the calls ran (the gaps between
+    them left out) and their number, from a ``torch.profiler`` trace of
+    ``reps`` calls after ``warmup``; with ``by_name`` a third item, the
+    seconds per call of each kernel by name.  A trace that saw no device
+    time is taken once more before this raises.  Needs a CUDA device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn(*args)
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn(*args)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        if events:
+            break
+    else:
+        raise RuntimeError("the profiler saw no device time")
+    us = sum(e.self_device_time_total for e in events)
+    out = (us / 1e6 / reps, sum(e.count for e in events) / reps)
+    if by_name:
+        out += ({e.key: e.self_device_time_total / 1e6 / reps for e in events},)
+    return out
 
 
 @contextlib.contextmanager

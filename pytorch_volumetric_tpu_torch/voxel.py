@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from pytorch_volumetric_tpu_torch.utils.batching import (
-    as_float_tensor, resolve_device)
+    as_float_tensor, float_keys, resolve_device)
 
 
 def get_divisible_range_by_resolution(resolution: float, range_per_dim):
@@ -174,7 +174,8 @@ class GridView:
         pts = as_float_tensor(pts, self.device)
         lo = torch.as_tensor(self.lo, dtype=pts.dtype, device=pts.device)
         res = torch.as_tensor(self.res, dtype=pts.dtype, device=pts.device)
-        return torch.round((pts - lo) / res).to(torch.int64)
+        # NaN -> 0, saturating at int32's range: the JAX package's keys
+        return float_keys(torch.round((pts - lo) / res))
 
     def ensure_value_key(self, indices) -> torch.Tensor:
         idx = torch.as_tensor(indices, device=self.device)

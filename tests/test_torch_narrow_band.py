@@ -490,6 +490,33 @@ def test_narrow_band_robot_query_grid_equals_query(nb_arms):
     assert torch.equal(vg.reshape(v.shape), v) and torch.equal(gg.reshape(g.shape), g)
 
 
+def test_link_launches_are_the_query_launches(nb_arms, monkeypatch):
+    """``bench.bigmesh.link_launches`` gives the tables and link-frame
+    points of every launch ``RobotSDF.query`` makes, in order, bit for bit
+    (the card timings of the arm's launches rest on it)."""
+    from pytorch_volumetric_tpu_torch.bench import bigmesh
+    from pytorch_volumetric_tpu_torch.ops import narrow_band_cuda
+
+    *_, rt = nb_arms
+    q, pts = (torch.as_tensor(x) for x in _arm_inputs(4, A=3))
+    seen = []
+
+    def record(smalls, big, points, *args, **kwargs):
+        seen.append((big, points.clone()))
+        return narrow_band_query_cuda(smalls, big, points, *args, **kwargs)
+
+    monkeypatch.setattr(narrow_band_cuda, "narrow_band_query_cuda", record)
+    rt.query(q, pts)
+    calls = bigmesh.link_launches(rt, q, pts)
+    assert len(calls) == len(seen) == len(rt.sdf.sdfs)
+    for (smalls, big, p), (big_seen, p_seen) in zip(calls, seen):
+        assert all(a is b for a, b in zip(big, big_seen))
+        assert torch.equal(p, p_seen) and p.is_contiguous()
+    plain = pt.RobotSDF(rt.chain, path_prefix=nb_arms[0], link_sdf_cls=pt.
+                        narrow_band_link_sdf_factory(backend="torch", **LINK_BUILD))
+    assert bigmesh.link_launches(plain, q, pts) == []
+
+
 def test_load_robot_tables_installs_jax_tables(nb_arms):
     """JAX's link tables installed with ``state.load_robot_tables``: the
     same query as the port's own build (byte-identical tables)."""
