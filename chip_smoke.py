@@ -30,8 +30,10 @@ Phases, each fatal on failure:
    against the plain sweep on the card;
 6. the sweep's roofline probe (``bench/sweep_roofline.py``): the FP32
    multiply-add probe, the sweep without winding and the tensor-core sweep,
-   each checked against its plain version on the card, then timed beside
-   the sweep on the torus and at the capsule's cache-build grid;
+   each checked against its plain version on the card on every case of
+   phase 2 (padding between real faces and points straddling a box
+   included), then timed beside the sweep on the torus and at the
+   capsule's cache-build grid, with the pairs each evaluated;
 7. the headline arm written as MJCF (mesh geoms on the same OBJ files):
    its 200 x 15,251 exact query must equal the URDF arm's;
 8. the coherent grid path: the headline arm from a fresh cache (the kernel
@@ -136,15 +138,6 @@ def time_ms(fn, device, reps=5, warmup=1):
 # phase 2: the kernel against its plain version
 # ---------------------------------------------------------------------------
 
-# padding rows between real faces: the tensor-core sweep's 8-face frames
-# assume MeshScene's tail padding, so its wrapper must refuse this case
-MID_PADDING = "capsule, padding in the middle"
-# points straddling the capsule's box: the tensor-core sweep's expanded
-# solid angles miss its 1e-3 winding gate by up to ~1.5e-3 that close to
-# the surface, so it is not held to this case
-STRADDLING = "capsule, points straddling its box"
-
-
 def sweep_cases(device, capsule_points=100_000):
     """``(name, points, triangles, exterior box)`` every sweep kernel is
     held against its plain version on: ragged and tiny shapes, padding in
@@ -152,8 +145,9 @@ def sweep_cases(device, capsule_points=100_000):
     surface, exact ties on a symmetric mesh, warps mixing points inside and
     outside the box, and the headline link mesh (the arm's capsule, edges
     2-5 cm) with points up to 1 m away, where the tensor-core sweep's
-    expanded forms cancel most.  The box is ``mesh.exterior_box`` of the
-    triangles (None for an open surface); only the sweep kernel reads it."""
+    products cancel most.  The box is ``mesh.exterior_box`` of the
+    triangles (None for an open surface); the sweep kernels that take one
+    (``sweep_roofline.TAKES_BOX``) read it."""
     import pytorch_volumetric_tpu_torch as pt
     m = pt.mesh
     rng = np.random.default_rng(0)
@@ -178,7 +172,7 @@ def sweep_cases(device, capsule_points=100_000):
     cap_mesh = m.capsule_mesh(radius=0.045, height=0.18, segments=14, rings=5)
     cap = m.MeshScene.from_mesh(cap_mesh, device=device)
     pad = torch.full((40, 3, 3), m.PAD_COORD, device=device)
-    cases.append(case(MID_PADDING, rand_pts(2000, -0.3, 0.3),
+    cases.append(case("capsule, padding in the middle", rand_pts(2000, -0.3, 0.3),
                       torch.cat([cap.tri[:100], pad, cap.tri[100:]])))
     # points exactly on the surface (the normal override's regime)
     surf = m.icosphere_mesh(0.3, 2).sample_points_uniformly(500, seed=1)
@@ -190,7 +184,7 @@ def sweep_cases(device, capsule_points=100_000):
     cases.append(case("centred box on a grid (ties)", grid.contiguous(), box))
     # a band around the capsule's box: warps of points inside and outside
     bb = cap_mesh.aabb()
-    cases.append(case(STRADDLING, torch.as_tensor(
+    cases.append(case("capsule, points straddling its box", torch.as_tensor(
         rng.uniform(bb[:, 0] - 0.01, bb[:, 1] + 0.01, (5000, 3)).astype(np.float32),
         device=device), cap.tri))
     cases.append(case(f"capsule, {capsule_points} points to 1 m away", torch.as_tensor(
@@ -240,9 +234,11 @@ def compare_kernel(kind, case, pts, tri, device, box=None):
     return e
 
 
-# K1 on the capsule's cache-build grid before its redesign for Hopper, on
-# an H100 80GB HBM3 at 700 W (PERF.md, the kernel table)
+# K1 and the tensor-core sweep on the capsule's cache-build grid before
+# their redesigns for Hopper, on an H100 80GB HBM3 at 700 W (PERF.md, the
+# kernel table)
 K1_GRID_MS_BEFORE = 6.276
+MXU_GRID_MS_BEFORE = 7.5421
 
 
 def phase_kernel(device, capsule_points=100_000, grid_scale=1.0, reps=5):
@@ -765,17 +761,8 @@ def phase_probe(device, card, reps=5):
     cases = sweep_cases(device)
     for kind in ("nowind", "mxu"):
         log(f"  {kind} vs its plain version:")
-        for case, pts, tri, _ in cases:
-            if kind == "mxu" and case == STRADDLING:
-                continue
-            if kind == "mxu" and case == MID_PADDING:
-                try:
-                    sr.SWEEPS[kind][0](pts, tri)
-                except ValueError as exc:
-                    log(f"    {case}: refused ({exc})")
-                    continue
-                fail(f"mxu, {case}: the wrapper accepted padding between real faces")
-            e = compare_kernel(kind, case, pts, tri, device)
+        for case, pts, tri, box in cases:
+            e = compare_kernel(kind, case, pts, tri, device, box)
             errs[kind] = max(errs[kind], e["dist"], e["closest"])
             if kind == "mxu":
                 errs["mxu_wind"] = max(errs["mxu_wind"], e["winding"])
@@ -811,6 +798,15 @@ def phase_probe(device, card, reps=5):
                 f"face {e['face']:.3g} |wind| {e['winding']:.3g}")
             if r["gated"]:
                 check(r["ok"], f"{name} on the {cell}: beyond its gates")
+    for cell in ("torus", "capsule_grid"):
+        mxu, k1 = out[cell]["sweeps"]["mxu"], out[cell]["sweeps"]["base"]
+        log(f"  mxu on the {cell}: {mxu['ms']:.4f} ms"
+            + (f" (before its redesign: {MXU_GRID_MS_BEFORE} ms on an H100 80GB HBM3 at 700 W)"
+               if cell == "capsule_grid" else "")
+            + f", K1 {k1['ms']:.4f} ms; closest points evaluated: mxu "
+            f"{mxu['closest_pairs']}, K1 {k1['closest_pairs']}; solid angles: mxu "
+            f"{mxu['winding_pairs']}, K1 {k1['winding_pairs']}; bound over them: mxu "
+            f"{mxu['bound_evaluated_ms']:.4f} ms, K1 {k1['bound_evaluated_ms']:.4f} ms [{card}]")
     check(out["ok"], "the roofline probe: a gate failed")
     return {"launches": launches, "fma": fma, "grid": out["capsule_grid"]["sweeps"],
             "errs": errs}

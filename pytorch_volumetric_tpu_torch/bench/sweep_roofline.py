@@ -10,8 +10,9 @@ The counterpart of the JAX package's ``benchmarks/pallas_mfu.py`` and
    (``csrc/fma_probe.cu``, 2 operations per multiply-add);
 2. the winding sum's share of the sweep, from the same kernel without it
    ("nowind");
-3. whether the tensor cores can take the pairwise dot products at float32
-   accuracy ("mxu", ``csrc/closest_point_mma.cu``, 3xTF32);
+3. whether the tensor cores can take the pairwise products at float32
+   accuracy, and whether that is faster at the pairs K1 evaluates ("mxu",
+   ``csrc/closest_point_mma.cu``, 3xTF32, with K1's work-skipping);
 4. what the main path's ``-fmad=false`` build costs ("base_fmad": the same
    source with multiply-add contraction on; its errors are reported, not
    gated).
@@ -22,13 +23,13 @@ What each of the sweep kernel's levers buys is measured by
 Each sweep runs on a procedural torus of 16,384 faces with 2^17 points
 uniform in [-0.2, 0.2]^3, and at the main path's shape, the capsule link's
 cache-build grid (1,267,875 points x 384 padded faces); the sweep kernel
-gets the scene's exterior box, as ``MeshSDF`` passes it.  Each kernel's
-first launch is checked against its plain version on an evenly strided
-subset of 4,096 points; then its time is the mean of ``--reps`` launches
-timed with CUDA events.  Shares of the FP32 peak use the JAX package's
-model of 110 FP32 operations per (point, real triangle) pair; the sweep
-kernel's pair counters give the pairs it evaluated and a second bound over
-those alone.
+and the tensor-core sweep get the scene's exterior box, as ``MeshSDF``
+passes it.  Each kernel's first launch is checked against its plain
+version on an evenly strided subset of 4,096 points; then its time is the
+mean of ``--reps`` launches timed with CUDA events.  Shares of the FP32
+peak use the JAX package's model of 110 FP32 operations per (point, real
+triangle) pair; the pair counters of K1, nowind and mxu give the pairs each
+evaluated and a second bound over those alone.
 
 Prints one JSON line; exits non-zero without a CUDA device, when a gated
 kernel disagrees with its plain version, or when the FP32 ceiling comes
@@ -67,19 +68,31 @@ FLOPS_PER_PAIR = 110
 # bound.  base: the 110-operation model.  nowind: the model scaled by the
 # closest-point part's share of csrc/closest_point.cu's own count of FP32
 # additions, multiplications, divisions and square roots per pair (81 of
-# 148; the winding is the other 67).  mxu: the model less the ~50
-# operations of dot and cross products the TPU kernel's note moves to the
-# matrix unit, plus the products as issued: 6 vectors x 3 (3xTF32) x
-# 2 x 8 (K padded to 8) = 288 per pair.
-SWEEP_OPS = {"base": (FLOPS_PER_PAIR, 0), "base_fmad": (FLOPS_PER_PAIR, 0),
-             "nowind": (FLOPS_PER_PAIR * 81 / 148, 0),
-             "mxu": (FLOPS_PER_PAIR - 50, 288)}
-# the model's split between a pair's closest point and its solid angle, for
-# the bound over the pairs the sweep kernel evaluated (it skips padding,
-# culled clusters' closest points and the solid angles outside a closed
-# mesh's box)
+# 148; the winding is the other 67).  mxu (csrc/closest_point_mma.cu), on
+# the same scale: the closest point less the 39 operations of d1..d6, which
+# its products take over, plus the 4 subtractions of d3..d6 (46); the
+# solid angle from the products' squared distances and numerator: 3 square
+# roots, 17 additions and multiplications of the denominator, the atan2 and
+# the sum (23, where the direct form takes 67); and the products as issued,
+# 2 x 16 multiply-adds per column (3xTF32 in K = 16): 2 columns for the
+# closest point, 4 for the solid angle.
 CLOSEST_OPS = FLOPS_PER_PAIR * 81 / 148
 WINDING_OPS = FLOPS_PER_PAIR * 67 / 148
+MXU_CLOSEST_OPS = (FLOPS_PER_PAIR * 46 / 148, 2 * 32)
+MXU_WINDING_OPS = (FLOPS_PER_PAIR * 23 / 148, 4 * 32)
+SWEEP_OPS = {"base": (FLOPS_PER_PAIR, 0), "base_fmad": (FLOPS_PER_PAIR, 0),
+             "nowind": (CLOSEST_OPS, 0),
+             "mxu": (MXU_CLOSEST_OPS[0] + MXU_WINDING_OPS[0],
+                     MXU_CLOSEST_OPS[1] + MXU_WINDING_OPS[1])}
+# (FP32, TF32) operations per pair whose closest point, and per pair whose
+# solid angle, a kernel evaluated, for the bound over the pairs its counters
+# report (they skip padding, culled clusters' closest points and the solid
+# angles outside a closed mesh's box).  The mxu kernel's solid angles near a
+# group come from the direct forms, which cost more: the bound counts them
+# at the products' price, so it stays a lower bound.
+EVALUATED_OPS = {"base": ((CLOSEST_OPS, 0), (WINDING_OPS, 0)),
+                 "nowind": ((CLOSEST_OPS, 0), (WINDING_OPS, 0)),
+                 "mxu": (MXU_CLOSEST_OPS, MXU_WINDING_OPS)}
 
 # name -> (kernel wrapper, plain version, gated against the plain version)
 SWEEPS = {
@@ -90,7 +103,7 @@ SWEEPS = {
     "base_fmad": (mesh_closest_query_contracted_cuda, tpt.mesh_closest_query, False),
 }
 # the sweeps that take the scene's exterior box, as the main path passes it
-TAKES_BOX = ("base", "base_fmad")
+TAKES_BOX = ("base", "base_fmad", "mxu")
 # gates against the plain version: distance and closest point (float32
 # rounding of one arithmetic, amplified by the expanded forms up to ~1e-6 at
 # 1 m), |winding| (summation order, and the expanded solid angle for mxu)
@@ -144,12 +157,14 @@ def sweep_bound_ms(n_points: int, n_faces: int, fp32_ops: float = FLOPS_PER_PAIR
 
 
 def evaluated_bound_ms(n_points: int, n_faces: int, closest_pairs: int,
-                       winding_pairs: int):
-    """Least time for the pairs the sweep kernel evaluated: ``CLOSEST_OPS``
-    per closest-point pair and ``WINDING_OPS`` per solid-angle pair over
-    the FP32 peak, or its bytes over the memory rate (as
+                       winding_pairs: int, kind: str = "base"):
+    """Least time for the pairs a sweep kernel evaluated: its
+    ``EVALUATED_OPS`` per closest-point pair and per solid-angle pair over
+    the peaks of their type, or its bytes over the memory rate (as
     :func:`sweep_bound_ms`).  Returns ``(ms, "operations" | "bytes")``."""
-    ops_s = (closest_pairs * CLOSEST_OPS + winding_pairs * WINDING_OPS) / PEAK_FP32_FLOPS
+    (cf, ct), (wf, wt) = EVALUATED_OPS[kind]
+    ops_s = max((closest_pairs * cf + winding_pairs * wf) / PEAK_FP32_FLOPS,
+                (closest_pairs * ct + winding_pairs * wt) / PEAK_TF32_FLOPS)
     bytes_s = (n_points * (12 + 24) + n_faces * 36) / PEAK_BYTES_PER_S
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
 
@@ -230,11 +245,11 @@ def time_sweeps(pts, scene, names=tuple(SWEEPS), reps: int = 10,
              "bound_ms": bound_ms, "bound_by": bound_by,
              "errors": errors, "gated": gated,
              "ok": check_sweep(name, errors) if gated else None}
-        if name in ("base", "nowind"):
+        if name in EVALUATED_OPS:
             r.update(evaluated_pairs(wrapper, pts, tri, **kw))
             r["evaluated_share"] = r["closest_pairs"] / (P * F)
             r["bound_evaluated_ms"], r["bound_evaluated_by"] = evaluated_bound_ms(
-                P, F, r["closest_pairs"], r["winding_pairs"])
+                P, F, r["closest_pairs"], r["winding_pairs"], name)
         if fp32_ceiling:
             r["share_of_measured_ceiling"] = model_flops / fp32_ceiling
         if plain_reps:

@@ -72,7 +72,7 @@
 
 #include <cuda_runtime.h>
 
-#include "point_triangle.cuh"  // Tri, safe_den, closest_pair
+#include "point_triangle.cuh"  // Tri, closest_pair, solid_angle, is_thin
 
 namespace {
 
@@ -99,37 +99,6 @@ struct Point {  // one thread's point and its running state
   float qx, qy, qz;
   float wind;
 };
-
-// Solid angle of t seen from p (van Oosterom & Strackee), as the plain
-// version's _winding_contrib.
-__device__ __forceinline__ float solid_angle(const Tri& t, float px, float py, float pz) {
-  const float a0 = t.ax - px, a1 = t.ay - py, a2 = t.az - pz;
-  const float b0 = t.bx - px, b1 = t.by - py, b2 = t.bz - pz;
-  const float c0 = t.cx - px, c1 = t.cy - py, c2 = t.cz - pz;
-  const float la = sqrtf(a0 * a0 + a1 * a1 + a2 * a2);
-  const float lb = sqrtf(b0 * b0 + b1 * b1 + b2 * b2);
-  const float lc = sqrtf(c0 * c0 + c1 * c1 + c2 * c2);
-  const float x0 = b1 * c2 - b2 * c1;
-  const float x1 = b2 * c0 - b0 * c2;
-  const float x2 = b0 * c1 - b1 * c0;
-  const float num = a0 * x0 + a1 * x1 + a2 * x2;
-  const float den = la * lb * lc + (a0 * b0 + a1 * b1 + a2 * b2) * lc
-                    + (b0 * c0 + b1 * c1 + b2 * c2) * la
-                    + (c0 * a0 + c1 * a1 + c2 * a2) * lb;
-  return 2.f * atan2f(num, den);
-}
-
-// Whether a triangle with edges ab, ac is thin: squared area (of the
-// parallelogram) below kThin of its longer edge's fourth power.  NaN is thin.
-__device__ __forceinline__ bool is_thin(float abx, float aby, float abz,
-                                        float acx, float acy, float acz) {
-  const float x0 = aby * acz - abz * acy;
-  const float x1 = abz * acx - abx * acz;
-  const float x2 = abx * acy - aby * acx;
-  const float cross2 = x0 * x0 + x1 * x1 + x2 * x2;
-  const float l2 = fmaxf(abx * abx + aby * aby + abz * abz, acx * acx + acy * acy + acz * acz);
-  return !(cross2 >= kThin * (l2 * l2));
-}
 
 // The tile's triangle at slot k (structure of arrays, 15 rows).
 __device__ __forceinline__ Tri load_tri(const float* __restrict__ s, int k) {
@@ -212,7 +181,8 @@ closest_point_sweep_kernel(const float* __restrict__ pts, int num_points,
         m = fmaxf(m, fabsf(c[r]));
       }
       const float ax = c[0], ay = c[1], az = c[2];
-      if (is_thin(c[3] - ax, c[4] - ay, c[5] - az, c[6] - ax, c[7] - ay, c[8] - az)) continue;
+      if (is_thin(c[3] - ax, c[4] - ay, c[5] - az, c[6] - ax, c[7] - ay, c[8] - az, kThin))
+        continue;
       const float eta = kCullAbs * m;
       const float slack = eta * eta * (1.f + 1.f / kCullRel);
       const float dx = ax - pt.px, dy = ay - pt.py, dz = az - pt.pz;
@@ -286,7 +256,7 @@ closest_point_sweep_kernel(const float* __restrict__ pts, int num_points,
           m = fmaxf(m, fmaxf(-lo[d], hi[d]));
         }
         thin = is_thin(s[9 * kTriTile + k], s[10 * kTriTile + k], s[11 * kTriTile + k],
-                       s[12 * kTriTile + k], s[13 * kTriTile + k], s[14 * kTriTile + k]);
+                       s[12 * kTriTile + k], s[13 * kTriTile + k], s[14 * kTriTile + k], kThin);
       }
 #pragma unroll
       for (int off = 1; off < kCluster; off <<= 1) {

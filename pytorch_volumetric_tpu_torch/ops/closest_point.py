@@ -25,19 +25,21 @@ import ctypes
 import numpy as np
 import torch
 
-from pytorch_volumetric_tpu_torch.mesh import PAD_COORD
 from pytorch_volumetric_tpu_torch.ops import cuda_build
 from pytorch_volumetric_tpu_torch.ops.point_triangle import (
     _FOUR_PI, mesh_closest_query, mesh_closest_query_expanded)
 
+# the libraries the sweep wrappers launch (scripts/sweep_variants_torch.py
+# points them at its variants)
 KERNEL = "closest_point"
+MMA_KERNEL = "closest_point_mma"
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (pointers, counts, options, the stream)
 _ARGTYPES = {
     "pvt_closest_point_sweep": [_p, _i, _p, _i, _p, _p, _p, _p, _p, _p, _p],
     "pvt_closest_point_sweep_nowind": [_p, _i, _p, _i, _p, _p, _p, _p, _p],
-    "pvt_closest_point_sweep_mma": [_p, _i, _p, _i, _p, _p, _p, _p, _p],
+    "pvt_closest_point_sweep_mma": [_p, _i, _p, _i, _p, _p, _p, _p, _p, _p, _p],
 }
 
 
@@ -64,16 +66,6 @@ def _check_inputs(points: torch.Tensor, tri: torch.Tensor) -> None:
             raise ValueError("points and tri must be on the same device")
         if t.numel() >= 2 ** 31:
             raise ValueError(f"{name} is too large for 32-bit indexing")
-
-
-def _check_tail_padding(tri: torch.Tensor) -> None:
-    """Raise unless every ``PAD_COORD`` row of ``tri [F, 3, 3]`` comes after
-    the last real one."""
-    pad = (tri.reshape(tri.shape[0], -1) == PAD_COORD).all(dim=1)
-    tail = pad.flip(0).to(torch.int32).cumprod(0).flip(0).bool()
-    if bool((pad & ~tail).any()):
-        raise ValueError("tri has PAD_COORD padding between real faces; the tensor-core "
-                         "sweep takes padding only in the tail")
 
 
 def _sweep_options(points: torch.Tensor, exterior_box, counters, winding: bool):
@@ -161,19 +153,18 @@ def mesh_closest_query_nowind_cuda(points: torch.Tensor, tri: torch.Tensor,
 
 
 def mesh_closest_query_mma_cuda(points: torch.Tensor, tri: torch.Tensor,
+                                exterior_box=None, counters: torch.Tensor = None,
                                 **plain_kwargs):
-    """:func:`mesh_closest_query_cuda` with the pairwise dot products on
-    the tensor cores (3xTF32, float32 accuracy); same inputs and outputs,
-    except that ``mesh.PAD_COORD`` padding is allowed only in the tail (as
-    ``MeshScene`` pads): the kernel's 8-face frames are centred on real
-    faces, and a padding row between them would centre one far away.
-    Raises ``ValueError`` otherwise, on the CPU and on the card."""
-    if points.device.type in ("cpu", "cuda"):
-        _check_tail_padding(tri)
+    """:func:`mesh_closest_query_cuda` with the pairwise products on the
+    tensor cores (3xTF32, float32 accuracy): the same inputs, options and
+    outputs (``mesh.PAD_COORD`` padding allowed anywhere), agreeing with
+    its plain version ``mesh_closest_query_expanded`` to the products'
+    rounding."""
     if points.device.type == "cpu":
         return mesh_closest_query_expanded(points, tri, **plain_kwargs)
-    return _launch(mesh_closest_query_mma_cuda, "closest_point_mma",
-                   "pvt_closest_point_sweep_mma", points, tri)
+    options, _box = _sweep_options(points, exterior_box, counters, winding=True)
+    return _launch(mesh_closest_query_mma_cuda, MMA_KERNEL, "pvt_closest_point_sweep_mma",
+                   points, tri, options=options)
 
 
 def mesh_closest_query_contracted_cuda(points: torch.Tensor, tri: torch.Tensor,

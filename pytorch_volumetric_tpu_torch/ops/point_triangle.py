@@ -15,9 +15,10 @@ the card.  Three variants share the sweep:
   plain version of ``csrc/closest_point.cu``;
 - ``mesh_closest_query(..., winding=False)``: the same without the winding
   sum, the plain version of the kernel's no-winding instantiation;
-- :func:`mesh_closest_query_expanded`: the pairwise dot products
-  ``p . ab, p . ac, p . n, p . a, p . b, p . c`` with per-triangle
-  constants, the plain version of the tensor-core kernel
+- :func:`mesh_closest_query_expanded`: each pair's d1, d2, solid-angle
+  numerator and squared corner distances as products of the point's row
+  ``(q, 1, |q|^2)`` with per-triangle columns, in a frame per group of
+  faces, the plain version of the tensor-core kernel
   (``csrc/closest_point_mma.cu``).
 
 Triangle arrays are padded with degenerate far-away triangles
@@ -32,7 +33,7 @@ from typing import Tuple
 import torch
 
 from pytorch_volumetric_tpu_torch.mesh import PAD_COORD
-from pytorch_volumetric_tpu_torch.utils.batching import cdiv, pad_to, round_up
+from pytorch_volumetric_tpu_torch.utils.batching import cdiv, pad_to
 
 DEFAULT_POINT_CHUNK = 2048
 DEFAULT_TRI_CHUNK = 512
@@ -135,14 +136,21 @@ def _winding_contrib(p: torch.Tensor, va: torch.Tensor, vb: torch.Tensor,
     return 2.0 * torch.atan2(num, den)
 
 
-def _pairs_direct(p, a, b, c):
+def _corners(t: torch.Tensor):
+    """The corners a, b, c of triangle rows ``t [..., R >= 3, 3]``."""
+    return t[..., 0, :], t[..., 1, :], t[..., 2, :]
+
+
+def _pairs_direct(p, t):
     """Per-pair (dist2, closest, solid angle) from the direct forms."""
+    a, b, c = _corners(t)
     d2, cp = _closest_point_bary(p, a, b - a, c - a)
     return d2, cp, _winding_contrib(p, a, b, c)
 
 
-def _pairs_direct_nowind(p, a, b, c):
+def _pairs_direct_nowind(p, t):
     """:func:`_pairs_direct` without the solid angle (None)."""
+    a, b, c = _corners(t)
     d2, cp = _closest_point_bary(p, a, b - a, c - a)
     return d2, cp, None
 
@@ -153,46 +161,124 @@ def _cross(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
                         u[..., 0] * v[..., 1] - u[..., 1] * v[..., 0]], dim=-1)
 
 
-EXPANDED_GROUP = 8  # triangles sharing one frame in the expanded sweep
+# The tensor-core kernel's grouping (csrc/closest_point_mma.cu, kTriTile and
+# kCluster): every tile of EXPANDED_TILE input rows is compacted to its real
+# faces and cut into groups of EXPANDED_GROUP; a group shares one frame and
+# one box.  The box is the kernel's cluster box, grown by CULL_ABS of its
+# largest coordinate and infinite when a face is thin (squared area below
+# THIN of its longest edge's fourth power), as in csrc/closest_point.cu.
+EXPANDED_TILE = 64
+EXPANDED_GROUP = 8
+CULL_ABS = 1e-5
+THIN = 1e-3
+# a pair's solid angle comes from the direct forms where the point lies
+# within EXPANDED_NEAR diagonals of its group's box, where the expanded
+# forms cancel
+EXPANDED_NEAR = 1.0
 
 
-def _pairs_expanded(p, a, b, c, dot=_dot, group: int = EXPANDED_GROUP):
-    """Per-pair (dist2, closest, solid angle) from the six pairwise dot
-    products ``p . {ab, ac, n, a, b, c}`` and per-triangle constants (the
-    arithmetic of ``benchmarks/pallas_mxu_ab.py`` mode ``mxu``):
-    ``d1 = p.ab - ab.a``, ``|a - p|^2 = |a|^2 - 2 p.a + |p|^2``,
-    ``(a-p).(b-p) = a.b - p.a - p.b + |p|^2`` and ``num = a.(b x c) - p.n``
-    with ``n = b x c + c x a + a x b``.  The distance is still taken
-    directly as ``|q - p|^2``.
+def _is_thin(ab: torch.Tensor, ac: torch.Tensor) -> torch.Tensor:
+    """Whether each triangle with edges ``ab, ac`` is thin (NaN is thin)."""
+    x = _cross(ab, ac)
+    l2 = torch.maximum(_dot(ab, ab), _dot(ac, ac))
+    return ~(_dot(x, x) >= THIN * (l2 * l2))
 
-    The expanded forms cancel in proportion to the magnitudes of ``p`` and
-    the corners, so each group of ``EXPANDED_GROUP`` triangles (counted from
-    the first of the tile, which starts at a multiple of the group) works in
-    a frame centred on its first triangle's first corner, as the kernel
-    does (``group`` 0: the mesh's own frame).  ``dot`` takes the six
-    products (``scripts/tf32_split_emulation_torch.py`` passes emulated
-    split-TF32 products)."""
-    o = 0.0
-    if group:
-        T = a.shape[1]
-        o = a[:, ::group].repeat_interleave(group, dim=1)[:, :T]
-        p, a, b, c = p - o, a - o, b - o, c - o
+
+def expanded_frames(tri: torch.Tensor) -> torch.Tensor:
+    """Each face's frame origin and group box as the tensor-core kernel
+    forms them: ``[F, 3, 3]`` rows (origin, box lo, box hi) for ``tri
+    [F, 3, 3]``.
+
+    The frame of a group is centred on the first corner of its first face,
+    so ``PAD_COORD`` padding anywhere moves no frame.  A padding face keeps
+    its own first corner as its origin and as a box of no extent."""
+    F = tri.shape[0]
+    pad = (tri == PAD_COORD).flatten(1).all(dim=1)
+    a = tri[:, 0]
+    thin = _is_thin(tri[:, 1] - a, tri[:, 2] - a)
+    out = a[:, None, :].repeat(1, 3, 1)
+    inf = torch.full((3,), float("inf"), dtype=tri.dtype, device=tri.device)
+    for f0 in range(0, F, EXPANDED_TILE):
+        ids = torch.arange(f0, min(f0 + EXPANDED_TILE, F), device=tri.device)
+        ids = ids[~pad[ids]]
+        for k in range(0, ids.shape[0], EXPANDED_GROUP):
+            g = ids[k:k + EXPANDED_GROUP]
+            corners = tri[g].reshape(-1, 3)
+            lo, hi = corners.min(dim=0).values, corners.max(dim=0).values
+            eta = CULL_ABS * torch.maximum(-lo, hi).max()
+            if bool(thin[g].any()):
+                lo, hi = -inf, inf
+            else:
+                lo, hi = lo - eta, hi + eta
+            out[g, 0] = tri[g[0], 0]
+            out[g, 1] = lo
+            out[g, 2] = hi
+    return out
+
+
+def expanded_columns(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The tensor-core product's triangle columns, ``[..., 6, 5]`` for
+    corners ``[..., 3]`` in a group's frame.  Against a point's row
+    ``(qx, qy, qz, 1, |q|^2)`` the six columns give ``d1 = ab.(q - a)``,
+    ``d2 = ac.(q - a)``, the solid angle's numerator ``(a-q).((b-q) x
+    (c-q)) = a.(b x c) - q.n`` with ``n = ab x ac``, and the squared
+    corner distances ``|a - q|^2, |b - q|^2, |c - q|^2``."""
     ab, ac = b - a, c - a
-    # n summed as b x c + c x a + a x b, each cross in the kernel's order
-    n = _cross(b, c) + _cross(c, a) + _cross(a, b)
-    pab, pac, pn = dot(p, ab), dot(p, ac), dot(p, n)
-    pa, pb, pc = dot(p, a), dot(p, b), dot(p, c)
-    d2, cp = _region_cascade(p, a, ab, ac, pab - _dot(ab, a), pac - _dot(ac, a),
-                             pab - _dot(ab, b), pac - _dot(ac, b),
-                             pab - _dot(ab, c), pac - _dot(ac, c))
-    pp = _dot(p, p)
-    la = torch.sqrt(torch.clamp(_dot(a, a) - 2.0 * pa + pp, min=0.0))
-    lb = torch.sqrt(torch.clamp(_dot(b, b) - 2.0 * pb + pp, min=0.0))
-    lc = torch.sqrt(torch.clamp(_dot(c, c) - 2.0 * pc + pp, min=0.0))
-    num = _dot(a, _cross(b, c)) - pn
-    den = (la * lb * lc + (_dot(a, b) - pa - pb + pp) * lc
-           + (_dot(b, c) - pb - pc + pp) * la + (_dot(c, a) - pc - pa + pp) * lb)
-    return d2, cp + o, 2.0 * torch.atan2(num, den)
+    zero, one = torch.zeros_like(a[..., 0]), torch.ones_like(a[..., 0])
+
+    def col(v, const, e):
+        return torch.stack([v[..., 0], v[..., 1], v[..., 2], const, e], dim=-1)
+
+    return torch.stack([col(ab, -_dot(ab, a), zero), col(ac, -_dot(ac, a), zero),
+                        col(-_cross(ab, ac), _dot(a, _cross(b, c)), zero),
+                        col(-2.0 * a, _dot(a, a), one), col(-2.0 * b, _dot(b, b), one),
+                        col(-2.0 * c, _dot(c, c), one)], dim=-2)
+
+
+def _products(q: torch.Tensor, pp: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Each pair's six products in float32: the point row ``(qx, qy, qz, 1,
+    pp)`` (``q [P, T, 3]``, ``pp [P, T]``) against the columns ``cols
+    [1, T, 6, 5]``, summed in that order; ``[P, T, 6]``."""
+    return (q[..., 0, None] * cols[..., 0] + q[..., 1, None] * cols[..., 1]
+            + q[..., 2, None] * cols[..., 2] + cols[..., 3] + pp[..., None] * cols[..., 4])
+
+
+def _pairs_expanded(p, t, products=_products, near: float = EXPANDED_NEAR):
+    """Per-pair (dist2, closest, solid angle) from the tensor-core kernel's
+    products (:func:`expanded_columns`) in each group's frame; ``t [1, T,
+    6, 3]`` holds each face's corners and its :func:`expanded_frames` rows.
+
+    - ``d3 = d1 - |ab|^2``, ``d4 = d2 - ab.ac``, ``d5 = d1 - ab.ac``,
+      ``d6 = d2 - |ac|^2``; the closest point from the region cascade, the
+      squared distance directly as ``|q' - q|^2``.
+    - The solid angle's cross terms ``(a-q).(b-q) = (|a-q|^2 + |b-q|^2 -
+      |ab|^2) / 2``.  Within ``near`` diagonals of the group's box the
+      solid angle comes from the direct forms in the frame instead.
+
+    ``products`` takes the pairs' products
+    (``scripts/tf32_split_emulation_torch.py`` passes emulated split-TF32
+    ones)."""
+    a, b, c = _corners(t)
+    o, lo, hi = t[..., 3, :], t[..., 4, :], t[..., 5, :]
+    gap = torch.clamp(torch.maximum(lo - p, p - hi), min=0.0)
+    span = hi - lo
+    is_near = _dot(gap, gap) <= (near * near) * _dot(span, span)
+    q, a, b, c = p - o, a - o, b - o, c - o
+    ab, ac = b - a, c - a
+    pp = _dot(q, q)
+    m = products(q, pp, expanded_columns(a, b, c))
+    d1, d2 = m[..., 0], m[..., 1]
+    ab2, ac2, abac = _dot(ab, ab), _dot(ac, ac), _dot(ab, ac)
+    dist2, cp = _region_cascade(q, a, ab, ac, d1, d2, d1 - ab2, d2 - abac, d1 - abac,
+                                d2 - ac2)
+    la2, lb2, lc2 = (torch.clamp(m[..., k], min=0.0) for k in (3, 4, 5))
+    la, lb, lc = torch.sqrt(la2), torch.sqrt(lb2), torch.sqrt(lc2)
+    bc = c - b
+    den = (la * lb * lc + (la2 + lb2 - ab2) * 0.5 * lc
+           + (lb2 + lc2 - _dot(bc, bc)) * 0.5 * la + (lc2 + la2 - ac2) * 0.5 * lb)
+    solid = torch.where(is_near, _winding_contrib(q, a, b, c),
+                        2.0 * torch.atan2(m[..., 2], den))
+    return dist2, cp + o, solid
 
 
 def _sweep_chunk(points: torch.Tensor, tri: torch.Tensor, tri_chunk: int, pairs):
@@ -207,11 +293,7 @@ def _sweep_chunk(points: torch.Tensor, tri: torch.Tensor, tri_chunk: int, pairs)
     best_fid = torch.zeros((P,), dtype=torch.int32, device=points.device)
     wind = torch.zeros((P,), dtype=points.dtype, device=points.device)
     for t0 in range(0, tri.shape[0], tri_chunk):
-        tile = tri[t0:t0 + tri_chunk]
-        a = tile[None, :, 0, :]
-        b = tile[None, :, 1, :]
-        c = tile[None, :, 2, :]
-        d2, cp, solid = pairs(p, a, b, c)
+        d2, cp, solid = pairs(p, tri[None, t0:t0 + tri_chunk])
         if solid is not None:
             wind = wind + solid.sum(dim=-1)
         arg = torch.argmin(d2, dim=-1)
@@ -225,6 +307,8 @@ def _sweep_chunk(points: torch.Tensor, tri: torch.Tensor, tri_chunk: int, pairs)
 
 
 def _sweep(points, tri, point_chunk, tri_chunk, pairs):
+    """The chunked sweep over triangle rows ``tri [Fp, R, 3]`` (corners
+    first; padded here with ``PAD_COORD`` rows to whole tiles)."""
     Fp = tri.shape[0]
     tri_chunk = min(tri_chunk, Fp)
     tri = pad_to(tri, cdiv(Fp, tri_chunk) * tri_chunk, value=PAD_COORD)
@@ -254,12 +338,14 @@ def mesh_closest_query(points: torch.Tensor, tri: torch.Tensor,
 def mesh_closest_query_expanded(points: torch.Tensor, tri: torch.Tensor,
                                 point_chunk: int = DEFAULT_POINT_CHUNK,
                                 tri_chunk: int = DEFAULT_TRI_CHUNK):
-    """:func:`mesh_closest_query` computed from the pairwise dot products
-    (:func:`_pairs_expanded`), the arithmetic of the tensor-core kernel.
-    Same outputs; agrees with the direct forms to float32 rounding, which
-    the expanded forms amplify (about 1e-7 of ``|p|`` in distance)."""
-    tri_chunk = round_up(tri_chunk, EXPANDED_GROUP)  # tiles start at a group
-    return _sweep(points, tri, point_chunk, tri_chunk, _pairs_expanded)
+    """:func:`mesh_closest_query` computed from the tensor-core kernel's
+    products (:func:`_pairs_expanded`), its plain version.  Same outputs
+    (``PAD_COORD`` padding allowed anywhere); agrees with the direct forms
+    to float32 rounding, which the products amplify in proportion to a
+    point's distance from its group's frame (about 1e-7 of it in
+    distance)."""
+    rows = torch.cat([tri, expanded_frames(tri)], dim=1)
+    return _sweep(points, rows, point_chunk, tri_chunk, _pairs_expanded)
 
 
 def signed_closest_query(points: torch.Tensor, tri: torch.Tensor,

@@ -2,19 +2,20 @@
 """Instruction census of the port's CUDA kernels (run on a machine with the
 CUDA toolkit).
 
-    python3 scripts/sass_census_torch.py [--out FILE]
+    python3 scripts/sass_census_torch.py [--out FILE] [--dump DIR]
 
 Builds every library of ``pytorch_volumetric_tpu_torch/csrc`` (as
 ``ops.cuda_build`` does), disassembles each with ``cuobjdump -sass`` and
 counts, per kernel, the static SASS instructions by class: of the whole
 kernel and of each innermost loop (a span closed by a backward branch that
-holds no barrier and no other loop), labelled by what it computes.  A sweep
-loop's count is its instructions per pair (one point per thread).
+holds no other loop, and no barrier unless it issues tensor-core products),
+labelled by what it computes.
 The classes say what the loop spends its issue slots on: FP32 arithmetic,
 special-function unit (MUFU: reciprocals, square roots, the atan2's
 pieces), compares and selects, integer and address arithmetic, memory,
 tensor-core products and control.  Static counts of one iteration, not a
-dynamic profile.  Prints one JSON line.
+dynamic profile; ``pairs_per_iteration`` says how many pairs one iteration
+of a thread covers.  Prints one JSON line.
 """
 
 import argparse
@@ -36,10 +37,10 @@ CLASSES = (
                  "IMNMX", "POPC", "PRMT", "MOV", "S2R", "CS2R", "UMOV", "ULDC", "S2UR",
                  "UIADD3", "ULEA", "USHF", "ULOP3", "UIMAD", "VIADD", "IMUL")),
     ("memory", ("LDS", "STS", "LDG", "STG", "LDC", "LD", "ST", "LDL", "STL")),
-    ("tensor", ("HMMA",)),
+    ("tensor", ("HMMA", "HGMMA")),
     ("shuffle", ("SHFL",)),
     ("control", ("BRA", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "BAR", "WARPSYNC",
-                 "NOP", "YIELD", "BPT", "JMP")),
+                 "NOP", "YIELD", "BPT", "JMP", "WARPGROUP", "DEPBAR")),
 )
 _CLASS_OF = {op: name for name, ops in CLASSES for op in ops}
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(\.[\w.]+)?\s*(.*?);")
@@ -77,10 +78,12 @@ def parse(sass: str):
 
 def loops(insns, labels):
     """The innermost loops: each [target, branch] span of a backward branch
-    that holds no barrier and no other backward branch, in address order.
-    In the sweep kernel these are its per-pair loops (closest point and
-    solid angle, closest point only, solid angle only), not the loops over
-    clusters and tiles around them."""
+    that holds no other backward branch, and no barrier unless it issues
+    tensor-core products, in address order.  In the sweep kernel these are
+    its per-pair loops (closest point and solid angle, closest point only,
+    solid angle only), not the loops over clusters and tiles around them;
+    in the tensor-core sweep, its loop over a tile's groups (one product
+    step, whose barrier shares the warpgroup's decision to issue it)."""
     spans = []
     for addr, op, operands in insns:
         if op != "BRA":
@@ -96,7 +99,8 @@ def loops(insns, labels):
     out = []
     for t, a in sorted(inner):
         span = [i for i in insns if t <= i[0] <= a]
-        if not any(i[1] == "BAR" for i in span):
+        if not any(i[1] == "BAR" for i in span) or any(classify(i[1]) == "tensor"
+                                                        for i in span):
             out.append(span)
     return out
 
@@ -110,6 +114,15 @@ def loop_kind(span) -> str:
     kind = [k for k, hit in (("closest", ops["FCHK"] >= 2),
                              ("winding", ops["MUFU.RSQ"] > 0)) if hit]
     return "+".join(kind) or "other"
+
+
+def pairs_per_iteration(fn: str) -> int:
+    """(point, triangle) pairs a thread handles in one iteration of a sweep
+    loop: one in K1's per-pair loops; four in the tensor-core sweep's group
+    loop (two points x two faces of the accumulator fragment), whose static
+    count holds every path of the step (closest point, the solid angle from
+    the products and from the direct forms)."""
+    return 4 if "sweep_mma_kernel" in fn else 1
 
 
 def template_args(fn: str) -> dict:
@@ -130,6 +143,8 @@ def census(insns):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="")
+    ap.add_argument("--dump", default="",
+                    help="a directory to write each library's disassembly to")
     args = ap.parse_args()
     from pytorch_volumetric_tpu_torch.ops import cuda_build
     cuda_build.build()
@@ -138,9 +153,14 @@ def main():
     for name in cuda_build.SOURCES:
         sass = subprocess.run([tool, "-sass", cuda_build.library_path(name)],
                               capture_output=True, text=True, check=True).stdout
+        if args.dump:
+            os.makedirs(args.dump, exist_ok=True)
+            with open(os.path.join(args.dump, f"{name}.sass"), "w") as f:
+                f.write(sass)
         funcs, labels = parse(sass)
         for fn, insns in funcs.items():
-            found = [dict(census(span), kind=loop_kind(span))
+            found = [dict(census(span), kind=loop_kind(span),
+                          pairs_per_iteration=pairs_per_iteration(fn))
                      for span in loops(insns, labels[fn])]
             out[f"{name}:{fn}"] = {"kernel": census(insns), **template_args(fn),
                                    "loops": found}

@@ -188,27 +188,60 @@ def test_exterior_box_and_cull_counters_on_capsule_grid(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["near", "ragged", "far"])
+@pytest.mark.parametrize("case", ["near", "ragged", "far", "straddling", "mid_padding"])
 def test_mma_kernel_matches_plain_on_card(card, case):
     """The tensor-core sweep against the expanded plain version: distance,
     the closest point on the chosen face and the face contract within 1e-5
-    (3xTF32 products keep ~21 bits), winding within 1e-3."""
-    if case == "far":
+    (3xTF32 products keep ~21 bits), winding within 1e-3 off the surface;
+    with the exterior box where the mesh is closed, and padding between
+    real faces."""
+    box = None
+    if case in ("far", "straddling", "mid_padding"):
         cap = pt.mesh.capsule_mesh(radius=0.045, height=0.18, segments=14, rings=5)
         tri = pt.mesh.MeshScene.from_mesh(cap, device=card).tri
-        pts = _far_points(3, 4000, card)
+        if case == "far":
+            pts = _far_points(3, 4000, card)
+        elif case == "straddling":
+            pts, tri, box = _case("straddling", 5000, card)
+        else:
+            pad = torch.full((40, 3, 3), pt.mesh.PAD_COORD, device=card)
+            tri = torch.cat([tri[:100], pad, tri[100:]])
+            pts = _points(5, 2000, card, -0.3, 0.3)
     else:
         tri = _scene(card).tri
-        if case == "ragged":  # F = 13: a tile tail and a step tail
+        if case == "ragged":  # F = 13: a tile tail and a group tail
             tri = tri[:13].contiguous()
         pts = _points(7, 3001, card)
     before = mesh_closest_query_mma_cuda.launches
-    out = mesh_closest_query_mma_cuda(pts, tri)
+    out = mesh_closest_query_mma_cuda(pts, tri, exterior_box=box)
     torch.cuda.synchronize()
     assert mesh_closest_query_mma_cuda.launches == before + 1
     err = sr.sweep_errors(out, tpt.mesh_closest_query_expanded(pts, tri), pts, tri)
     assert max(err["dist"], err["closest"], err["face"]) <= 1e-5, err
     assert err["winding"] <= 1e-3, err
+
+
+@pytest.mark.cuda
+def test_mma_counters_on_capsule_grid(card):
+    """The tensor-core sweep on the main path's grid with the exterior box:
+    its counters show culled pairs and almost no solid angles, and without
+    the box every solid angle; the results stay within the gates of its
+    plain version on a strided subset."""
+    grid, cap = sr.capsule_cache_grid(card)
+    P, F = grid.shape[0], cap.num_faces
+    no_box = torch.zeros(2, dtype=torch.int64, device=card)
+    summed = mesh_closest_query_mma_cuda(grid, cap.tri, counters=no_box)
+    counters = torch.zeros(2, dtype=torch.int64, device=card)
+    out = mesh_closest_query_mma_cuda(grid, cap.tri, exterior_box=cap.exterior_box,
+                                      counters=counters)
+    closest, winding = counters.tolist()
+    assert no_box.tolist() == [closest, P * F]
+    assert 0 < closest < 0.6 * P * F and 0 < winding < 0.01 * P * F
+    assert (out[3] - summed[3]).abs().max().item() <= 1e-4
+    sub = grid[::97].contiguous()
+    err = sr.sweep_errors([x[::97] for x in out], tpt.mesh_closest_query_expanded(sub, cap.tri),
+                          sub, cap.tri)
+    assert sr.check_sweep("mxu", err), err
 
 
 @pytest.mark.cuda

@@ -35,17 +35,22 @@ CPU = torch.device("cpu")
 
 def _cases():
     """(name, triangles [F, 3, 3], points [P, 3]) float32: a small torus with
-    points around it, and the arm's capsule link (edges 2-5 cm) with points
-    0.8-1.2 m away, where the expanded forms cancel most."""
+    points around it, the arm's capsule link (edges 2-5 cm) with points
+    0.8-1.2 m away, where the expanded forms cancel most, and the capsule
+    with points within 1 cm of its box, near the surface, where the solid
+    angle is most sensitive."""
     rng = np.random.default_rng(0)
     torus = tm.torus_mesh(0.1, 0.03, 24, 12).triangles().astype(np.float32)
     near = rng.uniform(-0.2, 0.2, (800, 3)).astype(np.float32)
     cap = tm.capsule_mesh(radius=0.045, height=0.18, segments=14, rings=5)
     far = rng.normal(size=(800, 3))
     far *= rng.uniform(0.8, 1.2, (800, 1)) / np.linalg.norm(far, axis=1, keepdims=True)
+    bb = cap.aabb()
+    band = rng.uniform(bb[:, 0] - 0.01, bb[:, 1] + 0.01, (800, 3)).astype(np.float32)
+    cap_tri = cap.triangles().astype(np.float32)
     return [("torus", torus, near),
-            ("capsule, far points", cap.triangles().astype(np.float32),
-             far.astype(np.float32))]
+            ("capsule, far points", cap_tri, far.astype(np.float32)),
+            ("capsule, points straddling its box", cap_tri, band)]
 
 
 @pytest.fixture(scope="module", params=_cases(), ids=lambda c: c[0])
@@ -59,7 +64,9 @@ def _check_against_xla(out, tri, pts, ref, winding_tol):
     """Distance within 1e-5; the closest point within 1e-5 of the true
     closest point on the chosen face, and that face within 1e-5 of the
     minimal distance (equidistant faces may be chosen either way);
-    winding within ``winding_tol`` where checked."""
+    winding within ``winding_tol`` where checked, at points farther than
+    ``sweep_roofline.WIND_MIN_DIST`` from the surface (on a face the solid
+    angle is +-2 pi or 0 by rounding)."""
     d, c, f, w = out
     d_ref, _, _, w_ref = ref
     assert np.abs(d.numpy() - d_ref).max() <= 1e-5
@@ -70,7 +77,8 @@ def _check_against_xla(out, tri, pts, ref, winding_tol):
     assert (c - cp[:, 0]).abs().max().item() <= 1e-5
     assert np.abs(np.sqrt(d2[:, 0].numpy()) - d_ref).max() <= 1e-5
     if winding_tol is not None:
-        assert np.abs(w.numpy() - w_ref).max() <= winding_tol
+        off = d_ref > sr.WIND_MIN_DIST
+        assert np.abs(w.numpy() - w_ref)[off].max() <= winding_tol
 
 
 def test_nowind_plain_matches_xla(case):
@@ -82,7 +90,8 @@ def test_nowind_plain_matches_xla(case):
 
 def test_expanded_plain_matches_xla(case):
     """The tensor-core kernel's arithmetic: winding within 1e-3 (the JAX
-    probe's own gate; the per-step frames keep it near 1e-5 here)."""
+    probe's own gate; the groups' frames and the direct solid angle near a
+    group keep it near 1e-5 here, straddling points included)."""
     tri, pts, ref = case
     out = tpt.mesh_closest_query_expanded(pts, tri, tri_chunk=100)
     _check_against_xla(out, tri, pts, ref, 1e-3)
@@ -90,9 +99,10 @@ def test_expanded_plain_matches_xla(case):
 
 @pytest.mark.parametrize("tri_chunk", [8, 36, 512])
 def test_expanded_plain_independent_of_chunking(tri_chunk):
-    """The expanded sweep's frames are fixed groups of 8 faces, whatever
-    the tile size: every chunking gives the same distances, closest points
-    and faces bit for bit (the winding sum only by summation order)."""
+    """The expanded sweep's frames and boxes are the kernel's groups,
+    formed once for the whole mesh, whatever the tile size: every chunking
+    gives the same distances, closest points and faces bit for bit (the
+    winding sum only by summation order)."""
     tri = torch.as_tensor(tm.torus_mesh(0.1, 0.03, 12, 8).triangles().astype(np.float32))
     pts = torch.as_tensor(np.random.default_rng(1).uniform(-0.2, 0.2, (300, 3))
                           .astype(np.float32))
@@ -119,23 +129,58 @@ def test_wrappers_run_plain_versions_on_cpu():
 
 
 @pytest.mark.parametrize("where", ["none", "tail", "middle", "head"])
-def test_mma_wrapper_takes_padding_only_in_the_tail(where):
-    """The tensor-core sweep's 8-face frames are centred on real faces, so
-    its wrapper refuses ``PAD_COORD`` rows between or before real ones (on
-    every device); tail padding gives the plain version's result."""
+def test_mma_takes_padding_anywhere(where):
+    """The tensor-core sweep's frames are centred on real faces, so
+    ``PAD_COORD`` rows anywhere leave its plain version (the wrapper on CPU
+    tensors) within 1e-5 in distance and 1e-3 in winding of JAX's XLA
+    sweep."""
     tri = torch.as_tensor(tm.torus_mesh(0.1, 0.03, 8, 6).triangles().astype(np.float32))
     pad = torch.full((5, 3, 3), tm.PAD_COORD)
     tri = {"none": tri, "tail": torch.cat([tri, pad]),
            "middle": torch.cat([tri[:40], pad, tri[40:]]), "head": torch.cat([pad, tri])}[where]
     pts = torch.as_tensor(np.random.default_rng(3).uniform(-0.2, 0.2, (100, 3))
                           .astype(np.float32))
-    if where in ("middle", "head"):
-        with pytest.raises(ValueError, match="padding between real faces"):
-            mesh_closest_query_mma_cuda(pts, tri)
-        return
-    for a, b in zip(mesh_closest_query_mma_cuda(pts, tri),
-                    tpt.mesh_closest_query_expanded(pts, tri)):
+    out = mesh_closest_query_mma_cuda(pts, tri)
+    for a, b in zip(out, tpt.mesh_closest_query_expanded(pts, tri)):
         assert torch.equal(a, b)
+    ref = [np.asarray(x) for x in jpt.mesh_closest_query(jnp.asarray(pts.numpy()),
+                                                           jnp.asarray(tri.numpy()))]
+    _check_against_xla(out, tri, pts, ref, 1e-3)
+
+
+def test_expanded_products_equal_direct_forms():
+    """The homogeneous products (``expanded_columns`` against the row
+    ``(q, 1, |q|^2)``) give d1..d6, the squared corner distances and the
+    solid angle's numerator of the direct forms, within float32 rounding of
+    the terms they sum (points and corners of a few cm to 1 m)."""
+    rng = np.random.default_rng(7)
+    tri = torch.as_tensor(rng.uniform(-0.05, 0.05, (64, 3, 3)).astype(np.float32))
+    q = torch.as_tensor((rng.normal(size=(96, 3)) * rng.uniform(0.01, 1.0, (96, 1)))
+                        .astype(np.float32))[:, None]
+    a, b, c = tri[None, :, 0], tri[None, :, 1], tri[None, :, 2]
+    m = tpt._products(q.expand(-1, 64, -1), tpt._dot(q, q).expand(-1, 64),
+                      tpt.expanded_columns(a, b, c))
+    ab, ac = b - a, c - a
+    ab2, ac2, abac = tpt._dot(ab, ab), tpt._dot(ac, ac), tpt._dot(ab, ac)
+    # the direct forms in float64
+    a, b, c, qd = a.double(), b.double(), c.double(), q.double()
+    ab, ac = b - a, c - a
+    ap, bp, cp = qd - a, qd - b, qd - c
+    direct = torch.stack([tpt._dot(ab, ap), tpt._dot(ac, ap), tpt._dot(ab, bp),
+                          tpt._dot(ac, bp), tpt._dot(ab, cp), tpt._dot(ac, cp),
+                          tpt._dot(ap, ap), tpt._dot(bp, bp), tpt._dot(cp, cp),
+                          tpt._dot(-ap, tpt._cross(-bp, -cp))], dim=-1)
+    d1, d2 = m[..., 0], m[..., 1]
+    folded = torch.stack([d1, d2, d1 - ab2, d2 - abac, d1 - abac, d2 - ac2,
+                          m[..., 3], m[..., 4], m[..., 5], m[..., 2]], dim=-1).double()
+    # the size of the terms summed: |q| |v| for the products, |q|^2 and the
+    # corners' squares for the distances, |q| |n| + |a| |b| |c| for the
+    # numerator
+    qn = q.double().norm(dim=-1)
+    t = tri.double().norm(dim=-1).max(dim=-1).values[None]
+    scale = torch.stack([(qn + t) * t] * 6 + [(qn + t) ** 2] * 3
+                        + [(qn + t) * t * t], dim=-1)
+    assert ((folded - direct).abs() / scale).max().item() <= 8 * 2.0 ** -24
 
 
 def _fma_jax(x, y, iters):
@@ -187,6 +232,11 @@ def test_probe_bounds_and_gates():
     assert by == "bytes" and ms == pytest.approx(12_000 / 3.35e12 * 1e3)
     ok = {"dist": 1e-6, "closest": 1e-6, "face": 1e-6, "winding": 2e-3}
     assert sr.check_sweep("nowind", ok) and not sr.check_sweep("mxu", ok)
+    # the mxu bound over evaluated pairs: FP32 lanes and tensor cores
+    ms, by = sr.evaluated_bound_ms(1000, 10, 10 ** 8, 0, "mxu")
+    assert by == "operations"
+    assert ms == pytest.approx(10 ** 8 * sr.MXU_CLOSEST_OPS[0] / 67e12 * 1e3)
+    assert sr.evaluated_bound_ms(1000, 10, 10 ** 8, 0, "base")[0] > ms
     assert not sr.check_sweep("base", dict(ok, winding=0.0, closest=2e-5))
 
 

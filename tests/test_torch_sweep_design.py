@@ -34,15 +34,17 @@ CPU = torch.device("cpu")
 F32 = np.float32
 
 
-def _kernel_constants():
-    """The ``constexpr`` constants of the kernel's source."""
-    with open(os.path.join(cuda_build.CSRC_DIR, "closest_point.cu")) as f:
+def _kernel_constants(source="closest_point.cu"):
+    """The ``constexpr`` constants of a kernel's source."""
+    with open(os.path.join(cuda_build.CSRC_DIR, source)) as f:
         src = f.read()
     return {name: float(value) for name, value in
             re.findall(r"constexpr (?:int|float) (k\w+) = ([0-9.e+-]+)f?;", src)}
 
 
 K = _kernel_constants()
+# the tensor-core sweep's: the same culling, 16 points a warp
+KM = _kernel_constants("closest_point_mma.cu")
 
 
 def _t(x):
@@ -259,11 +261,11 @@ def _is_thin(ab, ac):
     return ~(cross2 >= F32(K["kThin"]) * (l2 * l2))
 
 
-def _clusters(tri):
-    """The kernel's clusters: each tile of ``kTriTile`` rows compacted to
-    its real triangles, cut into runs of ``kCluster``; returns a list of
-    (face ids, grown box lo, hi)."""
-    tile, size = int(K["kTriTile"]), int(K["kCluster"])
+def _clusters(tri, tile=int(K["kTriTile"])):
+    """The kernel's clusters: each tile of ``tile`` rows compacted to its
+    real triangles, cut into runs of ``kCluster``; returns a list of (face
+    ids, grown box lo, hi)."""
+    size = int(K["kCluster"])
     pad = (tri == F32(tm.PAD_COORD)).flatten(1).all(dim=1)
     out = []
     for f0 in range(0, tri.shape[0], tile):
@@ -302,31 +304,31 @@ def _seed_bound(pts, tri):
     return bound
 
 
-def _culled_sweep(pts, tri):
-    """The kernel's sweep in torch, one warp = 32 consecutive points: the
-    plain version's per-pair distances visited cluster by cluster, a cluster
-    skipped when the kernel would skip it, then the first padding triangle
-    merged by (d2, face id).  Returns (d2, face id, share of real pairs
-    evaluated) and asserts on every skip that no skipped face could be the
-    result: its distance is >= the running best (a lower id holds it) or >
-    the final minimum."""
+def _culled_sweep(pts, tri, warp=32, tile=int(K["kTriTile"])):
+    """The kernel's sweep in torch, one warp = ``warp`` consecutive points
+    and tiles of ``tile`` rows: the plain version's per-pair distances
+    visited cluster by cluster, a cluster skipped when the kernel would skip
+    it, then the first padding triangle merged by (d2, face id).  Returns
+    (d2, face id, share of real pairs evaluated) and asserts on every skip
+    that no skipped face could be the result: its distance is >= the
+    running best (a lower id holds it) or > the final minimum."""
     P = pts.shape[0]
     tri_a, ab, ac = tri[None, :, 0], (tri[:, 1] - tri[:, 0])[None], (tri[:, 2] - tri[:, 0])[None]
     d2_all, _ = tpt._closest_point_bary(pts[:, None], tri_a, ab, ac)
     final = d2_all.min(dim=1).values
-    W = -(-P // 32)
-    live = torch.arange(W * 32) < P
-    padded = torch.cat([pts, pts[:1].expand(W * 32 - P, 3)])
-    bound = _seed_bound(padded, tri).reshape(W, 32)
-    p = padded.reshape(W, 32, 3)
-    best = torch.full((W, 32), np.inf)
-    fid = torch.zeros((W, 32), dtype=torch.int64)
-    d2w = torch.cat([d2_all, d2_all[:1].expand(W * 32 - P, -1)]).reshape(W, 32, -1)
-    finalw = torch.cat([final, final[:1].expand(W * 32 - P)]).reshape(W, 32)
-    livew = live.reshape(W, 32)
+    W = -(-P // warp)
+    live = torch.arange(W * warp) < P
+    padded = torch.cat([pts, pts[:1].expand(W * warp - P, 3)])
+    bound = _seed_bound(padded, tri).reshape(W, warp)
+    p = padded.reshape(W, warp, 3)
+    best = torch.full((W, warp), np.inf)
+    fid = torch.zeros((W, warp), dtype=torch.int64)
+    d2w = torch.cat([d2_all, d2_all[:1].expand(W * warp - P, -1)]).reshape(W, warp, -1)
+    finalw = torch.cat([final, final[:1].expand(W * warp - P)]).reshape(W, warp)
+    livew = live.reshape(W, warp)
     rel = F32(K["kCullRel"])
     evaluated = 0
-    for cid, lo, hi in _clusters(tri):
+    for cid, lo, hi in _clusters(tri, tile):
         dd = torch.clamp(torch.maximum(lo - p, p - hi), min=0.0)
         lb = (dd[..., 0] * dd[..., 0] + dd[..., 1] * dd[..., 1] + dd[..., 2] * dd[..., 2]) \
             * (F32(1) - rel)
@@ -346,7 +348,7 @@ def _culled_sweep(pts, tri):
         take = (dj < best) | ((dj == best) & (j < fid))
         best, fid = torch.where(take, dj, best), torch.where(take, j, fid)
     n_real = int((~(tri == F32(tm.PAD_COORD)).flatten(1).all(dim=1)).sum())
-    return best.reshape(-1)[:P], fid.reshape(-1)[:P], evaluated / (W * 32 * n_real)
+    return best.reshape(-1)[:P], fid.reshape(-1)[:P], evaluated / (W * warp * n_real)
 
 
 def _cull_cases():
@@ -373,10 +375,9 @@ def _cull_cases():
             "cluster box corners": (edge.contiguous(), cap.tri)}
 
 
-@pytest.mark.parametrize("case", list(_cull_cases()))
-def test_cluster_culling_is_exact(case):
+def _check_culling(case, *design):
     pts, tri = _cull_cases()[case]
-    d2, fid, share = _culled_sweep(pts, tri)
+    d2, fid, share = _culled_sweep(pts, tri, *design)
     dist, _, f_ref, _ = tpt.mesh_closest_query(pts, tri, winding=False)
     assert torch.equal(torch.sqrt(d2), dist)
     assert torch.equal(fid.to(torch.int32), f_ref)
@@ -385,10 +386,54 @@ def test_cluster_culling_is_exact(case):
         assert share < 0.6  # the grid's warps skip most clusters
 
 
+@pytest.mark.parametrize("case", list(_cull_cases()))
+def test_cluster_culling_is_exact(case):
+    _check_culling(case)
+
+
+@pytest.mark.parametrize("case", list(_cull_cases()))
+def test_mma_cluster_culling_is_exact(case):
+    """The tensor-core sweep culls the same boxes with warps of 16 points
+    (each point's running best merged over the four threads that hold
+    it) in tiles of its own size."""
+    _check_culling(case, int(KM["kRows"]), int(KM["kTriTile"]))
+
+
 def test_kernel_constants_are_read():
     assert K["kCluster"] >= 1 and K["kTriTile"] % K["kCluster"] == 0
     assert 0 < K["kCullRel"] < 0.1 and 0 < K["kCullAbs"] < 1e-3 and 0 < K["kThin"] < 1
     assert K["kPad"] == tm.PAD_COORD
+
+
+def test_mma_kernel_constants_are_its_plain_versions():
+    """The tensor-core sweep culls with K1's margins, and its groups, boxes
+    and direct-solid-angle rule are the plain version's."""
+    for name in ("kCluster", "kCullRel", "kCullAbs", "kThin", "kPad"):
+        assert KM[name] == K[name], name
+    assert KM["kTriTile"] == tpt.EXPANDED_TILE and KM["kCluster"] == tpt.EXPANDED_GROUP
+    assert KM["kCullAbs"] == F32(tpt.CULL_ABS) and KM["kThin"] == F32(tpt.THIN)
+    assert KM["kNear"] == tpt.EXPANDED_NEAR
+
+
+def test_expanded_frames_are_the_kernel_groups():
+    """``expanded_frames`` gives each real face the box of its cluster in
+    the tensor-core kernel's tiles and the first corner of the cluster's
+    first face as its origin, with padding anywhere; a padding face keeps
+    its own corner."""
+    cap = tm.MeshScene.from_mesh(tm.capsule_mesh(0.045, 0.18, 14, 5), device=CPU).tri
+    pad = torch.full((11, 3, 3), F32(tm.PAD_COORD))
+    thin = _t([[[0, 0, 0], [1, 0, 0], [0.5, 1e-7, 0]]])
+    tri = torch.cat([pad[:3], cap[:70], pad, thin, cap[70:150]])
+    frames = tpt.expanded_frames(tri)
+    is_pad = (tri == F32(tm.PAD_COORD)).flatten(1).all(dim=1)
+    seen = torch.zeros(tri.shape[0], dtype=torch.bool)
+    for cid, lo, hi in _clusters(tri, int(KM["kTriTile"])):
+        seen[cid] = True
+        assert torch.equal(frames[cid, 0], tri[cid[0], 0].expand(len(cid), 3))
+        assert torch.equal(frames[cid, 1], lo.expand(len(cid), 3))
+        assert torch.equal(frames[cid, 2], hi.expand(len(cid), 3))
+    assert torch.equal(seen, ~is_pad)
+    assert torch.equal(frames[is_pad], tri[is_pad, :1].expand(-1, 3, 3))
 
 
 # ---------------------------------------------------------------------------
@@ -407,14 +452,18 @@ def _script(name):
 
 def test_variant_sources_apply_to_the_kernel():
     """Each compile-time variant of ``scripts/sweep_variants_torch.py``
-    changes the shipped source (it raises if one no longer applies), and
-    every row names one of them."""
-    with open(os.path.join(cuda_build.CSRC_DIR, "closest_point.cu")) as f:
-        src = f.read()
+    changes the shipped source of its kernel (it raises if one no longer
+    applies), and every row names one of them."""
     sv = _script("sweep_variants_torch")
-    out = sv.variants(src)
-    assert out["shipped"] == src and len(set(out.values())) == len(out)
-    assert {v for v, _ in sv.ROWS.values()} == set(out)
+    made = {}
+    for kernel, make in (("K1", sv.variants), ("mxu", sv.mma_variants)):
+        with open(os.path.join(cuda_build.CSRC_DIR, sv.SOURCES[kernel])) as f:
+            src = f.read()
+        out = make(src)
+        assert out["shipped"] == src and len(set(out.values())) == len(out)
+        made[kernel] = set(out)
+    for kernel in made:
+        assert {v for k, v, _ in sv.ROWS.values() if k == kernel} == made[kernel]
 
 
 _SASS = """
