@@ -61,7 +61,19 @@ Phases, each fatal on failure:
     more than 0.01, ``query_grid`` equal to
     ``query``, and the same arm on the JAX package's test build (a 0.06
     band) held to 1e-4 within 0.02 of the surface;
-11. one JSON line with every kernel's launches and times, then the result
+11. the neural SDF models: the headline arm distilled into a
+    ``ConfigSpaceNeuralSDF`` at ``benchmarks/neural.py``'s settings (width
+    128, depth 4, 96 Fourier features, 256 configurations x 2,048 points,
+    4,000 steps of 8,192; oracle: phase 4's cached-link robot from its
+    cache), gated by the JAX test's loss decrease, its RMSE against the
+    oracle, its training step's ms; its value + gradient and value-only
+    queries at 200 x 15,251 beside phases 4 and 8, held to the same
+    weights on the CPU (npz from the card, identical arrays; values 1e-5,
+    gradients 1e-4; bfloat16 2e-2 of the scale), d/dq finite;
+    ``draw_sdf_slice`` of the model and of the robot equal to direct
+    queries; ``fit_neural_sdf`` on phase 5's torus with an exact
+    ``MeshSDF`` oracle (K1 on every oracle query), its npz on the CPU;
+12. one JSON line with every kernel's launches and times, then the result
     line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
@@ -638,7 +650,7 @@ def phase_coherent(device, arm_dir, tmp, card, generic_ms, n_configs=N_CONFIGS,
         f"{vo_ms:.3f} ms; the generic cached path in phase 4: forward {generic_ms[0]:.3f} ms, "
         f"forward+backward {generic_ms[1]:.3f} ms [{card}]; kernel launches on the path "
         f"(its cache build): {launches}; bit-identical everywhere: {exact}")
-    return launches
+    return launches, fwd_ms, vo_ms
 
 
 # ---------------------------------------------------------------------------
@@ -996,6 +1008,238 @@ def phase_narrow_band(device, arm_dir, tmp, card, n_configs=N_CONFIGS, query_res
             "arm_launch": arm}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the neural SDF models
+# ---------------------------------------------------------------------------
+
+# benchmarks/neural.py's distillation of the headline arm
+NEURAL_FIT = dict(width=128, depth=4, fourier=96, n_configs=256, pts_per_config=2048,
+                  steps=4000, batch=8192, lr=1e-3, activation="sine")
+
+
+def loss_gate(name, losses):
+    """The JAX package's test gate (tests/test_neural_sdf.py): the mean of
+    the last 50 losses below half the mean of the first 50; prints the
+    losses' quarters as benchmarks/neural.py does."""
+    l = losses.detach().cpu().numpy()
+    check(l.shape[0] >= 100 and bool(np.isfinite(l).all()), f"{name}: non-finite losses")
+    qtr = [float(l[max(0, i * len(l) // 4 - 25):i * len(l) // 4 + 25].mean())
+           for i in range(1, 4)]
+    first, last = float(l[:50].mean()), float(l[-50:].mean())
+    log(f"    {name}: loss {first:.5g} -> {last:.5g} (quarters {[f'{x:.5g}' for x in qtr]})")
+    check(last < 0.5 * first, f"{name}: the loss did not halve (the JAX test's gate)")
+
+
+def rmse(err, mask=None):
+    err = err if mask is None else err[mask]
+    return float(torch.sqrt(torch.mean(err ** 2)))
+
+
+def neural_card_vs_cpu(model, q, pts, device):
+    """The model on the card against the same weights on the CPU (an npz
+    written on the card and loaded there, arrays identical): values within
+    1e-5, gradients within 1e-4 (summation order alone: ~3e-7 and ~1e-6
+    on the distilled arm); then bfloat16 compute (the card's tensor
+    cores against the CPU's float32 products of bfloat16-rounded operands)
+    within 2e-2 of the values' and gradients' scales.  Returns the largest
+    differences per dtype."""
+    import pytorch_volumetric_tpu_torch as pt
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "neural.npz")
+        model.save(path)
+        cpu_model = pt.ConfigSpaceNeuralSDF.load(path, device="cpu")
+    same = all(torch.equal(a.detach().cpu(), b) for pair_a, pair_b in zip(model.params,
+                                                                         cpu_model.params)
+               for a, b in zip(pair_a, pair_b))
+    same &= all(torch.equal(getattr(model, k).cpu(), getattr(cpu_model, k))
+                for k in ("fourier_B", "q_lo", "q_hi"))
+    log(f"    npz written on the card, loaded on the CPU: arrays identical {same}")
+    check(same, "neural npz: the CPU's arrays differ from the card's")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model.compute_dtype = cpu_model.compute_dtype = dtype
+        v, g = model.query(q, pts)
+        vc, gc = cpu_model.query(q.cpu(), pts.cpu())
+        ev, eg = (v.cpu() - vc).abs().max().item(), (g.cpu() - gc).abs().max().item()
+        sv, sg = vc.abs().max().item(), gc.abs().max().item()
+        name = str(dtype).replace("torch.", "")
+        out[name] = (ev, eg)
+        log(f"    {name} on the card vs the CPU ({q.shape[0]} x {pts.shape[0]}): max |d| value "
+            f"{ev:.3g} (scale {sv:.3g}), gradient {eg:.3g} (scale {sg:.3g})")
+        if dtype == torch.float32:
+            check(ev <= 1e-5 and eg <= 1e-4, "neural model: the card differs from the CPU "
+                  "beyond 1e-5 (values) / 1e-4 (gradients)")
+        else:
+            check(ev <= 2e-2 * sv and eg <= 2e-2 * sg, "neural model, bfloat16: the card's "
+                  "tensor-core products differ from the CPU's beyond 2e-2 of the scale")
+    model.compute_dtype = torch.float32
+    return out
+
+
+def time_train_step(model, n_rows, device, M, steps=200):
+    """ms per training step of ``_fit`` in steady state: ``steps`` steps on
+    a copy of the model's weights over a random dataset of the distill's
+    size (a step's work does not depend on the data)."""
+    from pytorch_volumetric_tpu_torch.models import neural_sdf as tn
+    params = tn.MLP([(W.detach().clone(), b.detach().clone()) for W, b in model.params])
+    gen = torch.Generator(device=device).manual_seed(1)
+    qx = torch.rand((n_rows, M + 3), generator=gen, device=device) * 2 - 1
+    v = torch.rand((n_rows,), generator=gen, device=device) - 0.5
+    g = torch.nn.functional.normalize(torch.randn((n_rows, 3), generator=gen, device=device),
+                                      dim=-1)
+
+    def run(n):
+        tn._fit(params, lambda b: model._features(b[..., :M], b[..., M:]), gen, qx, v, g, n,
+                NEURAL_FIT["batch"], NEURAL_FIT["lr"], 0.1, 30.0, torch.float32, "sine")
+
+    run(5)
+    return time_ms(lambda: run(steps), device, reps=1, warmup=0) / steps
+
+
+def phase_neural(device, arm_dir, cache_dir, tmp, card, generic_ms, coherent_ms,
+                 n_configs=N_CONFIGS, query_res=QUERY_RES, resolution=0.02, fit=None,
+                 torus_fit=None, reps=5, n_check=(4, 2048)):
+    """The headline arm distilled into a ``ConfigSpaceNeuralSDF`` at
+    benchmarks/neural.py's settings (oracle: phase 4's cached-link robot
+    from its cache), queried at the headline shape; ``fit_neural_sdf`` on
+    phase 5's torus with an exact ``MeshSDF`` oracle (K1 on every oracle
+    query); npz from the card to the CPU; ``draw_sdf_slice``."""
+    import pytorch_volumetric_tpu_torch as pt
+    from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
+
+    fit = dict(NEURAL_FIT, **(fit or {}))
+    check(torch.get_float32_matmul_precision() == "highest", "float32 matmul precision is "
+          "not 'highest' (TF32)")
+    text = open(os.path.join(arm_dir, "arm.urdf")).read()
+    robot = pt.RobotSDF(pt.build_serial_chain_from_urdf(text, "link7", device=device),
+                        path_prefix=arm_dir,
+                        link_sdf_cls=pt.cache_link_sdf_factory(
+                            resolution=resolution, padding=1.0,
+                            cache_path=os.path.join(cache_dir, "sdf_cache.npz")))
+    M = len(robot.joint_names)
+    sync(device)
+    t0 = time.perf_counter()
+    model, losses = robot.distill(key=0, **fit)
+    sync(device)
+    fit_s = time.perf_counter() - t0
+    check(isinstance(model, pt.ConfigSpaceNeuralSDF) and model.device.type == device.type,
+          "distill: the model is not on the robot's device")
+    step_ms = time_train_step(model, fit["n_configs"] * fit["pts_per_config"], device, M)
+    log(f"  distill ({fit['n_configs']} configurations x {fit['pts_per_config']} points, "
+        f"width {fit['width']}, depth {fit['depth']}, fourier {fit['fourier']}, "
+        f"{fit['steps']} steps of {fit['batch']}): {fit_s:.2f} s with the oracle sweep; "
+        f"a training step {step_ms:.4f} ms in steady state [{card}]")
+    loss_gate("distill", losses)
+
+    # accuracy against the oracle on fresh configurations and points
+    rng = np.random.default_rng(1)
+    lims = robot.chain.get_joint_limits()
+    qs_test = torch.as_tensor(rng.uniform(lims[:, 0], lims[:, 1], (8, M)).astype(np.float32),
+                              device=device)
+    pts_test = torch.as_tensor(rng.uniform(-0.8, 0.8, (4096, 3)).astype(np.float32),
+                               device=device)
+    robot.set_joint_configuration(qs_test)
+    with torch.no_grad():
+        v_gt, _ = robot(pts_test)
+    v_est, _ = model.set_joint_configuration(qs_test)(pts_test)
+    shell = v_gt.abs() < 0.1
+    err = v_est - v_gt
+    log(f"    RMSE against the oracle (8 configurations x 4096 points): overall "
+        f"{rmse(err):.5f}, near-surface shell (|d| < 0.1, {int(shell.sum())} points) "
+        f"{rmse(err, shell):.5f}")
+    check(bool(torch.isfinite(v_est).all()), "distilled model: non-finite values")
+
+    # the headline query
+    q, pts = headline_inputs(device, n_configs, query_res)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    v, g = model.query(q, pts)
+    sync(device)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else 0.0
+    check(v.shape == (q.shape[0], pts.shape[0]) and g.shape == v.shape + (3,),
+          "neural query: output shape")
+    check(bool(torch.isfinite(v).all() and torch.isfinite(g).all()), "neural query: non-finite")
+    del v, g
+    qq = q[:1].detach().clone().requires_grad_(True)
+    vq, _ = model.query(qq, pts[:256])
+    (dq,) = torch.autograd.grad(vq.sum(), qq)
+    log(f"    d(v.sum())/dq at one configuration: finite {bool(torch.isfinite(dq).all())}, "
+        f"max |d/dq| {dq.abs().max().item():.4g}")
+    check(bool(torch.isfinite(dq).all()) and dq.abs().max().item() > 0,
+          "neural query: d/dq not finite or zero")
+
+    def value_grad():
+        model.query(q, pts)
+
+    def value_only():
+        with torch.no_grad():
+            model.value(q[:, None], pts)
+
+    vg_ms = time_ms(value_grad, device, reps=reps)
+    vo_ms = time_ms(value_only, device, reps=reps)
+    model.compute_dtype = torch.bfloat16
+    vg16_ms = time_ms(value_grad, device, reps=reps)
+    vo16_ms = time_ms(value_only, device, reps=reps)
+    model.compute_dtype = torch.float32
+    n = q.shape[0] * pts.shape[0]
+    log(f"  neural query {q.shape[0]} x {pts.shape[0]}: value + gradient {vg_ms:.3f} ms "
+        f"({n / vg_ms / 1e3:.4g} M queries/s; peak memory {peak_gb:.2f} GB), value only "
+        f"{vo_ms:.3f} ms ({n / vo_ms / 1e3:.4g} M queries/s); bfloat16 products: "
+        f"{vg16_ms:.3f} / {vo16_ms:.3f} ms; the cached-link robot (phase 4): forward "
+        f"{generic_ms[0]:.3f} ms, forward+backward {generic_ms[1]:.3f} ms; the coherent "
+        f"grid path (phase 8): forward {coherent_ms[0]:.3f} ms, values only "
+        f"{coherent_ms[1]:.3f} ms [{card}]")
+    card_vs_cpu = neural_card_vs_cpu(model, q[:n_check[0]], pts[:n_check[1]], device)
+
+    # draw_sdf_slice of the model at one configuration and of the robot
+    robot.set_joint_configuration(q[0])
+    for name, s in (("model.at_config(q)", model.at_config(q[0])), ("cached robot", robot)):
+        val, grad, sp, *_ = pt.draw_sdf_slice(s, QUERY_RANGE, resolution=query_res,
+                                              do_plot=False)
+        with torch.no_grad():
+            vd, gd = s(sp)
+        same = torch.equal(val, vd) and torch.equal(grad, gd)
+        log(f"    draw_sdf_slice of the {name}: {val.numel()} points, values and gradients "
+            f"equal to a direct query at the returned points: {same}")
+        check(same, f"draw_sdf_slice of the {name} differs from a direct query")
+
+    # fit_neural_sdf on the torus, exact MeshSDF oracle (K1)
+    path = os.path.join(tmp, "torus_neural.obj")
+    pt.mesh.save_obj(pt.mesh.torus_mesh(0.1, 0.03, 128, 64), path)
+    torus = pt.MeshSDF(pt.MeshObjectFactory(path, device=device))
+    mesh_closest_query_cuda.launches = 0
+    t0 = time.perf_counter()
+    tmodel, tlosses = pt.fit_neural_sdf(torus, key=0, device=device, **(torus_fit or {}))
+    sync(device)
+    torus_s = time.perf_counter() - t0
+    torus_launches = mesh_closest_query_cuda.launches
+    loss_gate("fit_neural_sdf, torus", tlosses)
+    bb = torus.surface_bounding_box(padding=0.1)
+    u = torch.rand((65536, 3), generator=torch.Generator(device=device).manual_seed(2),
+                   device=device)
+    p_eval = bb[:, 0] + u * (bb[:, 1] - bb[:, 0])
+    with torch.no_grad():
+        d_ex, _ = torus(p_eval)
+    d_nn, _ = tmodel(p_eval)
+    near = d_ex.abs() < 0.02
+    terr = d_nn - d_ex
+    log(f"  fit_neural_sdf on the {torus.obj_factory.scene.num_faces}-face torus: "
+        f"{torus_s:.2f} s, K1 launches {torus_launches}; RMSE against the exact mesh "
+        f"(65,536 points in the padded box): overall {rmse(terr):.5f}, shell |d| < 0.02 "
+        f"({int(near.sum())} points) {rmse(terr, near):.5f} [{card}]")
+    check(bool(torch.isfinite(d_nn).all()), "torus model: non-finite values")
+    with tempfile.TemporaryDirectory() as d:
+        tp = os.path.join(d, "torus.npz")
+        tmodel.save(tp)
+        back = pt.NeuralSDF.load(tp, device="cpu")
+    check(all(torch.equal(a.detach().cpu(), b) for pa, pb in zip(tmodel.params, back.params)
+              for a, b in zip(pa, pb)) and torch.equal(tmodel.fourier_B.cpu(), back.fourier_B),
+          "torus model: the npz loaded on the CPU differs")
+    return {"fit_s": fit_s, "step_ms": step_ms, "value_grad_ms": vg_ms, "value_only_ms": vo_ms,
+            "peak_gb": peak_gb, "torus_launches": torus_launches, "torus_s": torus_s,
+            "card_vs_cpu": card_vs_cpu}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs one CUDA device")
@@ -1053,7 +1297,7 @@ def main():
         mjcf_launches = phase_mjcf(device, arm_dir, card)
         check(mjcf_launches > 0, "MJCF robot path launched no kernel")
         log("== phase 8: the coherent grid path")
-        coherent_launches = phase_coherent(device, arm_dir, tmp, card, generic_ms)
+        coherent_launches, *coherent_ms = phase_coherent(device, arm_dir, tmp, card, generic_ms)
         check(coherent_launches > 0, "the coherent path's cache build launched no kernel")
         log("== phase 9: the sweep's launches")
         log(f"  closest_point_sweep launches: exact-link path {exact_launches}, cached-link "
@@ -1063,8 +1307,11 @@ def main():
         nb = phase_narrow_band(device, arm_dir, tmp, card)
         check(nb["bigmesh_launches"] > 0, "bigmesh launched no narrow-band kernel")
         check(nb["arm_launches"] > 0, "the narrow-band robot launched no narrow-band kernel")
+        log("== phase 11: the neural SDF models")
+        neural = phase_neural(device, arm_dir, tmp, tmp, card, generic_ms, coherent_ms)
+        check(neural["torus_launches"] > 0, "fit_neural_sdf's exact oracle launched no kernel")
 
-    log("== phase 11: kernels")
+    log("== phase 12: kernels")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     grid = probe["grid"]
 
@@ -1109,6 +1356,7 @@ def main():
         {"name": "closest_point_sweep", "route": "cuda", "source": csrc + "closest_point.cu",
          "replaces": "pytorch_volumetric_tpu/ops/pallas/closest_point.py:62",
          "launches": cached_launches, "launches_coherent_path": coherent_launches,
+         "launches_neural_fit": neural["torus_launches"],
          "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], **bounds(k1), "library_ms": None},
         probe_row("closest_point_sweep_nowind", csrc + "closest_point.cu",

@@ -134,6 +134,16 @@ class RobotSDF(sdf.ObjectFrameSDF):
         out_batch = q.shape[:-1] + pts.shape[:-1]
         return vv.reshape(out_batch), gg.reshape(out_batch + (3,))
 
+    def distill(self, key=0, **fit_kwargs):
+        """Distill this robot SDF into a learned configuration-space field
+        (:class:`models.ConfigSpaceNeuralSDF`); see
+        :func:`models.fit_config_space_sdf` for the options.  Runs on this
+        robot's device unless ``device`` is given.  Returns ``(model,
+        losses)``; this robot stays the oracle."""
+        from pytorch_volumetric_tpu_torch.models import fit_config_space_sdf
+        fit_kwargs.setdefault("device", self.device)
+        return fit_config_space_sdf(self, key, **fit_kwargs)
+
     def query_grid(self, joint_config, query_range, resolution, values_only: bool = False):
         """:meth:`query` over a regular world-frame grid through the brick
         path (:func:`sdf.compose_query_coherent`), with identical results.

@@ -85,12 +85,24 @@ class ObjectFactory(abc.ABC):
         self._scene: Optional[mesh_mod.MeshScene] = None
         self.precompute_sdf()
 
+    def make_collision_obj(self, z, rgba=None):
+        return None, None
+
     @abc.abstractmethod
     def get_mesh_resource_filename(self) -> str:
         """Path to the mesh resource file (.obj, .stl, ...)."""
 
     def get_mesh_high_poly_resource_filename(self) -> str:
         return self.get_mesh_resource_filename()
+
+    def draw_mesh(self, dd, name, pose, rgba, object_id=None):
+        """Draw the mesh through a drawer ``dd`` with the reference's
+        ``draw_mesh(name, path, pose, scale=, rgba=, object_id=,
+        vis_frame_pos=, vis_frame_rot=)`` interface."""
+        frame_pos = np.array(self.vis_frame_pos) * self.scale
+        return dd.draw_mesh(name, self.get_mesh_resource_filename(), pose,
+                            scale=self.scale, rgba=rgba, object_id=object_id,
+                            vis_frame_pos=frame_pos, vis_frame_rot=self.vis_frame_rot)
 
     def precompute_sdf(self):
         """Load and frame the mesh (scale, vis-frame rotation about the
@@ -491,12 +503,14 @@ def compose_query(child_raw_queries: Tuple[Callable, ...],
 
     ``obj_to_link``/``link_to_obj``: ``[S*B, 4, 4]`` link-major flattened
     transforms (child ``i`` owns rows ``[i*B, (i+1)*B)``).  ``points``:
-    ``[F, d]`` in the shared object frame.  Returns ``(val [B, F],
-    grad [B, F, d])``; ties keep the earlier child (strict ``<``).
+    ``[F, d]`` in the shared object frame, every point taken under every
+    configuration, or ``[B, F, d]``, row ``b`` taken under configuration
+    ``b`` alone.  Returns ``(val [B, F], grad [B, F, d])``; ties keep the
+    earlier child (strict ``<``).
     """
     S = len(child_raw_queries)
-    F = points.shape[0]
-    pts_all = tfm.transform_points(obj_to_link, points).reshape(S, batch, F, 3)
+    F = points.shape[-2]
+    pts_all = tfm.transform_points(obj_to_link.reshape(S, batch, 4, 4), points)
     R_back = link_to_obj.reshape(S, batch, 4, 4)[..., :3, :3]
 
     best_v = None

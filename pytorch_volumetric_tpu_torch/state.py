@@ -1,21 +1,23 @@
 """Build the port's objects from arrays taken as numpy.
 
-The system has no learned weights; its state is the packed triangle arrays
-of each mesh, the value/gradient grids of each cached SDF and the eight
-tables of each narrow-band SDF.  These functions install such arrays (for
-example ones the JAX package built), so lookups and unions can be compared
-on identical tables.
+The system's state is the packed triangle arrays of each mesh, the
+value/gradient grids of each cached SDF, the eight tables of each
+narrow-band SDF and, for the neural models, the MLP's learned weights.
+These functions install such arrays (for example ones the JAX package
+built or trained), so lookups, unions and networks can be compared on
+identical tables and weights.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from pytorch_volumetric_tpu_torch import sdf
 from pytorch_volumetric_tpu_torch.mesh import MeshScene
+from pytorch_volumetric_tpu_torch.models.neural_sdf import MLP
 from pytorch_volumetric_tpu_torch.ops.narrow_band import NarrowBandTables, tables_from_numpy
 from pytorch_volumetric_tpu_torch.utils.batching import resolve_device
 
@@ -85,3 +87,12 @@ def load_robot_tables(robot, arrays: Sequence[Mapping[str, np.ndarray]]) -> None
                 cell_res=child.cell_res, band=child.band)
         else:
             raise TypeError(f"link {i} ({type(child).__name__}) holds no tables")
+
+
+def mlp_params_from_numpy(params: Sequence[Tuple[np.ndarray, np.ndarray]], device=None) -> MLP:
+    """The port's MLP weights from ``(W [din, dout], b [dout])`` pairs, the
+    JAX package's ``mlp_init`` layout, as float32 on ``device``."""
+    dev = resolve_device(device)
+    return MLP([(torch.tensor(np.asarray(W, dtype=np.float32), device=dev),
+                 torch.tensor(np.asarray(b, dtype=np.float32), device=dev))
+                for W, b in params])

@@ -58,6 +58,33 @@ def quaternion_xyzw_to_matrix(quat_xyzw: torch.Tensor) -> torch.Tensor:
         [q[..., 3], q[..., 0], q[..., 1], q[..., 2]], dim=-1))
 
 
+def matrix_to_quaternion(matrix: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices ``[..., 3, 3]`` to quaternions ``[..., 4]`` (w, x,
+    y, z), branch-free: all four candidate quaternions are built and the
+    one with the largest pivot is taken; the sign makes ``w >= 0``."""
+    m = matrix
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=1e-24))
+
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1)
+    pivots = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                          1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], dim=-1)
+    case = torch.argmax(pivots, dim=-1, keepdim=True)
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)  # [..., 4 (case), 4 (quat)]
+    q = torch.take_along_dim(cands, case[..., None], dim=-2)[..., 0, :]
+    pivot = torch.take_along_dim(pivots, case, dim=-1)
+    q = q * (0.5 / safe_sqrt(pivot))
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
 def _axis_rotation(angle: torch.Tensor, axis: str) -> torch.Tensor:
     c, s = torch.cos(angle), torch.sin(angle)
     one, zero = torch.ones_like(c), torch.zeros_like(c)
@@ -75,6 +102,15 @@ def euler_angles_to_matrix(angles: torch.Tensor, convention: str = "XYZ") -> tor
     as "XYZ", angles ``[..., 3]`` (``pytorch_kinematics`` semantics)."""
     ms = [_axis_rotation(angles[..., i], convention[i]) for i in range(3)]
     return mm(mm(ms[0], ms[1]), ms[2])
+
+
+def matrix_to_euler_angles_xyz(matrix: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`euler_angles_to_matrix` for the "XYZ" convention."""
+    m = matrix
+    y = torch.asin(torch.clamp(m[..., 0, 2], -1.0, 1.0))
+    x = torch.atan2(-m[..., 1, 2], m[..., 2, 2])
+    z = torch.atan2(-m[..., 0, 1], m[..., 0, 0])
+    return torch.stack([x, y, z], dim=-1)
 
 
 def rpy_to_matrix(rpy: torch.Tensor) -> torch.Tensor:
@@ -106,6 +142,27 @@ def matrix_to_rotation_6d(matrix: torch.Tensor) -> torch.Tensor:
     return matrix[..., :2, :].reshape(matrix.shape[:-2] + (6,))
 
 
+def _draw(generator: Optional[torch.Generator], fn, shape, dtype, device):
+    """``fn(shape)`` (``torch.randn`` or ``torch.rand``) drawn on the
+    generator's device (the CPU's default generator without one), moved to
+    ``device`` (CUDA unless given)."""
+    gen_dev = generator.device if generator is not None else torch.device("cpu")
+    out = fn(shape, generator=generator, dtype=dtype, device=gen_dev)
+    return out.to(resolve_device(device))
+
+
+def random_rotation(generator: Optional[torch.Generator] = None, dtype=torch.float32,
+                    device=None) -> torch.Tensor:
+    """Uniform random rotation ``[3, 3]`` from a random unit quaternion."""
+    return quaternion_to_matrix(_draw(generator, torch.randn, (4,), dtype, device))
+
+
+def random_rotations(generator: Optional[torch.Generator], n: int, dtype=torch.float32,
+                     device=None) -> torch.Tensor:
+    """``n`` uniform random rotations ``[n, 3, 3]``."""
+    return quaternion_to_matrix(_draw(generator, torch.randn, (n, 4), dtype, device))
+
+
 # ---------------------------------------------------------------------------
 # Homogeneous 4x4 transform operations
 # ---------------------------------------------------------------------------
@@ -135,6 +192,14 @@ def make_tf(pos: Optional[torch.Tensor] = None,
     bottom = torch.zeros(batch + (1, 4), dtype=m.dtype, device=m.device)
     bottom[..., 0, 3] = 1.0
     return torch.cat([m, bottom], dim=-2)
+
+
+def translation_tf(x: float, y: float, z: float, dtype=torch.float32,
+                   device=None) -> torch.Tensor:
+    """``[4, 4]`` pure translation."""
+    pos = torch.tensor(np.array([x, y, z], dtype=np.float32), dtype=dtype,
+                       device=resolve_device(device))
+    return make_tf(pos=pos, dtype=dtype)
 
 
 def invert_tf(matrix: torch.Tensor) -> torch.Tensor:
@@ -191,6 +256,39 @@ def rotate_vectors(R: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     ], dim=-1)
 
 
+def transform_normals(matrix: torch.Tensor, normals: torch.Tensor) -> torch.Tensor:
+    """Transform direction vectors ``[..., N, 3]`` with the inverse-transpose
+    of the linear block (R itself for rigid transforms); no translation.
+    The inverse-transpose comes from the adjugate: its columns are the cross
+    products of R's columns over the determinant (elementwise float32)."""
+    m = matrix
+    n = normals.to(m.dtype)
+    R = m[..., :3, :3]
+    a, b, c = R[..., :, 0], R[..., :, 1], R[..., :, 2]
+    bc = torch.linalg.cross(b, c, dim=-1)
+    det = (a * bc).sum(dim=-1)[..., None, None]
+    Rinv_T = torch.stack([bc, torch.linalg.cross(c, a, dim=-1),
+                          torch.linalg.cross(a, b, dim=-1)], dim=-1) / det
+    return precise_einsum("...ij,...nj->...ni", Rinv_T, n)
+
+
+def sample_perturbations(generator: Optional[torch.Generator], matrix: torch.Tensor, n: int,
+                         radian_sigma: float, translation_sigma: float) -> torch.Tensor:
+    """``n`` perturbed copies ``[n, 4, 4]`` of one ``[4, 4]`` transform:
+    random axis-angle rotations (rotation vector ~ N(0, radian_sigma) per
+    component) and gaussian translation offsets, applied in the world frame
+    (``pytorch_kinematics.Transform3d.sample_perturbations``)."""
+    m = matrix
+    rot_vec = _draw(generator, torch.randn, (n, 3), m.dtype, m.device) * radian_sigma
+    angle = torch.linalg.vector_norm(rot_vec, dim=-1)
+    axis = rot_vec / torch.clamp(angle[..., None], min=1e-12)
+    dR = axis_angle_to_matrix(axis, angle)
+    dt = _draw(generator, torch.randn, (n, 3), m.dtype, m.device) * translation_sigma
+    R = mm(dR, m[..., :3, :3])
+    t = m[..., :3, 3] + dt
+    return make_tf(pos=t, rot=R, dtype=m.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Object wrapper mirroring the pytorch_kinematics API surface
 # ---------------------------------------------------------------------------
@@ -221,10 +319,23 @@ class Transform3d:
         ms = [self.get_matrix()] + [o.get_matrix() for o in others]
         return Transform3d(matrix=torch.cat(ms, dim=0))
 
+    def transform_normals(self, normals: torch.Tensor) -> torch.Tensor:
+        n = as_float_tensor(normals, self.matrix.device, self.matrix.dtype)
+        squeeze = n.ndim == 2 and self.matrix.ndim == 2
+        return transform_normals(self.matrix if squeeze else self.get_matrix(), n)
+
+    def sample_perturbations(self, n: int, radian_sigma: float, translation_sigma: float,
+                             generator: Optional[torch.Generator] = None) -> "Transform3d":
+        """``n`` perturbed copies of this (single) transform; the draws
+        come from ``generator`` (a CPU generator seeded 0 without one)."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        m = self.matrix if self.matrix.ndim == 2 else self.get_matrix()[0]
+        return Transform3d(matrix=sample_perturbations(
+            generator, m, n, radian_sigma, translation_sigma))
+
 
 def Translate(x: float, y: float, z: float, dtype=torch.float32,
               device=None) -> Transform3d:
     """Pure translation, mirroring ``pytorch_kinematics.Translate``."""
-    pos = torch.tensor(np.array([x, y, z], dtype=np.float32), dtype=dtype,
-                       device=resolve_device(device))
-    return Transform3d(pos=pos, dtype=dtype)
+    return Transform3d(matrix=translation_tf(x, y, z, dtype=dtype, device=device))

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Callable, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,6 +53,26 @@ def float_keys(x: torch.Tensor, n: Union[torch.Tensor, None] = None) -> torch.Te
     return x.clamp(_INT32_LO, _INT32_HI).to(torch.int64).clamp(max=2 ** 31 - 1)
 
 
+def flatten_batch(x: torch.Tensor, event_ndim: int = 1
+                  ) -> Tuple[torch.Tensor, Callable[[torch.Tensor], torch.Tensor]]:
+    """Flatten all leading dims of ``x`` except the last ``event_ndim``.
+
+    Returns the flattened tensor and an ``unflatten(y)`` that restores the
+    leading batch shape on an output whose own event dims may differ.
+    """
+    batch_shape = tuple(x.shape[: x.ndim - event_ndim])
+    event_shape = tuple(x.shape[x.ndim - event_ndim:])
+    flat = x.reshape((-1,) + event_shape) if batch_shape else x.reshape((1,) + event_shape)
+
+    def unflatten(y: torch.Tensor, batch_shape=batch_shape) -> torch.Tensor:
+        out_event = tuple(y.shape[1:])
+        if batch_shape:
+            return y.reshape(batch_shape + out_event)
+        return y.reshape(out_event)
+
+    return flat, unflatten
+
+
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -71,3 +91,13 @@ def pad_to(x: torch.Tensor, size: int, axis: int = 0,
     pad_shape[axis] = size - cur
     pad = torch.full(pad_shape, value, dtype=x.dtype, device=x.device)
     return torch.cat([x, pad], dim=axis)
+
+
+def np_pad_to(x: np.ndarray, size: int, axis: int = 0, value=0.0) -> np.ndarray:
+    """Pad a numpy array along ``axis`` up to ``size`` with ``value``."""
+    cur = x.shape[axis]
+    if cur == size:
+        return x
+    pad = [(0, 0)] * x.ndim
+    pad[axis] = (0, size - cur)
+    return np.pad(x, pad, constant_values=value)

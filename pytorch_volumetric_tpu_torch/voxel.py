@@ -3,11 +3,14 @@
 A :class:`GridView` maps points to nearest-voxel indices by the affine
 ``idx = round((x - lo) / res)`` per dimension, with a raveled gather and an
 out-of-range fallback (a scalar, or a callable evaluated on the points).
-:class:`VoxelGrid` is a dense grid with an ``invalid_val = 0`` sentinel.
+:class:`VoxelGrid` is a dense grid with an ``invalid_val = 0`` sentinel,
+:class:`ExpandingVoxelGrid` one that grows to cover its writes and
+:class:`VoxelSet` a sparse list of (position, value) pairs.
 """
 
 from __future__ import annotations
 
+import abc
 from typing import Callable, Union
 
 import numpy as np
@@ -219,7 +222,21 @@ class GridView:
         self.raw_data = data.reshape(self.shape)
 
 
-class VoxelGrid:
+class Voxels(abc.ABC):
+    @abc.abstractmethod
+    def get_known_pos_and_values(self):
+        """Return the position (N x d) and values (N) of known voxels."""
+
+    @abc.abstractmethod
+    def __getitem__(self, pts):
+        """Return the values (N) at the positions (N x d)."""
+
+    @abc.abstractmethod
+    def __setitem__(self, pts, value):
+        """Set the values (N) at the positions (N x d)."""
+
+
+class VoxelGrid(Voxels):
     """Dense grid with an ``invalid_val = 0`` "unknown" sentinel."""
 
     def __init__(self, resolution: float, range_per_dim, dtype=torch.float32,
@@ -245,6 +262,19 @@ class VoxelGrid:
         indices = torch.nonzero(known)
         return self.voxels.ensure_value_key(indices), data[known]
 
+    def resize_to_fit(self):
+        """Shrink the range to the known voxels plus one voxel of margin,
+        keeping their values."""
+        known_pos, known_val = self.get_known_pos_and_values()
+        if known_pos.numel() == 0:
+            return
+        mins = known_pos.amin(dim=0).cpu().numpy()
+        maxs = known_pos.amax(dim=0).cpu().numpy()
+        rng = [(mins[i] - self.resolution, maxs[i] + self.resolution)
+               for i in range(len(mins))]
+        self._create_voxels(self.resolution, rng)
+        self[known_pos] = known_val
+
     def get_voxel_values(self) -> torch.Tensor:
         return self.voxels.raw_data
 
@@ -256,3 +286,87 @@ class VoxelGrid:
 
     def __setitem__(self, pts, value):
         self.voxels[pts] = value
+
+
+class ExpandingVoxelGrid(VoxelGrid):
+    """Grows its range in whole-resolution steps to cover writes, keeping
+    the known values (the regrow runs on the host)."""
+
+    def __setitem__(self, pts, value):
+        pts = as_float_tensor(pts, self.device)
+        if pts.numel() > 0:
+            flat = pts.reshape(-1, pts.shape[-1]).cpu().numpy()
+            cur = np.asarray(self.range_per_dim, dtype=np.float64)
+            # grow each bound outward in whole-resolution steps until every
+            # written point fits (no overshoot keeps the bound in place)
+            overshoot = np.maximum(
+                np.stack([cur[:, 0] - flat.min(axis=0),
+                          flat.max(axis=0) - cur[:, 1]], axis=1), 0.0)
+            steps = np.ceil(overshoot / self.resolution)
+            grown = cur + steps * self.resolution * np.array([-1.0, 1.0])
+            if not np.allclose(grown, cur):
+                keep_pos, keep_vals = self.get_known_pos_and_values()
+                self._create_voxels(self.resolution, grown)
+                super().__setitem__(keep_pos, keep_vals)
+        return super().__setitem__(pts, value)
+
+
+class VoxelSet(Voxels):
+    """Sparse append-only (positions, values) store.  A tensor stays on its
+    device; anything else goes to ``device`` (CUDA unless given)."""
+
+    def __init__(self, positions, values, device=None):
+        self.positions = as_float_tensor(positions, device)
+        self.values = torch.as_tensor(values, device=self.positions.device)
+
+    def __getitem__(self, pts):
+        raise RuntimeError("Cannot get arbitrary points on a voxel set")
+
+    def __setitem__(self, pts, value):
+        pts = as_float_tensor(pts, self.positions.device).reshape(-1, self.positions.shape[-1])
+        self.positions = torch.cat((self.positions, pts), dim=0)
+        value = torch.as_tensor(value, dtype=self.values.dtype, device=self.positions.device)
+        self.values = torch.cat((self.values, torch.atleast_1d(value)))
+
+    def get_known_pos_and_values(self):
+        return self.positions, self.values
+
+
+def bounds_contain_another_bounds(outer_bounds, inner_bounds) -> bool:
+    outer_bounds = np.asarray(outer_bounds)
+    inner_bounds = np.asarray(inner_bounds)
+    return bool(np.all(outer_bounds[:, 0] <= inner_bounds[:, 0])
+                and np.all(outer_bounds[:, 1] >= inner_bounds[:, 1]))
+
+
+def voxel_down_sample(points, resolution: float, range_per_dim=None,
+                      ignore_flat_dim: bool = False, device=None) -> torch.Tensor:
+    """Down-sample a point cloud ``[N, d]`` to the centers of its occupied
+    voxels by one scatter into an occupancy grid.  The output's size
+    depends on the data, so the grid's range is settled on the host.
+    ``ignore_flat_dim``: a flat last dimension (min == max) is dropped for
+    the scatter and its constant coordinate put back afterwards."""
+    points = as_float_tensor(points, device)
+    if points.shape[0] == 0:
+        return points
+    pts_np = points.cpu().numpy()
+    padded = np.stack((pts_np.min(axis=0) - 2 * resolution,
+                       pts_np.max(axis=0) + 2 * resolution)).T
+    if range_per_dim is None or bounds_contain_another_bounds(range_per_dim, padded):
+        range_per_dim = padded
+    bounds = np.asarray(range_per_dim, dtype=np.float64)
+
+    squeeze_last = ignore_flat_dim and bounds[-1, 0] == bounds[-1, 1]
+    if squeeze_last:
+        const_last = bounds[-1, 0]
+        bounds, points = bounds[:-1], points[..., :-1]
+
+    occupancy = VoxelGrid(resolution, bounds, dtype=torch.bool, device=points.device)
+    occupancy[points] = True
+    centers, _ = occupancy.get_known_pos_and_values()
+
+    if squeeze_last:
+        tail = torch.full((centers.shape[0], 1), const_last, dtype=centers.dtype,
+                          device=centers.device)
+        centers = torch.cat((centers, tail), dim=-1)
+    return centers

@@ -11,6 +11,12 @@ forward+backward (``d(v.sum() + g.sum())/dq``) of ``RobotSDF.query`` over
 200 configurations x 15,251 points with ``torch.profiler``, and of the
 cached robot's
 ``RobotSDF.query_grid`` (the coherent brick path) over the same grid.
+Then the neural model of the same arm (``ConfigSpaceNeuralSDF`` at
+``benchmarks/neural.py``'s shapes: width 128, depth 4, 96 Fourier
+features; random weights from ``mlp_init``, since a step's work does not
+depend on their values): its value-only forward and its value + gradient
+query over the same 200 x 15,251, and 20 training steps of ``_fit`` at
+batch 8,192.
 Prints, per run, the wall time, the summed device-kernel time and the
 number of kernel launches, the device's idle share of the window, and the
 kernels with the most device time; with ``--out DIR``, writes Chrome
@@ -107,6 +113,36 @@ def main():
 
         trace("coherent_forward", grid_fwd, args.out)
         trace("coherent_forward_backward", grid_fwd_bwd, args.out)
+
+    from pytorch_volumetric_tpu_torch.models import neural_sdf as tn
+    fit = chip_smoke.NEURAL_FIT
+    M, K = q.shape[1], fit["fourier"]
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = pt.ConfigSpaceNeuralSDF(
+        tn.mlp_init(gen, M + 2 * K, fit["width"], fit["depth"], device=device),
+        torch.randn((3, K), generator=gen, device=device), -torch.pi * torch.ones(M),
+        torch.pi * torch.ones(M), [[-1.0, 1.0]] * 3, device=device)
+
+    def neural_fwd():
+        with torch.no_grad():
+            model.value(q[:, None], pts)
+
+    def neural_fwd_bwd():
+        model.query(q, pts)
+
+    n_rows = fit["n_configs"] * fit["pts_per_config"]
+    qx = torch.rand((n_rows, M + 3), generator=gen, device=device) * 2 - 1
+    v = torch.rand((n_rows,), generator=gen, device=device) - 0.5
+    g = torch.nn.functional.normalize(torch.randn((n_rows, 3), generator=gen, device=device),
+                                      dim=-1)
+
+    def train_steps():
+        tn._fit(model.params, lambda b: model._features(b[..., :M], b[..., M:]), gen, qx, v, g,
+                20, fit["batch"], fit["lr"], 0.1, 30.0, torch.float32, "sine")
+
+    trace("neural_forward", neural_fwd, args.out)
+    trace("neural_forward_backward", neural_fwd_bwd, args.out)
+    trace("neural_train_20_steps", train_steps, args.out)
 
 
 if __name__ == "__main__":

@@ -318,3 +318,48 @@ def test_narrow_band_sdf_on_card_matches_cpu(card):
         results.append([x.detach().cpu() for x in (v, g, dp)])
     for a, b in zip(*results):
         assert (a - b).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_bf16_product_on_card_matches_plain(card):
+    """The neural models' bfloat16 product on the tensor cores (``torch.mm``
+    with ``out_dtype=float32``) against its plain version (float32 products
+    of the bfloat16-rounded operands), values and the first and second
+    derivatives that training takes.  The values are float32 sums of exact
+    products (1e-5 of their scale); both derivatives are rounded to
+    bfloat16, where another summation order can move an element by a
+    rounding step (2^-8 to 2^-7 of it): 1e-2 of their scale."""
+    from pytorch_volumetric_tpu_torch.models import neural_sdf as tn
+    gen = torch.Generator(device=card).manual_seed(0)
+    a = torch.randn((513, 96), generator=gen, device=card).requires_grad_(True)
+    b = torch.randn((96, 64), generator=gen, device=card).requires_grad_(True)
+    outs = []
+    for fn in (tn._bf16_product, tn._bf16_product_plain):
+        y = fn(a, b)
+        (da,) = torch.autograd.grad(torch.sin(y).sum(), a, create_graph=True)
+        (db,) = torch.autograd.grad((da ** 2).sum(), b)
+        outs.append((y.detach(), da.detach(), db))
+    for (x, ref), rel in zip(zip(*outs), (1e-5, 1e-2, 1e-2)):
+        scale = ref.abs().max().item()
+        assert (x - ref).abs().max().item() <= rel * scale
+
+
+@pytest.mark.cuda
+def test_neural_model_on_card_matches_cpu(card):
+    """A ``ConfigSpaceNeuralSDF`` query (values, per-configuration spatial
+    gradients, d/dq) on the card against the same weights on the CPU."""
+    from pytorch_volumetric_tpu_torch.models import neural_sdf as tn
+    results = []
+    for dev in (card, torch.device("cpu")):
+        params = tn.mlp_init(0, 7 + 32, 64, 4, device="cpu")
+        model = pt.ConfigSpaceNeuralSDF(
+            [(W.detach().to(dev), b.detach().to(dev)) for W, b in params],
+            torch.linspace(-3, 3, 48).reshape(3, 16), -torch.ones(7), torch.ones(7),
+            [[-1.0, 1.0]] * 3, device=dev)
+        q = torch.linspace(-0.9, 0.9, 21, device=dev).reshape(3, 7).requires_grad_(True)
+        p = _points(2, 500, dev, -0.5, 0.5)
+        v, g = model.query(q, p)
+        (dq,) = torch.autograd.grad(v.sum() + g.sum(), q)
+        results.append([x.detach().cpu() for x in (v, g, dq)])
+    for (a, b), tol in zip(zip(*results), (1e-4, 1e-3, 1e-3)):
+        assert (a - b).abs().max().item() <= tol * max(b.abs().max().item(), 1.0)
