@@ -73,7 +73,19 @@ Phases, each fatal on failure:
     ``draw_sdf_slice`` of the model and of the robot equal to direct
     queries; ``fit_neural_sdf`` on phase 5's torus with an exact
     ``MeshSDF`` oracle (K1 on every oracle query), its npz on the CPU;
-12. one JSON line with every kernel's launches and times, then the result
+12. serving, debug and examples on the headline arm: its cached (phase 4's
+    cache), exact and narrow-band (phase 10's) links exported at 200 x
+    15,251 (``utils.serving``, ``torch.export``) and loaded in a fresh
+    process that imports ``utils.serving`` alone, where one served query
+    launches K1, or the narrow-band kernel, once per link; the served
+    values, gradients and d/dq against the live query (equal, else 1e-6 /
+    1e-5 and phase 8's d/dq gate), with export, load, file sizes and served
+    times beside the live ones; the grid export at phase 8's grid (and
+    values only) against ``query_grid``; ``checked_query`` on the cached
+    arm (equal, a NaN point caught, ``throw=False`` under
+    ``set_sync_debug_mode("error")``); the four ``examples/torch_*.py`` at
+    their full settings, each passing its own asserts;
+13. one JSON line with every kernel's launches and times, then the result
     line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
@@ -84,7 +96,11 @@ function with ``torch.device("cpu")`` and small sizes (the kernels' wrappers
 run their plain versions on CPU tensors, so launch counts stay 0); for
 phase 10: ``phase_narrow_band(cpu, arm_dir, tmp, card, n_configs=4,
 query_res=0.05, bigmesh=dict(max_ks=(8, 64), points=4096, reps=1,
-plain_reps=1, subdiv=3, exact_points=1024))``.
+plain_reps=1, subdiv=3, exact_points=1024))``; for phase 12:
+``phase_serving(cpu, arm_dir, tmp, card, (1.0, 1.0), (1.0, 1.0), (1.0,
+1.0), n_configs=4, query_res=0.05, resolution=0.1, reps=1,
+example_args=("--device", "cpu"), example_env={"PVT_EXAMPLE_SMOKE":
+"1"})`` (its serving process then runs on the CPU too).
 """
 
 import json
@@ -306,12 +322,18 @@ def headline_inputs(device, n_configs=N_CONFIGS, query_res=QUERY_RES):
     return q, pts
 
 
-def query_objective_grad(robot, q, pts):
-    """``d (v.sum() + g.sum()) / d q`` (the benchmark's objective)."""
+def objective_grad(query, q, pts):
+    """``query(q, pts) -> (v, g)`` and ``d (v.sum() + g.sum()) / d q`` (the
+    benchmark's objective)."""
     qq = q.detach().clone().requires_grad_(True)
-    v, g = robot.query(qq, pts)
+    v, g = query(qq, pts)
     (dq,) = torch.autograd.grad(v.sum() + g.sum(), qq)
     return v.detach(), g.detach(), dq
+
+
+def query_objective_grad(robot, q, pts):
+    """:func:`objective_grad` of ``robot.query``."""
+    return objective_grad(robot.query, q, pts)
 
 
 def time_robot(robot, q, pts, device, reps):
@@ -1240,6 +1262,261 @@ def phase_neural(device, arm_dir, cache_dir, tmp, card, generic_ms, coherent_ms,
             "card_vs_cpu": card_vs_cpu}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: serving, debug and examples
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("torch_trajectory_optimization.py", "torch_pose_estimation.py",
+            "torch_neural_distillation.py", "torch_serving_export.py")
+
+
+def serve_consumer(jobs_path):
+    """The serving side of phase 12, in a process of its own that imports
+    ``pytorch_volumetric_tpu_torch.utils.serving`` and nothing else of the
+    port (the loader registers the kernels' ops): each job's program and
+    sidecar loaded on the card, one served query's kernel launches counted,
+    values, gradients and ``d(v.sum() + g.sum())/dq`` written to an npz,
+    and the served forward and forward + backward timed.  Prints one JSON
+    line: ``name -> {load_s, fwd_ms, fb_ms, launches}``."""
+    from pytorch_volumetric_tpu_torch.utils.serving import load_robot_query
+
+    with open(jobs_path) as f:
+        jobs = json.load(f)
+    wrappers = {"closest_point_sweep": ("pytorch_volumetric_tpu_torch.ops.closest_point",
+                                        "mesh_closest_query_cuda"),
+                "narrow_band_query": ("pytorch_volumetric_tpu_torch.ops.narrow_band_cuda",
+                                      "narrow_band_query_cuda")}
+    report = {}
+    for job in jobs:
+        device = torch.device(job["device"])
+        t0 = time.perf_counter()
+        query = load_robot_query(job["path"], device=device)
+        with np.load(job["inputs"]) as d:
+            q = torch.as_tensor(d["q"], device=device)
+            pts = torch.as_tensor(d["pts"], device=device)
+        sync(device)
+        load_s = time.perf_counter() - t0
+        counted = {k: getattr(sys.modules[m], w) for k, (m, w) in wrappers.items()}
+        with torch.no_grad():
+            query(q, pts)  # first call: the kernels' libraries load
+            sync(device)
+            for w in counted.values():
+                w.launches = 0
+            query(q, pts)
+            sync(device)
+        launches = {k: w.launches for k, w in counted.items()}
+        v, g, dq = objective_grad(query, q, pts)
+
+        def fwd():
+            with torch.no_grad():
+                query(q, pts)
+
+        report[job["name"]] = {
+            "load_s": load_s, "launches": launches,
+            "fwd_ms": time_ms(fwd, device, reps=job["reps"]),
+            "fb_ms": time_ms(lambda: objective_grad(query, q, pts), device, reps=job["reps"])}
+        np.savez(job["out"], v=v.cpu().numpy(), g=g.cpu().numpy(), dq=dq.cpu().numpy())
+        del query
+    print(json.dumps(report), flush=True)
+
+
+def served_gate(name, v, g, vr, gr, dq, dqr):
+    """Served ``(v, g, dq)`` against the live query's on the card: equal,
+    else the first difference printed and 1e-6 (value) / 1e-5 (gradient)
+    applied; d/dq equal or within 2e-4 of each configuration's largest
+    |d/dq| (phase 8's gate)."""
+    dv, dg = v != vr, (g != gr).any(dim=-1)
+    if bool(dv.any() or dg.any()):
+        c, i = (int(x) for x in torch.nonzero(dv | dg)[0])
+        log(f"    {name}: {int(dv.sum())} values and {int(dg.sum())} gradients differ from the "
+            f"live query, max |d| value {(v - vr).abs().max().item():.3g} gradient "
+            f"{(g - gr).abs().max().item():.3g}; first at configuration {c}, point {i}: "
+            f"served {v[c, i].item()!r} {g[c, i].tolist()}, live {vr[c, i].item()!r} "
+            f"{gr[c, i].tolist()}")
+        check((v - vr).abs().max().item() <= 1e-6 and (g - gr).abs().max().item() <= 1e-5,
+              f"{name}: the served query is beyond 1e-6 / 1e-5 of the live query")
+    scale = dqr.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+    dq_rel = ((dq - dqr).abs() / (2e-4 * scale)).max().item()
+    same = not bool(dv.any() or dg.any()) and torch.equal(dq, dqr)
+    log(f"    {name}: served values and gradients equal to the live query's "
+        f"{not bool(dv.any() or dg.any())}, d/dq equal {torch.equal(dq, dqr)} (max |d| "
+        f"{(dq - dqr).abs().max().item():.3g}, {dq_rel:.3g} of the 2e-4 gate)")
+    check(bool(torch.isfinite(dq).all()) and dq_rel <= 1.0,
+          f"{name}: d/dq through the served program beyond 2e-4 of the live query's")
+    return same
+
+
+def phase_serving(device, arm_dir, tmp, card, generic_ms, coherent_ms, nb_ms,
+                  n_configs=N_CONFIGS, query_res=QUERY_RES, resolution=0.02, reps=5,
+                  examples=EXAMPLES, example_args=(), example_env=None):
+    """The headline arm served: its cached (phase 4's cache), exact and
+    narrow-band (phase 10's cache) links exported at 200 x 15,251 and
+    loaded in a fresh process, the grid export at the coherent cell's grid,
+    ``checked_query`` on the cached arm, and the four ``examples/torch_*.py``
+    at their full settings."""
+    import pytorch_volumetric_tpu_torch as pt
+    from pytorch_volumetric_tpu_torch.utils import serving
+    from pytorch_volumetric_tpu_torch.utils.debug import QueryCheckError, checked_query
+
+    text = open(os.path.join(arm_dir, "arm.urdf")).read()
+    q, pts = headline_inputs(device, n_configs, query_res)
+
+    def arm(link_sdf_cls=pt.MeshSDF):
+        return pt.RobotSDF(pt.build_serial_chain_from_urdf(text, "link7", device=device),
+                           path_prefix=arm_dir, link_sdf_cls=link_sdf_cls)
+
+    arms = {"cached": arm(pt.cache_link_sdf_factory(
+                resolution=resolution, padding=1.0, cache_path=os.path.join(tmp, "sdf_cache.npz"))),
+            "exact": arm(),
+            "narrow_band": arm(pt.narrow_band_link_sdf_factory(
+                cache_path=os.path.join(tmp, "narrow_band.npz")))}
+    live_ms = {"cached": generic_ms, "exact": None, "narrow_band": nb_ms}
+    serve_dir = os.path.join(tmp, "serving")
+    os.makedirs(serve_dir, exist_ok=True)
+    inputs = os.path.join(serve_dir, "inputs.npz")
+    np.savez(inputs, q=q.cpu().numpy(), pts=pts.cpu().numpy())
+    jobs, live, stats = [], {}, {}
+    for name, robot in arms.items():
+        path = os.path.join(serve_dir, f"{name}.pt2")
+        stats[name] = serving.export_robot_query(robot, q.shape[0], pts.shape[0], path)
+        live[name] = query_objective_grad(robot, q, pts)
+        jobs.append({"name": name, "path": path, "inputs": inputs, "reps": reps,
+                     "device": str(device),
+                     "out": os.path.join(serve_dir, f"{name}.out.npz")})
+    del arms["exact"], arms["narrow_band"]
+    jobs_path = os.path.join(serve_dir, "jobs.json")
+    with open(jobs_path, "w") as f:
+        json.dump(jobs, f)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve", jobs_path],
+                          capture_output=True, text=True, timeout=900)
+    consumer_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the serving process failed:\n{proc.stdout[-3000:]}\n"
+          f"{proc.stderr[-6000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"  the serving process (imports utils.serving only): {consumer_s:.1f} s in all")
+    served_launches = {}
+    for job in jobs:
+        name, r, s = job["name"], report[job["name"]], stats[job["name"]]
+        with np.load(job["out"]) as d:
+            v, g, dq = (torch.as_tensor(d[k], device=device) for k in ("v", "g", "dq"))
+        vr, gr, dqr = live[name]
+        served_gate(f"{name} links", v, g, vr, gr, dq, dqr)
+        lm = live_ms[name]
+        log(f"  {name} links {q.shape[0]} x {pts.shape[0]}: export {s['export_s']:.2f} s, "
+            f"sidecar write {s['sidecar_s']:.2f} s, artifact {s['artifact_bytes']} B, sidecar "
+            f"{s['sidecar_bytes']} B; load {r['load_s']:.2f} s; served forward "
+            f"{r['fwd_ms']:.3f} ms, forward+backward {r['fb_ms']:.3f} ms"
+            + (f" (live, phase {4 if name == 'cached' else 10}: {lm[0]:.3f} / {lm[1]:.3f} ms)"
+               if lm else "") + f"; kernel launches per served query {r['launches']} [{card}]")
+        served_launches[name] = r["launches"]
+    n_links = len(arms["cached"].sdf.sdfs) if device.type == "cuda" else 0
+    check(served_launches["exact"]["closest_point_sweep"] == n_links,
+          f"the served exact-link query did not launch K1 once per link ({n_links})")
+    check(served_launches["narrow_band"]["narrow_band_query"] == n_links,
+          f"the served narrow-band query did not launch its kernel once per link ({n_links})")
+    check(served_launches["cached"] == {"closest_point_sweep": 0, "narrow_band_query": 0},
+          "the served cached-link query launched a kernel")
+    del live
+
+    # the grid export at the coherent cell's grid, loaded here
+    robot = arms["cached"]
+
+    def grid_objective(fn):
+        qq = q.detach().clone().requires_grad_(True)
+        v, g = fn(qq)
+        (dq,) = torch.autograd.grad(v.sum() + g.sum(), qq)
+        return v.detach().reshape(q.shape[0], -1), g.detach().reshape(q.shape[0], -1, 3), dq
+
+    for values_only in (False, True):
+        path = os.path.join(serve_dir, "grid_v.pt2" if values_only else "grid.pt2")
+        s = serving.export_robot_grid_query(robot, q.shape[0], QUERY_RANGE, query_res, path,
+                                            values_only=values_only)
+        t0 = time.perf_counter()
+        grid_query = serving.load_robot_grid_query(path, device=device)
+        sync(device)
+        load_s = time.perf_counter() - t0
+        if values_only:
+            with torch.no_grad():
+                vo = grid_query(q).reshape(q.shape[0], -1)
+            check(torch.equal(vo, vg), "the served values-only grid differs from the served grid")
+            ms = time_ms(lambda: grid_query(q), device, reps=reps)
+            log(f"  grid export, values only: export {s['export_s']:.2f} s, sidecar write "
+                f"{s['sidecar_s']:.2f} s ({s['sidecar_bytes']} B), artifact "
+                f"{s['artifact_bytes']} B, load {load_s:.2f} s; served {ms:.3f} ms (live, phase "
+                f"8: {coherent_ms[1]:.3f} ms); equal to the served grid's values [{card}]")
+            continue
+        vg, gg, dq = grid_objective(grid_query)
+        vgr, ggr, dqr = grid_objective(lambda qq: robot.query_grid(qq, QUERY_RANGE, query_res))
+        served_gate("grid export vs query_grid", vg, gg, vgr, ggr, dq, dqr)
+        del vgr, ggr
+
+        def fwd():
+            with torch.no_grad():
+                grid_query(q)
+
+        ms = time_ms(fwd, device, reps=reps)
+        fb = time_ms(lambda: grid_objective(grid_query), device, reps=reps)
+        log(f"  grid export {q.shape[0]} x {vg.shape[1]} ({len(robot.sdf.sdfs)} links on the "
+            f"brick path): export {s['export_s']:.2f} s, sidecar write {s['sidecar_s']:.2f} s "
+            f"({s['sidecar_bytes']} B), artifact {s['artifact_bytes']} B, load {load_s:.2f} s; "
+            f"served forward {ms:.3f} ms, forward+backward {fb:.3f} ms (live, phase 8: forward "
+            f"{coherent_ms[0]:.3f} ms) [{card}]")
+        del grid_query
+
+    # checked_query on the cached arm at the headline shape
+    robot.set_joint_configuration(q)
+    with torch.no_grad():
+        v0, g0 = robot.raw_query(pts)
+        v1, g1 = checked_query(robot)(pts)
+        check(torch.equal(v0, v1) and torch.equal(g0, g1),
+              "checked_query: results differ from the unchecked query")
+        bad = pts.clone()
+        bad[7, 1] = float("nan")
+        try:
+            checked_query(robot)(bad)
+            fail("checked_query: a NaN point did not raise")
+        except QueryCheckError as e:
+            check("non-finite query points" in str(e), f"checked_query: wrong guard: {e}")
+        # any host sync raises in this mode (the card only)
+        on_card = device.type == "cuda"
+        if on_card:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            err, _ = checked_query(robot, throw=False)(bad)
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode(0)
+        check(err.get() == "non-finite query points",
+              f"checked_query(throw=False): {err.get()!r}")
+        plain_ms = time_ms(lambda: robot.raw_query(pts), device, reps=reps)
+        checked_ms = time_ms(lambda: checked_query(robot)(pts), device, reps=reps)
+        lazy_ms = time_ms(lambda: checked_query(robot, throw=False)(pts), device, reps=reps)
+    log(f"  checked_query, cached arm {q.shape[0]} x {pts.shape[0]}: equal to the unchecked "
+        f"query; a NaN point raises 'non-finite query points'; throw=False ran under "
+        f"set_sync_debug_mode('error'); unchecked {plain_ms:.3f} ms, checked {checked_ms:.3f} "
+        f"ms, throw=False {lazy_ms:.3f} ms [{card}]")
+    del arms, robot
+
+    # the four examples at their full settings
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, **(example_env or {}))
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    example_s = {}
+    for script in examples:
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, os.path.join(root, "examples", script),
+                            *example_args], capture_output=True, text=True, timeout=900,
+                           env=env, cwd=tmp)
+        example_s[script] = time.perf_counter() - t0
+        tail = (p.stdout.strip().splitlines() or [""])[-1]
+        err_tail = [ln for ln in p.stderr.strip().splitlines() if "Warning" not in ln][-2:]
+        log(f"  {script}: {example_s[script]:.1f} s, exit {p.returncode}; {' | '.join(err_tail)}"
+            f" | {tail} [{card}]")
+        check(p.returncode == 0, f"{script} failed:\n{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+    return {"served_launches": served_launches, "examples_s": example_s}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs one CUDA device")
@@ -1310,8 +1587,11 @@ def main():
         log("== phase 11: the neural SDF models")
         neural = phase_neural(device, arm_dir, tmp, tmp, card, generic_ms, coherent_ms)
         check(neural["torus_launches"] > 0, "fit_neural_sdf's exact oracle launched no kernel")
+        log("== phase 12: serving, debug and examples")
+        served = phase_serving(device, arm_dir, tmp, card, generic_ms, coherent_ms,
+                               (nb["arm_fwd_ms"], nb["arm_fb_ms"]))
 
-    log("== phase 12: kernels")
+    log("== phase 13: kernels")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     grid = probe["grid"]
 
@@ -1343,6 +1623,8 @@ def main():
                 "replaces": "pytorch_volumetric_tpu/ops/narrow_band.py:254",
                 "replaces_note": "XLA fusion (_query_impl), no Pallas kernel",
                 "launches": nb["arm_launches"], "launches_bigmesh": nb["bigmesh_launches"],
+                "launches_served_query": served["served_launches"]["narrow_band"][
+                    "narrow_band_query"],
                 "max_abs_err": nb["max_abs_err"], **{k: main_b[k] for k in keys},
                 "library_ms": None, "shape": f"bigmesh, max_k {main_b['max_k']}, K "
                 f"{main_b['K']}, {main_b['work']['in_band']} in-band points",
@@ -1357,6 +1639,7 @@ def main():
          "replaces": "pytorch_volumetric_tpu/ops/pallas/closest_point.py:62",
          "launches": cached_launches, "launches_coherent_path": coherent_launches,
          "launches_neural_fit": neural["torus_launches"],
+         "launches_served_query": served["served_launches"]["exact"]["closest_point_sweep"],
          "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], **bounds(k1), "library_ms": None},
         probe_row("closest_point_sweep_nowind", csrc + "closest_point.cu",
@@ -1375,4 +1658,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--serve"]:
+        serve_consumer(sys.argv[2])
+    else:
+        main()

@@ -48,6 +48,14 @@ class Visual:
     geom_type: Optional[str]
     geom_param: tuple
     offset: np.ndarray  # [4, 4] visual origin in the link frame
+    # the device of the chain that holds the link (set by the chain)
+    device: Optional[torch.device] = field(default=None, compare=False, repr=False)
+
+    def offset_transform(self) -> tfm.Transform3d:
+        """The visual origin in the link frame as a transform on the
+        chain's device."""
+        return tfm.Transform3d(matrix=np.asarray(self.offset, dtype=np.float32),
+                               device=self.device)
 
 
 @dataclass
@@ -129,6 +137,12 @@ class Chain:
                     "mimic master must be an actuated non-mimic joint")
             self._mimic[j.name] = (master, float(mult), float(off))
         self._static = self._static_tensors(self.device)
+        self._place_visuals()
+
+    def _place_visuals(self):
+        for f in self._ordered:
+            for vis in f.link.visuals:
+                vis.device = self.device
 
     def _static_tensors(self, device: torch.device):
         """Per-frame origins, unit axes and joint offsets as float32 tensors.
@@ -186,6 +200,7 @@ class Chain:
         if device is not None:
             self.device = resolve_device(device)
             self._static = self._static_tensors(self.device)
+            self._place_visuals()
         return self
 
     # -- FK -------------------------------------------------------------------

@@ -19,7 +19,8 @@ from pytorch_volumetric_tpu_torch import sdf
 from pytorch_volumetric_tpu_torch import transforms as tfm
 from pytorch_volumetric_tpu_torch.kinematics import Chain
 from pytorch_volumetric_tpu_torch.sdf import compose_query
-from pytorch_volumetric_tpu_torch.utils.batching import as_float_tensor
+from pytorch_volumetric_tpu_torch.utils.batching import (
+    as_float_tensor, flatten_tensors, unflatten_tensors)
 from pytorch_volumetric_tpu_torch.voxel import (
     get_coherent_tile_points, get_coordinates_and_points_in_grid)
 
@@ -127,12 +128,29 @@ class RobotSDF(sdf.ObjectFrameSDF):
         q, q_flat = self._flat_configs(joint_config)
         pts = as_float_tensor(points_in_object_frame, self.device)
         pts_flat = pts.reshape(-1, pts.shape[-1])
-        queries = tuple(partial(s.raw_query_with, s.raw_query_aux())
-                        for s in self.sdf.sdfs)
-        m, m_inv = self._link_transforms(q_flat)
-        vv, gg = compose_query(queries, m, m_inv, q_flat.shape[0], pts_flat)
+        # the tables are fetched on every call, so a table swap takes effect
+        fn, leaves = self.fused_query_fn()
+        vv, gg = fn(q_flat, pts_flat, *leaves)
         out_batch = q.shape[:-1] + pts.shape[:-1]
         return vv.reshape(out_batch), gg.reshape(out_batch + (3,))
+
+    def fused_query_fn(self):
+        """``(fn, leaves)``: ``fn(q_flat [A, M], pts_flat [P, 3], *leaves)
+        -> (val [A, P], grad [A, P, 3])`` is the FK -> per-link SDF ->
+        min-union query with every link's big tables (``raw_query_aux``,
+        flattened in link order) as trailing arguments, and ``leaves`` are
+        their current values.  :meth:`query` calls it; ``utils.serving``
+        exports it with the tables as the program's inputs."""
+        children = tuple(self.sdf.sdfs)
+        leaves, spec = flatten_tensors(tuple(s.raw_query_aux() for s in children))
+
+        def fn(q_flat, pts_flat, *table_leaves):
+            aux = unflatten_tensors(spec, table_leaves)
+            queries = tuple(partial(s.raw_query_with, a) for s, a in zip(children, aux))
+            m, m_inv = self._link_transforms(q_flat)
+            return compose_query(queries, m, m_inv, q_flat.shape[0], pts_flat)
+
+        return fn, leaves
 
     def distill(self, key=0, **fit_kwargs):
         """Distill this robot SDF into a learned configuration-space field

@@ -7,7 +7,11 @@ or raises; for a CPU tensor it runs the plain version.  Each wrapper counts
 its kernel launches in its own ``.launches``.
 
 - :func:`mesh_closest_query_cuda` (``csrc/closest_point.cu``): the sweep of
-  the main path, plain version ``mesh_closest_query``.
+  the main path, plain version ``mesh_closest_query``.  It reaches the
+  kernel through the registered custom op ``pvt::closest_point_sweep``
+  (CPU: the plain version; CUDA: the kernel; a fake implementation gives
+  the outputs' shapes), so ``torch.export`` keeps the sweep as one opaque
+  node that a loaded program dispatches to the kernel on the card.
 - :func:`mesh_closest_query_nowind_cuda` (same source, no winding sum):
   plain version ``mesh_closest_query(..., winding=False)``.
 - :func:`mesh_closest_query_mma_cuda` (``csrc/closest_point_mma.cu``): the
@@ -21,13 +25,15 @@ its kernel launches in its own ``.launches``.
 from __future__ import annotations
 
 import ctypes
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from pytorch_volumetric_tpu_torch.ops import cuda_build
 from pytorch_volumetric_tpu_torch.ops.point_triangle import (
-    _FOUR_PI, mesh_closest_query, mesh_closest_query_expanded)
+    _FOUR_PI, DEFAULT_POINT_CHUNK, DEFAULT_TRI_CHUNK, mesh_closest_query,
+    mesh_closest_query_expanded)
 
 # the libraries the sweep wrappers launch (scripts/sweep_variants_torch.py
 # points them at its variants)
@@ -114,9 +120,36 @@ def _launch(wrapper, library: str, symbol: str, points: torch.Tensor,
     return torch.sqrt(d2), closest, fid, wind / _FOUR_PI
 
 
+@torch.library.custom_op("pvt::closest_point_sweep", mutates_args=(), device_types="cpu")
+def closest_point_sweep(points: torch.Tensor, tri: torch.Tensor,
+                        exterior_box: Optional[List[float]], point_chunk: int,
+                        tri_chunk: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                                 torch.Tensor]:
+    """``(dist [P], closest [P, 3], face_id [P] int32, winding [P])``: on
+    the CPU the plain version (which ignores ``exterior_box``; the chunks
+    apply to it only), on the card the kernel."""
+    return mesh_closest_query(points, tri, point_chunk=point_chunk, tri_chunk=tri_chunk)
+
+
+@closest_point_sweep.register_kernel("cuda")
+def _closest_point_sweep_cuda(points, tri, exterior_box, point_chunk, tri_chunk):
+    options, _box = _sweep_options(points, exterior_box, None, winding=True)
+    return _launch(mesh_closest_query_cuda, KERNEL, "pvt_closest_point_sweep",
+                   points, tri, options=options)
+
+
+@closest_point_sweep.register_fake
+def _closest_point_sweep_fake(points, tri, exterior_box, point_chunk, tri_chunk):
+    _check_inputs(points, tri)
+    P = points.shape[0]
+    return (points.new_empty(P), points.new_empty((P, 3)),
+            points.new_empty(P, dtype=torch.int32), points.new_empty(P))
+
+
 def mesh_closest_query_cuda(points: torch.Tensor, tri: torch.Tensor,
                             exterior_box=None, counters: torch.Tensor = None,
-                            **plain_kwargs):
+                            point_chunk: int = DEFAULT_POINT_CHUNK,
+                            tri_chunk: int = DEFAULT_TRI_CHUNK):
     """Closest point + winding number for ``points [P, 3]`` against
     triangles ``tri [Fp, 3, 3]`` (padding with ``mesh.PAD_COORD`` allowed).
 
@@ -127,16 +160,21 @@ def mesh_closest_query_cuda(points: torch.Tensor, tri: torch.Tensor,
       return winding 0 without summing.
     - ``counters``: an int64 tensor ``[2]`` on the device to which the
       launch adds the (point, real triangle) pairs whose closest point, and
-      whose solid angle, it evaluated.
+      whose solid angle, it evaluated (a direct launch, for the probes; not
+      through the custom op).
 
-    The plain version (a CPU tensor) ignores these; ``plain_kwargs`` (chunk
-    sizes) apply to it only.
+    The plain version (a CPU tensor) ignores these; the chunk sizes apply
+    to it only.
     """
-    if points.device.type == "cpu":
-        return mesh_closest_query(points, tri, **plain_kwargs)
-    options, _box = _sweep_options(points, exterior_box, counters, winding=True)
-    return _launch(mesh_closest_query_cuda, KERNEL, "pvt_closest_point_sweep",
-                   points, tri, options=options)
+    if points.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {points.device}")
+    if counters is not None and points.device.type == "cuda":
+        options, _box = _sweep_options(points, exterior_box, counters, winding=True)
+        return _launch(mesh_closest_query_cuda, KERNEL, "pvt_closest_point_sweep",
+                       points, tri, options=options)
+    box = (None if exterior_box is None
+           else np.asarray(exterior_box, dtype=np.float32).reshape(-1).tolist())
+    return closest_point_sweep(points, tri, box, point_chunk, tri_chunk)
 
 
 def mesh_closest_query_nowind_cuda(points: torch.Tensor, tri: torch.Tensor,

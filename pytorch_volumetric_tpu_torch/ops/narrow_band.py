@@ -349,18 +349,20 @@ def _query_impl(smalls: NarrowBandSmalls, big: NarrowBandBig, points: torch.Tens
 
 def narrow_band_query(tables: NarrowBandTables, points: torch.Tensor,
                       surface_normal_eps: float = 1e-3, backend: str = "auto",
-                      with_slots: bool = False):
+                      with_slots: bool = False, grid=None):
     """``points [P, 3] -> (val [P], grad [P, 3])`` (and ``slot [P]`` int32
     with ``with_slots``: the candidate slot, -1 far field, -2 outside the
     grid).
 
     ``backend``: "auto" calls the kernel's wrapper (the kernel for a CUDA
     tensor, the plain version for a CPU tensor); "torch" forces the plain
-    version (the kernel's reference on the card)."""
+    version (the kernel's reference on the card).  ``grid``: the grid
+    fields as lists (``narrow_band_cuda.grid_lists``), when the caller
+    holds them."""
     if backend == "auto":
         from pytorch_volumetric_tpu_torch.ops.narrow_band_cuda import narrow_band_query_cuda
         out = narrow_band_query_cuda(tables.smalls, tables.big, points, surface_normal_eps,
-                                     with_slots=with_slots)
+                                     with_slots=with_slots, grid=grid)
     elif backend == "torch":
         out = _query_impl(tables.smalls, tables.big, points, surface_normal_eps)
     else:

@@ -10,9 +10,9 @@ grad [.., N, 3])``, with concrete primitive, ``MeshSDF``,
 - Every SDF exposes ``raw_query(pts [P, 3])``; ``__call__`` adds input
   coercion and batch flattening.
 - Mesh and cached values are differentiable w.r.t. the query points (and
-  so w.r.t. poses and joint angles by the chain rule) through a
-  straight-through ``torch.autograd.Function`` whose derivative is the
-  analytic SDF gradient.
+  so w.r.t. poses and joint angles by the chain rule) through registered
+  straight-through ops (``ops.straight_through``) whose derivative is the
+  analytic SDF gradient; they keep it through ``torch.export``.
 - Disk caches are ``.npz`` files in the JAX package's format.
 """
 
@@ -32,6 +32,8 @@ import torch
 from pytorch_volumetric_tpu_torch import mesh as mesh_mod
 from pytorch_volumetric_tpu_torch import transforms as tfm
 from pytorch_volumetric_tpu_torch.ops.point_triangle import signed_closest_query
+from pytorch_volumetric_tpu_torch.ops.straight_through import (
+    straight_through, tile_winner_straight_through, winner_straight_through)
 from pytorch_volumetric_tpu_torch.utils.batching import (
     as_float_tensor, float_keys, resolve_device)
 from pytorch_volumetric_tpu_torch.utils.cache import get_store
@@ -363,23 +365,21 @@ class CapsuleSDF(ObjectFrameSDF):
         return torch.tensor([[-r, r], [-r, r], [-h, h]], device=self.device)
 
 
-class _StraightThrough(torch.autograd.Function):
-    """``raw_fn(*tables, pts) -> (val, grad)`` whose derivative of the value
-    w.r.t. the points is the analytic gradient itself.  The gradient output
-    carries no derivative of its own, and the tables get none."""
+def _no_derivative(t):
+    """A table detached where a derivative could reach it (the tables get
+    none); otherwise the caller's own tensor object."""
+    return t.detach() if isinstance(t, torch.Tensor) and t.requires_grad else t
 
-    @staticmethod
-    def forward(ctx, raw_fn, pts, *tables):
-        val, grad = raw_fn(*tables, pts)
-        ctx.n_tables = len(tables)
-        ctx.save_for_backward(grad)
-        ctx.mark_non_differentiable(grad)
-        return val, grad
 
-    @staticmethod
-    def backward(ctx, ct_val, _ct_grad):
-        (grad,) = ctx.saved_tensors
-        return (None, ct_val[..., None] * grad) + (None,) * ctx.n_tables
+def _straight_through(raw_fn: Callable, pts: torch.Tensor, *tables):
+    """``raw_fn(*tables, pts) -> (val, grad)`` on the detached points, then
+    the value's derivative w.r.t. ``pts`` attached as the analytic gradient
+    itself (:func:`ops.straight_through.straight_through`).  The gradient
+    output carries no derivative of its own, and the tables get none."""
+    val, grad = raw_fn(*map(_no_derivative, tables), pts.detach())
+    if torch.is_grad_enabled():
+        val = straight_through(val, grad, pts)
+    return val, grad
 
 
 def _straight_through_sdf(raw_fn: Callable) -> Callable:
@@ -389,7 +389,7 @@ def _straight_through_sdf(raw_fn: Callable) -> Callable:
 
     def query(*args):
         *tables, pts = args
-        return _StraightThrough.apply(raw_fn, pts, *tables)
+        return _straight_through(raw_fn, pts, *tables)
 
     return query
 
@@ -419,6 +419,12 @@ class MeshSDF(ObjectFrameSDF):
 
     def raw_query(self, points):
         return self._raw(*self._tables, points)
+
+    def raw_query_aux(self):
+        return self._tables
+
+    def raw_query_with(self, aux, points):
+        return self._raw(*aux, points)
 
     def surface_bounding_box(self, padding=0.0, padding_ratio=0.0):
         return torch.as_tensor(self.obj_factory.bounding_box(padding, padding_ratio),
@@ -468,13 +474,15 @@ class NarrowBandMeshSDF(ObjectFrameSDF):
                                                  device=self.device)
         self.tables = tables
         eps = obj_factory.surface_normal_eps
-        # the small grid fields are fixed here (the JAX package's trace-time
-        # constants); the big tables are passed on every call, so a union
-        # can thread them (raw_query_aux / raw_query_with)
+        # the small grid fields are fixed here, as numbers (the JAX package's
+        # trace-time constants); the big tables are passed on every call, so
+        # a union can thread them (raw_query_aux / raw_query_with)
+        from pytorch_volumetric_tpu_torch.ops.narrow_band_cuda import grid_lists
+        grid = grid_lists(tables.smalls)
 
         def raw(meta, cand, pseudo, pts):
             return nb.narrow_band_query(tables._replace(meta=meta, cand=cand, pseudo=pseudo),
-                                        pts.contiguous(), eps, backend)
+                                        pts.contiguous(), eps, backend, grid=grid)
 
         self._raw = _straight_through_sdf(raw)
 
@@ -771,26 +779,6 @@ def _coherent_union_values(tables: Sequence[_CoherentTables], pts_c: torch.Tenso
     return _nearest_union(tables, pts_c)[0].amin(dim=0)
 
 
-class _WinnerRowLookup(torch.autograd.Function):
-    """``_coherent_union_lookup``'s straight-through derivative: d val /
-    d pts_c[ci] = (win == ci) * the winner's link-frame gradient."""
-
-    @staticmethod
-    def forward(ctx, pts_c, tables):
-        val, g_link, win = _winner_rows_eval(tables, pts_c)
-        ctx.save_for_backward(g_link, win)
-        ctx.n_children = len(tables)
-        ctx.mark_non_differentiable(g_link, win)
-        return val, g_link, win
-
-    @staticmethod
-    def backward(ctx, ct_val, _ct_g, _ct_win):
-        g_link, win = ctx.saved_tensors
-        ci = torch.arange(ctx.n_children, device=win.device).view(-1, 1, 1, 1)
-        oh = (win[None] == ci).to(g_link.dtype)
-        return oh[..., None] * (ct_val[..., None] * g_link)[None], None
-
-
 def _winner_rows_eval(tables, pts_c):
     v, valid, flat, _, _, g_oob = _nearest_union(tables, pts_c)
     win, pick = _first_min(v)
@@ -803,8 +791,13 @@ def _coherent_union_lookup(tables: Sequence[_CoherentTables], pts_c: torch.Tenso
     seg, 3] -> (val [B, FS, seg], g_link [B, FS, seg, 3], win [B, FS,
     seg])``.  Values come from the value bricks; the winner's gradient, in
     its own link frame, from its packed (value, grad) row; ``win`` indexes
-    ``tables``.  Used when the tables carry no gradient bricks."""
-    return _WinnerRowLookup.apply(pts_c, tuple(tables))
+    ``tables``.  Used when the tables carry no gradient bricks.  The
+    straight-through derivative: d val / d pts_c[ci] = (win == ci) * the
+    winner's link-frame gradient."""
+    val, g_link, win = _winner_rows_eval(tuple(tables), pts_c.detach())
+    if torch.is_grad_enabled():
+        val = winner_straight_through(val, g_link, win, pts_c)
+    return val, g_link, win
 
 
 def _tile_candidates(best_i, best_valid, C: int, evaluate):
@@ -919,29 +912,17 @@ def _union_tile_eval(tables, residual_frac, pts_c, Rb):
                               covered if C > 3 else None, residual, residual_frac, Rb)
 
 
-class _TileWinnerLookup(torch.autograd.Function):
-    """Straight-through derivative of the per-tile winner unions: d val /
-    d pts_c[ci] = (win == ci) * the winner's link-frame gradient, and the
-    gradient output's derivative w.r.t. ``Rb``: d R[o, i] = the sum over
-    the child's winners of ``ct_g[o] * g_link[i]``, as for
-    ``transforms.rotate_vectors`` in the generic path."""
-
-    @staticmethod
-    def forward(ctx, pts_c, Rb, evaluate):
-        val, g_obj, win, g_link = evaluate(pts_c, Rb)
-        ctx.save_for_backward(g_link, win)
-        ctx.n_children = Rb.shape[0]
-        ctx.mark_non_differentiable(win)
-        return val, g_obj, win
-
-    @staticmethod
-    def backward(ctx, ct_val, ct_g, _ct_win):
-        g_link, win = ctx.saved_tensors
-        ci = torch.arange(ctx.n_children, device=win.device).view(-1, 1, 1, 1)
-        mask = (win[None] == ci).to(g_link.dtype)[..., None]    # [C, B, FS, seg, 1]
-        d_pts = mask * (ct_val[..., None] * g_link)[None]
-        d_Rb = ((ct_g[None] * mask)[..., :, None] * g_link[None, ..., None, :]).sum(dim=(2, 3))
-        return d_pts, d_Rb, None
+def _tile_winner_lookup(pts_c: torch.Tensor, Rb: torch.Tensor, evaluate):
+    """``evaluate(pts_c, Rb) -> (val, g_obj, win, g_link)`` of a per-tile
+    winner union on the detached inputs, then its straight-through
+    derivatives attached (:func:`ops.straight_through.tile_winner_straight_through`):
+    d val / d pts_c[ci] = (win == ci) * the winner's link-frame gradient,
+    and the gradient output's w.r.t. ``Rb``.  Returns ``(val, g_obj,
+    win)``."""
+    val, g_obj, win, g_link = evaluate(pts_c.detach(), Rb.detach())
+    if torch.is_grad_enabled():
+        val, g_obj = tile_winner_straight_through(val, g_obj, win, g_link, pts_c, Rb)
+    return val, g_obj, win
 
 
 def _coherent_union_lookup_tile(tables: Sequence[_CoherentTables], pts_c: torch.Tensor,
@@ -959,8 +940,8 @@ def _coherent_union_lookup_tile(tables: Sequence[_CoherentTables], pts_c: torch.
     ``residual_frac`` of all tiles, and middle tiles beyond it get NaN
     gradients (values unaffected).  Each point's gradient is then rotated
     with its winner's rotation (:func:`_finish_tile_union`)."""
-    return _TileWinnerLookup.apply(pts_c, Rb, partial(_union_tile_eval, tuple(tables),
-                                                      residual_frac))
+    return _tile_winner_lookup(pts_c, Rb, partial(_union_tile_eval, tuple(tables),
+                                                  residual_frac))
 
 
 def _union_tile_tri_eval(tables, residual_frac, pts_c, Rb=None):
@@ -1016,7 +997,7 @@ def _coherent_union_lookup_tile_tri(tables: Sequence[_CoherentTables], pts_c: to
     evaluate = partial(_union_tile_tri_eval, tuple(tables), residual_frac)
     if Rb is None:
         return evaluate(pts_c)
-    return _TileWinnerLookup.apply(pts_c, Rb, evaluate)
+    return _tile_winner_lookup(pts_c, Rb, evaluate)
 
 
 def _single_brick_lookup(bricks4, p, t):
@@ -1033,7 +1014,7 @@ def _coherent_single_lookup(t: _CoherentTables, p: torch.Tensor):
     3])`` in its link frame, both from one (value, gradient) brick row
     ``bricks4`` per tile, with the straight-through derivative w.r.t. the
     points ``p [B, FS, seg, 3]``."""
-    return _StraightThrough.apply(partial(_single_brick_lookup, t=t), p, t.bricks4)
+    return _straight_through(partial(_single_brick_lookup, t=t), p, t.bricks4)
 
 
 def _single_trilinear_lookup(bricks5, p, t, values_only=False):
@@ -1056,7 +1037,7 @@ def _coherent_single_trilinear_lookup(t: _CoherentTables, p: torch.Tensor,
     or ``val`` alone with ``values_only`` (callers detach)."""
     if values_only:
         return _single_trilinear_lookup(t.bricks5, p, t, values_only=True)
-    return _StraightThrough.apply(partial(_single_trilinear_lookup, t=t), p, t.bricks5)
+    return _straight_through(partial(_single_trilinear_lookup, t=t), p, t.bricks5)
 
 
 def compose_query_coherent(children: Sequence[ObjectFrameSDF],

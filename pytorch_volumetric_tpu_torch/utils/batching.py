@@ -2,10 +2,11 @@
 
 from __future__ import annotations
 
-from typing import Callable, Tuple, Union
+from typing import Any, Callable, List, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -101,3 +102,25 @@ def np_pad_to(x: np.ndarray, size: int, axis: int = 0, value=0.0) -> np.ndarray:
     pad = [(0, 0)] * x.ndim
     pad[axis] = (0, size - cur)
     return np.pad(x, pad, constant_values=value)
+
+
+def flatten_tensors(tree) -> Tuple[List[torch.Tensor], Any]:
+    """The tensors of a nest of tuples / named tuples (``None`` and other
+    values allowed) in a fixed order, and the spec that
+    :func:`unflatten_tensors` rebuilds the nest from."""
+    leaves, spec = pytree.tree_flatten(tree)
+    where = [i for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)]
+    rest = [None if isinstance(x, torch.Tensor) else x for x in leaves]
+    return [leaves[i] for i in where], (spec, where, rest)
+
+
+def unflatten_tensors(spec, tensors):
+    """The nest :func:`flatten_tensors` took apart, with ``tensors`` in
+    its tensors' places."""
+    tree_spec, where, rest = spec
+    if len(tensors) != len(where):
+        raise ValueError(f"{len(tensors)} tensors for a nest of {len(where)}")
+    leaves = list(rest)
+    for i, t in zip(where, tensors):
+        leaves[i] = t
+    return pytree.tree_unflatten(leaves, tree_spec)

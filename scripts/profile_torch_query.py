@@ -11,6 +11,9 @@ forward+backward (``d(v.sum() + g.sum())/dq``) of ``RobotSDF.query`` over
 200 configurations x 15,251 points with ``torch.profiler``, and of the
 cached robot's
 ``RobotSDF.query_grid`` (the coherent brick path) over the same grid.
+The cached and narrow-band robots are then served: exported with
+``utils.serving.export_robot_query`` and loaded back, and the loaded
+program's forward and forward+backward are traced the same way.
 Then the neural model of the same arm (``ConfigSpaceNeuralSDF`` at
 ``benchmarks/neural.py``'s shapes: width 128, depth 4, 96 Fourier
 features; random weights from ``mlp_init``, since a step's work does not
@@ -113,6 +116,21 @@ def main():
 
         trace("coherent_forward", grid_fwd, args.out)
         trace("coherent_forward_backward", grid_fwd_bwd, args.out)
+
+        from pytorch_volumetric_tpu_torch.utils import serving
+        for name in ("cached", "narrow_band"):
+            path = os.path.join(tmp, f"{name}.pt2")
+            serving.export_robot_query(robots[name], q.shape[0], pts.shape[0], path)
+            query = serving.load_robot_query(path, device=device)
+
+            def served_fwd(query=query):
+                with torch.no_grad():
+                    query(q, pts)
+
+            trace(f"served_{name}_forward", served_fwd, args.out)
+            trace(f"served_{name}_forward_backward",
+                  lambda query=query: chip_smoke.objective_grad(query, q, pts), args.out)
+            del query
 
     from pytorch_volumetric_tpu_torch.models import neural_sdf as tn
     fit = chip_smoke.NEURAL_FIT

@@ -363,3 +363,55 @@ def test_neural_model_on_card_matches_cpu(card):
         results.append([x.detach().cpu() for x in (v, g, dq)])
     for (a, b), tol in zip(zip(*results), (1e-4, 1e-3, 1e-3)):
         assert (a - b).abs().max().item() <= tol * max(b.abs().max().item(), 1.0)
+
+
+@pytest.mark.cuda
+def test_kernel_ops_fake_shapes_match_card(card):
+    """The two kernels' registered ops: their fake implementations give the
+    shapes, dtypes and devices of the kernels' real outputs on the card
+    (``torch.library.opcheck``), with and without slots."""
+    from pytorch_volumetric_tpu_torch.ops.closest_point import closest_point_sweep
+    from pytorch_volumetric_tpu_torch.ops.narrow_band_cuda import (
+        grid_lists, narrow_band_query_op)
+    checks = ("test_schema", "test_faketensor")
+    scene = _scene(card)
+    pts = _points(3, 777, card)
+    box = None if scene.exterior_box is None else scene.exterior_box.reshape(-1).tolist()
+    torch.library.opcheck(closest_point_sweep, (pts, scene.tri, box, 2048, 512),
+                          test_utils=checks)
+    t = tnb.build_narrow_band_tables(pt.mesh.icosphere_mesh(0.2, 2), 0.03, 0.06, device=card)
+    grid_f, grid_i = grid_lists(t.smalls)
+    for with_slots in (False, True):
+        torch.library.opcheck(narrow_band_query_op, (pts, *t.big, grid_f, grid_i, 1e-3,
+                                                     with_slots), test_utils=checks)
+
+
+@pytest.mark.cuda
+def test_served_exact_query_launches_k1(card, tmp_path):
+    """An exact-link arm exported on the card and loaded there: one served
+    query launches K1 once per link, and equals the live query in values,
+    gradients and d/dq."""
+    from pytorch_volumetric_tpu_torch.utils import robots, serving
+    urdf, end = robots.make_serial_arm(str(tmp_path), num_joints=3, segments=8, rings=3)
+    robot = pt.RobotSDF(pt.build_serial_chain_from_urdf(open(urdf).read(), end, device=card),
+                        path_prefix=str(tmp_path))
+    path = str(tmp_path / "exact.pt2")
+    serving.export_robot_query(robot, 3, 500, path)
+    query = serving.load_robot_query(path)
+    rng = np.random.default_rng(4)
+    q = torch.as_tensor(rng.uniform(-1, 1, (3, 3)).astype(np.float32), device=card)
+    pts = _points(5, 500, card, -0.3, 0.6)
+    query(q, pts)
+    torch.cuda.synchronize()
+    before = mesh_closest_query_cuda.launches
+    query(q, pts)
+    torch.cuda.synchronize()
+    assert mesh_closest_query_cuda.launches == before + len(robot.sdf.sdfs)
+    outs = []
+    for fn in (query, robot.query):
+        qq = q.clone().requires_grad_(True)
+        v, g = fn(qq, pts)
+        (dq,) = torch.autograd.grad(v.sum() + g.sum(), qq)
+        outs.append((v.detach(), g.detach(), dq))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)

@@ -17,7 +17,9 @@ PORT = os.path.join(REPO, "pytorch_volumetric_tpu_torch")
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    examples = os.path.join(REPO, "examples")
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(examples, n) for n in os.listdir(examples) if n.startswith("torch_")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -51,6 +53,7 @@ def test_forbidden_names_are_matched_exactly():
 def test_port_imports_no_jax():
     sources = _port_sources()
     assert os.path.join(REPO, "chip_smoke.py") in sources and len(sources) > 10
+    assert len([s for s in sources if os.sep + "examples" + os.sep in s]) == 4
     bad = []
     for path in sources:
         with open(path) as f:
@@ -88,7 +91,8 @@ def test_every_port_module_imports():
             mod = rel[:-3].replace(os.sep, ".")
             names.append(mod[:-len(".__init__")] if mod.endswith(".__init__") else mod)
     for extra in ("chamfer", "bench.sweep_roofline", "ops.fma_probe", "utils.profiling",
-                  "native", "ops.narrow_band", "ops.narrow_band_cuda", "bench.bigmesh"):
+                  "native", "ops.narrow_band", "ops.narrow_band_cuda", "bench.bigmesh",
+                  "utils.serving", "utils.debug", "ops.straight_through"):
         assert f"pytorch_volumetric_tpu_torch.{extra}" in names
     for name in names:
         importlib.import_module(name)
