@@ -85,7 +85,21 @@ Phases, each fatal on failure:
     arm (equal, a NaN point caught, ``throw=False`` under
     ``set_sync_debug_mode("error")``); the four ``examples/torch_*.py`` at
     their full settings, each passing its own asserts;
-13. one JSON line with every kernel's launches and times, then the result
+13. ``parallel`` at world size 1 (NCCL, a 1 x 1 mesh): the sharded query of
+    phase 4's cached arm, the exact arm (8 K1 launches a query) and phase
+    10's narrow-band arm (8 NB launches), the coherent grid (phase 8's
+    tiles through ``pad_for_mesh``), phase 11's model and phase 5's torus
+    (2^17 points), each equal to its unsharded call (else 1e-6 / 1e-5) with
+    both times, and five collision steps against the unsharded step (loss
+    1e-6 relative, ``q`` 1e-5, the loss falls); the audit finds no
+    collective in a forward and all-reduces only in the step.  Then a world
+    of two ranks on this card (gloo; ``--parallel-rank``): the exact arm on
+    2 x 1 and 1 x 2 meshes, ``TriangleShardedMeshSDF`` on a 2-way triangle
+    axis of the torus (K1 on each rank's shard, no sign flip against
+    ``MeshSDF``) and the collision step on 1 x 2 (its final ``q`` within
+    twice the unsharded step's own reorder noise), each rank's blocks held
+    to the unsharded result;
+14. one JSON line with every kernel's launches and times, then the result
     line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
@@ -100,7 +114,12 @@ plain_reps=1, subdiv=3, exact_points=1024))``; for phase 12:
 ``phase_serving(cpu, arm_dir, tmp, card, (1.0, 1.0), (1.0, 1.0), (1.0,
 1.0), n_configs=4, query_res=0.05, resolution=0.1, reps=1,
 example_args=("--device", "cpu"), example_env={"PVT_EXAMPLE_SMOKE":
-"1"})`` (its serving process then runs on the CPU too).
+"1"})`` (its serving process then runs on the CPU too); for phase 13, with
+``sdf_cache.npz``, ``narrow_band.npz`` (each built when missing) and
+phase 5's ``torus.obj`` in ``tmp`` and any ``ConfigSpaceNeuralSDF`` on the
+CPU: ``phase_parallel(cpu, arm_dir, tmp, card, model, n_configs=4,
+query_res=0.05, resolution=0.1, reps=1, n_torus=4096)`` (a world of one
+over gloo, then two gloo ranks on the CPU).
 """
 
 import json
@@ -1259,7 +1278,7 @@ def phase_neural(device, arm_dir, cache_dir, tmp, card, generic_ms, coherent_ms,
           "torus model: the npz loaded on the CPU differs")
     return {"fit_s": fit_s, "step_ms": step_ms, "value_grad_ms": vg_ms, "value_only_ms": vo_ms,
             "peak_gb": peak_gb, "torus_launches": torus_launches, "torus_s": torus_s,
-            "card_vs_cpu": card_vs_cpu}
+            "card_vs_cpu": card_vs_cpu, "model": model}
 
 
 # ---------------------------------------------------------------------------
@@ -1320,30 +1339,36 @@ def serve_consumer(jobs_path):
     print(json.dumps(report), flush=True)
 
 
-def served_gate(name, v, g, vr, gr, dq, dqr):
-    """Served ``(v, g, dq)`` against the live query's on the card: equal,
-    else the first difference printed and 1e-6 (value) / 1e-5 (gradient)
-    applied; d/dq equal or within 2e-4 of each configuration's largest
-    |d/dq| (phase 8's gate)."""
+def equal_gate(name, v, g, vr, gr, what="served", ref="live query"):
+    """``(v [A, P], g [A, P, 3])`` against a reference's on the card:
+    equal, else the first difference printed and 1e-6 (value) / 1e-5
+    (gradient) applied.  Returns whether they are equal."""
     dv, dg = v != vr, (g != gr).any(dim=-1)
     if bool(dv.any() or dg.any()):
         c, i = (int(x) for x in torch.nonzero(dv | dg)[0])
         log(f"    {name}: {int(dv.sum())} values and {int(dg.sum())} gradients differ from the "
-            f"live query, max |d| value {(v - vr).abs().max().item():.3g} gradient "
+            f"{ref}, max |d| value {(v - vr).abs().max().item():.3g} gradient "
             f"{(g - gr).abs().max().item():.3g}; first at configuration {c}, point {i}: "
-            f"served {v[c, i].item()!r} {g[c, i].tolist()}, live {vr[c, i].item()!r} "
+            f"{what} {v[c, i].item()!r} {g[c, i].tolist()}, {ref} {vr[c, i].item()!r} "
             f"{gr[c, i].tolist()}")
         check((v - vr).abs().max().item() <= 1e-6 and (g - gr).abs().max().item() <= 1e-5,
-              f"{name}: the served query is beyond 1e-6 / 1e-5 of the live query")
+              f"{name}: the {what} query is beyond 1e-6 / 1e-5 of the {ref}")
+    return not bool(dv.any() or dg.any())
+
+
+def served_gate(name, v, g, vr, gr, dq, dqr):
+    """Served ``(v, g, dq)`` against the live query's on the card:
+    :func:`equal_gate`; d/dq equal or within 2e-4 of each configuration's
+    largest |d/dq| (phase 8's gate)."""
+    vg_same = equal_gate(name, v, g, vr, gr)
     scale = dqr.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
     dq_rel = ((dq - dqr).abs() / (2e-4 * scale)).max().item()
-    same = not bool(dv.any() or dg.any()) and torch.equal(dq, dqr)
     log(f"    {name}: served values and gradients equal to the live query's "
-        f"{not bool(dv.any() or dg.any())}, d/dq equal {torch.equal(dq, dqr)} (max |d| "
+        f"{vg_same}, d/dq equal {torch.equal(dq, dqr)} (max |d| "
         f"{(dq - dqr).abs().max().item():.3g}, {dq_rel:.3g} of the 2e-4 gate)")
     check(bool(torch.isfinite(dq).all()) and dq_rel <= 1.0,
           f"{name}: d/dq through the served program beyond 2e-4 of the live query's")
-    return same
+    return vg_same and torch.equal(dq, dqr)
 
 
 def phase_serving(device, arm_dir, tmp, card, generic_ms, coherent_ms, nb_ms,
@@ -1517,6 +1542,373 @@ def phase_serving(device, arm_dir, tmp, card, generic_ms, coherent_ms, nb_ms,
     return {"served_launches": served_launches, "examples_s": example_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: parallel
+# ---------------------------------------------------------------------------
+
+def counted(device, fn):
+    """``fn()`` with every kernel's launch count set to 0 just before it
+    and read just after: ``(result, {kernel: launches})``."""
+    from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
+    from pytorch_volumetric_tpu_torch.ops.narrow_band_cuda import narrow_band_query_cuda
+    wrappers = {"closest_point_sweep": mesh_closest_query_cuda,
+                "narrow_band_query": narrow_band_query_cuda}
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    sync(device)
+    return out, {k: w.launches for k, w in wrappers.items()}
+
+
+def audit_gate(name, counts, step=False):
+    """A forward's collective histogram must be empty; a step's all-reduce
+    only, with at least one."""
+    from pytorch_volumetric_tpu_torch import parallel
+    log(f"    audit, {name}: {counts}")
+    if step:
+        parallel.assert_collectives(counts, allowed=("all-reduce",), require=("all-reduce",))
+    else:
+        parallel.assert_collectives(counts, allowed=())
+
+
+def no_grad_ms(fn, device, reps):
+    def run():
+        with torch.no_grad():
+            fn()
+    return time_ms(run, device, reps=reps)
+
+
+def torus_points(device, factory, n):
+    """``n`` points (seeded) in the torus's box padded by 0.05."""
+    bb = torch.as_tensor(factory.bounding_box(padding=0.05), dtype=torch.float32, device=device)
+    u = torch.rand((n, 3), generator=torch.Generator(device=device).manual_seed(3),
+                   device=device)
+    return bb[:, 0] + u * (bb[:, 1] - bb[:, 0])
+
+
+def collision_steps(robot, q, pts, mesh, steps=5, reorders=0):
+    """``steps`` Adam steps (lr 0.05, margin 0.1) with ``mesh`` and without,
+    their losses and ``q`` side by side, gated: loss within 1e-6 relative
+    at every step, ``q`` within 1e-5 after the first step and the loss
+    falls.  The final ``q`` is held to 1e-5, or with ``reorders`` to twice
+    the largest deviation of the unsharded step run on that many
+    permutations of the points (the same step summed in another order:
+    Adam divides each joint's gradient by its own running scale, so a
+    gradient summed to near zero over 15,251 points moves ``q`` by more
+    than its rounding).  Returns the sharded step, its state, its ``q``,
+    the unsharded step, its state, its ``q`` and the number of step calls."""
+    from pytorch_volumetric_tpu_torch import parallel
+
+    def adam(ps):
+        return torch.optim.Adam(ps, lr=0.05)
+
+    step = parallel.make_collision_step(robot, adam, margin=0.1, mesh=mesh)
+    ref = parallel.make_collision_step(robot, adam, margin=0.1)
+    cr = mesh.get_local_rank("config")
+
+    def q_err(q_sharded, q_ref):
+        q_loc = q_sharded.to_local()
+        return (q_loc - q_ref[cr * q_loc.shape[0]:(cr + 1) * q_loc.shape[0]]).abs().max().item()
+
+    qs, st = q, step.init(q)
+    qr, sr = q, ref.init(q)
+    losses, errs = [], []
+    for _ in range(steps):
+        qs, st, loss = step(qs, st, pts)
+        qr, sr, loss_r = ref(qr, sr, pts)
+        losses.append((float(loss), float(loss_r)))
+        errs.append(q_err(qs, qr))
+    noise = 0.0
+    for k in range(reorders):
+        perm = torch.randperm(pts.shape[0], generator=torch.Generator().manual_seed(k))
+        qp, sp = q, ref.init(q)
+        for _ in range(steps):
+            qp, sp, _ = ref(qp, sp, pts[perm.to(pts.device)])
+        noise = max(noise, (qp - qr).abs().max().item())
+    tol = max(1e-5, 2 * noise)
+    err_l = max(abs(a - b) / max(abs(b), 1e-30) for a, b in losses)
+    log(f"    collision step x{steps} (Adam, lr 0.05, margin 0.1): losses {[a for a, _ in losses]} "
+        f"(unsharded {[b for _, b in losses]}); loss rel err {err_l:.3g}; |q| err per step "
+        f"{[f'{e:.3g}' for e in errs]}"
+        + (f"; the unsharded step's own reorder noise ({reorders} permutations) {noise:.3g}, "
+           f"gate {tol:.3g}" if reorders else ""))
+    check(err_l <= 1e-6 and errs[0] <= 1e-5 and errs[-1] <= tol,
+          f"collision step: beyond 1e-6 (loss, relative) / 1e-5 (q, first step) / {tol:.3g} "
+          f"(q, last step) of the unsharded step")
+    check(losses[-1][0] < losses[0][0], "collision step: the loss did not fall")
+    return step, st, qs, ref, sr, qr, steps * (2 + reorders)
+
+
+def phase_parallel(device, arm_dir, tmp, card, model, n_configs=N_CONFIGS,
+                   query_res=QUERY_RES, resolution=0.02, reps=5, n_torus=1 << 17,
+                   rank_timeout=600):
+    """``parallel`` at world size 1 in this process (NCCL on the card): the
+    sharded robot queries (phase 4's cached arm, the exact arm, phase 10's
+    narrow-band arm), the coherent grid, the neural model of phase 11, the
+    SDF query on phase 5's torus and the collision step, each against its
+    unsharded call with both times, and the collective audit; then a world
+    of two ranks on this card (gloo, ``--parallel-rank``)."""
+    import torch.distributed as dist
+    import pytorch_volumetric_tpu_torch as pt
+    from pytorch_volumetric_tpu_torch import parallel
+    from pytorch_volumetric_tpu_torch import sdf as tsdf
+    from torch.distributed.tensor import DTensor
+
+    check(parallel.init_distributed() == (0, 1), "init_distributed() is not (0, 1) alone")
+    mesh = parallel.make_device_mesh(device=device)
+    backend = dist.get_backend()
+    log(f"  world of one: mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on "
+        f"{mesh.device_type}, backend {backend}")
+    check(tuple(mesh.shape) == (1, 1) and mesh.device_type == device.type,
+          "make_device_mesh: not a 1 x 1 mesh on the device")
+    check(device.type != "cuda" or backend == "nccl", "make_device_mesh: not NCCL on the card")
+    text = open(os.path.join(arm_dir, "arm.urdf")).read()
+    q, pts = headline_inputs(device, n_configs, query_res)
+
+    def arm(link_sdf_cls=pt.MeshSDF):
+        return pt.RobotSDF(pt.build_serial_chain_from_urdf(text, "link7", device=device),
+                           path_prefix=arm_dir, link_sdf_cls=link_sdf_cls)
+
+    arms = {"cached": arm(pt.cache_link_sdf_factory(
+                resolution=resolution, padding=1.0, cache_path=os.path.join(tmp, "sdf_cache.npz"))),
+            "exact": arm(),
+            "narrow_band": arm(pt.narrow_band_link_sdf_factory(
+                cache_path=os.path.join(tmp, "narrow_band.npz")))}
+    n_links = len(arms["exact"].sdf.sdfs) if device.type == "cuda" else 0
+    expect = {"cached": (0, 0), "exact": (n_links, 0), "narrow_band": (0, n_links)}
+    res = {"launches": {}, "ms": {}}
+
+    def report(name, launches, ms, ms_ref, ref_name):
+        res["launches"][name], res["ms"][name] = launches, (ms, ms_ref)
+        log(f"  sharded {name} {q.shape[0]} x {pts.shape[0]} (1 x 1 mesh): {ms:.3f} ms, "
+            f"unsharded {ref_name} {ms_ref:.3f} ms; kernel launches {launches} [{card}]")
+
+    for name, robot in arms.items():
+        fn = parallel.sharded_robot_query(robot, mesh)
+        with torch.no_grad():
+            (v, g), launches = counted(device, lambda: fn(q, pts))
+            vr, gr = robot.query(q, pts)
+        check(isinstance(v, DTensor) and tuple(v.shape) == tuple(vr.shape),
+              f"sharded {name} query: not a DTensor of the query's shape")
+        equal_gate(f"sharded {name} links", v.to_local(), g.to_local(), vr, gr,
+                   "sharded", "unsharded query")
+        check((launches["closest_point_sweep"], launches["narrow_band_query"]) == expect[name],
+              f"sharded {name} query: launches {launches}, expected {expect[name]}")
+        report(f"{name} links", launches, no_grad_ms(lambda: fn(q, pts), device, reps),
+               no_grad_ms(lambda: robot.query(q, pts), device, reps), "RobotSDF.query")
+        audit_gate(f"sharded {name} query", parallel.audit_sharded_callable(fn, q, pts))
+        del v, g, vr, gr
+
+    # the coherent grid: phase 8's tiles, padded for the mesh
+    robot = arms["cached"]
+    min_res = tsdf.coherent_min_cache_resolution(tuple(robot.sdf.sdfs))
+    pts_t, take, seg = pt.get_coherent_tile_points(query_res, QUERY_RANGE,
+                                                   cache_resolution=min_res, device=device)
+    pts_t, orig = parallel.pad_for_mesh(pts_t, mesh, parallel.POINT_AXIS, segment=seg)
+    take = torch.as_tensor(take, device=device)
+    fn = parallel.sharded_robot_query_coherent(robot, mesh, seg=seg)
+    with torch.no_grad():
+        (v, g), launches = counted(device, lambda: fn(q, pts_t))
+        vr, gr = robot.query_grid(q, QUERY_RANGE, query_res)
+    A = q.shape[0]
+    equal_gate(f"sharded coherent grid ({seg}-point tiles)", v.to_local()[:, :orig][:, take],
+               g.to_local()[:, :orig][:, take], vr.reshape(A, -1), gr.reshape(A, -1, 3),
+               "sharded", "query_grid")
+    vo = parallel.sharded_robot_query_coherent(robot, mesh, values_only=True, seg=seg)(q, pts_t)
+    check(torch.equal(vo.to_local(), v.to_local()), "sharded coherent values_only differs")
+    report("coherent grid", launches, no_grad_ms(lambda: fn(q, pts_t), device, reps),
+           no_grad_ms(lambda: robot.query_grid(q, QUERY_RANGE, query_res), device, reps),
+           "query_grid")
+    audit_gate("sharded coherent query", parallel.audit_sharded_callable(fn, q, pts_t))
+    del v, g, vr, gr, vo
+
+    # phase 11's distilled model
+    fn = parallel.sharded_neural_robot_query(model, mesh)
+    (v, g), launches = counted(device, lambda: fn(q, pts))
+    vr, gr = model.query(q, pts)
+    equal_gate("sharded neural model", v.to_local().detach(), g.to_local().detach(),
+               vr.detach(), gr.detach(), "sharded", "unsharded query")
+    del v, g, vr, gr
+    report("neural model", launches, time_ms(lambda: fn(q, pts), device, reps=reps),
+           time_ms(lambda: model.query(q, pts), device, reps=reps), "model.query")
+    audit_gate("sharded neural query", parallel.audit_sharded_callable(fn, q, pts))
+
+    # phase 5's torus, its points over every rank
+    torus = pt.MeshSDF(pt.MeshObjectFactory(os.path.join(tmp, "torus.obj"), device=device))
+    tp = torus_points(device, torus.obj_factory, n_torus)
+    fn = parallel.sharded_sdf_query(torus, mesh)
+    with torch.no_grad():
+        (v, g), launches = counted(device, lambda: fn(tp))
+        vr, gr = torus(tp)
+    equal_gate(f"sharded torus SDF ({n_torus} points)", v.to_local()[None], g.to_local()[None],
+               vr[None], gr[None], "sharded", "unsharded query")
+    check(launches["closest_point_sweep"] == (1 if device.type == "cuda" else 0),
+          f"sharded torus SDF: launches {launches}")
+    report(f"torus SDF ({torus.obj_factory.scene.num_faces} faces, {n_torus} points)",
+           launches, no_grad_ms(lambda: fn(tp), device, reps),
+           no_grad_ms(lambda: torus(tp), device, reps), "MeshSDF")
+    audit_gate("sharded SDF query", parallel.audit_sharded_callable(fn, tp))
+
+    # the collision step on the exact arm
+    robot = arms["exact"]
+    (step, st, qs, ref, sr, qr, calls), launches = counted(
+        device, lambda: collision_steps(robot, q, pts, mesh))
+    check(launches["closest_point_sweep"] == calls * n_links,
+          f"collision steps: K1 launches {launches}, expected {calls * n_links} ({calls} steps)")
+    res["step_launches"] = launches["closest_point_sweep"] // calls
+    report("collision step", {"closest_point_sweep": res["step_launches"]},
+           time_ms(lambda: step(qs, st, pts), device, reps=reps),
+           time_ms(lambda: ref(qr, sr, pts), device, reps=reps), "step (mesh=None)")
+    audit_gate("collision step", parallel.audit_sharded_callable(step, qs, st, pts), step=True)
+    del arms, robot, step, ref
+    dist.destroy_process_group()
+
+    # a world of two ranks on this card
+    port = free_port()
+    jobs = {"arm_dir": arm_dir, "tmp": tmp, "device": str(device), "n_configs": n_configs,
+            "query_res": query_res, "reps": reps, "n_torus": n_torus}
+    jobs_path = os.path.join(tmp, "parallel_jobs.json")
+    with open(jobs_path, "w") as f:
+        json.dump(jobs, f)
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    for r in range(2):
+        out = open(os.path.join(tmp, f"parallel_rank{r}.log"), "w+")
+        logs.append(out)
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                       "--parallel-rank", str(r), str(port), jobs_path],
+                                      stdout=out, stderr=subprocess.STDOUT, text=True))
+    try:
+        # a rank that fails leaves the other waiting in a collective: stop both
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            check(time.perf_counter() - t0 < rank_timeout,
+                  f"the parallel ranks ran past {rank_timeout} s")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    ranks = []
+    for r, (p, out) in enumerate(zip(procs, logs)):
+        out.seek(0)
+        lines = out.read().splitlines()
+        out.close()
+        check(p.returncode == 0, f"parallel rank {r} failed (exit {p.returncode}):\n"
+              + "\n".join(lines[-60:]))
+        for line in lines[:-1]:
+            log(f"  [rank {r}] {line}")
+        ranks.append(json.loads(lines[-1]))
+    log(f"  world of two on one card (gloo): {time.perf_counter() - t0:.1f} s in all; both "
+        f"ranks share the card, so their times are no scaling figure")
+    for r in ranks:
+        check(r["launches"]["triangle"] == (1 if device.type == "cuda" else 0),
+              f"rank {r['rank']}: the triangle-sharded query did not launch K1 once")
+    res["ranks"] = ranks
+    return res
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def parallel_rank(rank, port, jobs_path):
+    """One rank of phase 13's world of two (gloo, both on one card): the
+    exact arm's sharded query on 2 x 1 and 1 x 2 meshes (points through
+    ``pad_for_mesh``), ``TriangleShardedMeshSDF`` over a 2-way triangle
+    axis on phase 5's torus against ``MeshSDF`` and five collision steps on
+    1 x 2 against the unsharded step, each block held to the unsharded
+    result on this rank.  Prints its log, then one JSON line."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    import pytorch_volumetric_tpu_torch as pt
+    from pytorch_volumetric_tpu_torch import parallel
+
+    with open(jobs_path) as f:
+        jobs = json.load(f)
+    device = torch.device(jobs["device"])
+    if device.type == "cpu":  # a rehearsal: two ranks share the cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    reps = jobs["reps"]
+    check(parallel.init_distributed(f"localhost:{port}", 2, rank, device=device,
+                                    backend="gloo") == (rank, 2), "init_distributed")
+    text = open(os.path.join(jobs["arm_dir"], "arm.urdf")).read()
+    robot = pt.RobotSDF(pt.build_serial_chain_from_urdf(text, "link7", device=device),
+                        path_prefix=jobs["arm_dir"])
+    q, pts = headline_inputs(device, jobs["n_configs"], jobs["query_res"])
+    A, P = q.shape[0], pts.shape[0]
+    with torch.no_grad():
+        vr, gr = robot.query(q, pts)
+    rep = {"rank": rank, "launches": {}, "ms": {}, "audits": {}}
+    for nc, npt in ((2, 1), (1, 2)):
+        tag = f"{nc}x{npt}"
+        mesh = parallel.make_device_mesh(nc, npt, device=device)
+        padded, _ = parallel.pad_for_mesh(pts, mesh, parallel.POINT_AXIS)
+        fn = parallel.sharded_robot_query(robot, mesh)
+        with torch.no_grad():
+            (v, g), launches = counted(device, lambda: fn(q, padded))
+        v, g = v.to_local(), g.to_local()
+        a0 = mesh.get_local_rank("config") * v.shape[0]
+        p0 = mesh.get_local_rank("point") * v.shape[1]
+        cols = min(P - p0, v.shape[1])
+        equal_gate(f"rank {rank}, {tag} mesh, block [{a0}:{a0 + v.shape[0]}, {p0}:{p0 + cols}]",
+                   v[:, :cols], g[:, :cols], vr[a0:a0 + v.shape[0], p0:p0 + cols],
+                   gr[a0:a0 + v.shape[0], p0:p0 + cols], "sharded", "unsharded query")
+        rep["launches"][f"query_{tag}"] = launches["closest_point_sweep"]
+        rep["ms"][f"query_{tag}"] = no_grad_ms(lambda: fn(q, padded), device, reps)
+        rep["audits"][f"query_{tag}"] = parallel.audit_sharded_callable(fn, q, padded)
+        audit_gate(f"rank {rank}, {tag} query", rep["audits"][f"query_{tag}"])
+        log(f"rank {rank}, {tag} mesh: block {tuple(v.shape)} of {A} x {padded.shape[0]}, "
+            f"{rep['ms'][f'query_{tag}']:.3f} ms, K1 launches {launches['closest_point_sweep']}")
+        del v, g
+    rep["ms"]["query_unsharded"] = no_grad_ms(lambda: robot.query(q, pts), device, reps)
+    log(f"rank {rank}, the unsharded query {A} x {P} in the same window: "
+        f"{rep['ms']['query_unsharded']:.3f} ms")
+
+    fac = pt.MeshObjectFactory(os.path.join(jobs["tmp"], "torus.obj"), device=device)
+    ts = parallel.TriangleShardedMeshSDF(fac, init_device_mesh(device.type, (2,),
+                                                               mesh_dim_names=("tri",)))
+    tp = torus_points(device, fac, jobs["n_torus"])
+    ref = pt.MeshSDF(fac)
+    with torch.no_grad():
+        (v, g), launches = counted(device, lambda: ts(tp))
+        v0, g0 = ref(tp)
+    agree = torch.sign(v) == torch.sign(v0)
+    flips = int((~agree).sum())
+    err_v = (v - v0)[agree].abs().max().item()
+    err_g = (g - g0)[agree].abs().max().item()
+    rep["launches"]["triangle"] = launches["closest_point_sweep"]
+    rep["ms"]["triangle"] = no_grad_ms(lambda: ts(tp), device, reps)
+    rep["ms"]["triangle_unsharded"] = no_grad_ms(lambda: ref(tp), device, reps)
+    rep["sign_flips"], rep["triangle_errs"] = flips, (err_v, err_g)
+    log(f"rank {rank}, triangle-sharded torus ({fac.scene.num_faces} faces, shard "
+        f"{ts.shard_size} of {fac.scene.padded_faces} padded, {tp.shape[0]} points): sign flips "
+        f"{flips}; where the sign agrees |val| err {err_v:.3g}, |grad| err {err_g:.3g}; "
+        f"equal {torch.equal(v, v0) and torch.equal(g, g0)}; {rep['ms']['triangle']:.3f} ms "
+        f"(MeshSDF {rep['ms']['triangle_unsharded']:.3f} ms); K1 launches "
+        f"{launches['closest_point_sweep']}")
+    check(flips == 0 and err_v <= 1e-6 and err_g <= 1e-5,
+          "triangle-sharded torus: sign flips, or beyond 1e-6 / 1e-5 of MeshSDF")
+
+    mesh = parallel.make_device_mesh(1, 2, device=device)
+    even = pts[:P - P % 2]
+    (step, st, qs, _, _, _, calls), launches = counted(
+        device, lambda: collision_steps(robot, q, even, mesh, reorders=3))
+    rep["launches"]["step"] = launches["closest_point_sweep"] // calls
+    rep["ms"]["step"] = time_ms(lambda: step(qs, st, even), device, reps=reps)
+    log(f"rank {rank}, collision step on 1 x 2 ({A} x {even.shape[0]}): "
+        f"{rep['ms']['step']:.3f} ms, K1 launches per step {rep['launches']['step']}")
+    rep["audits"]["step"] = parallel.audit_sharded_callable(step, qs, st, even)
+    audit_gate(f"rank {rank}, collision step on 1 x 2", rep["audits"]["step"], step=True)
+    dist.destroy_process_group()
+    print(json.dumps(rep), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs one CUDA device")
@@ -1590,8 +1982,12 @@ def main():
         log("== phase 12: serving, debug and examples")
         served = phase_serving(device, arm_dir, tmp, card, generic_ms, coherent_ms,
                                (nb["arm_fwd_ms"], nb["arm_fb_ms"]))
+        log("== phase 13: parallel")
+        t0 = time.perf_counter()
+        par = phase_parallel(device, arm_dir, tmp, card, neural.pop("model"))
+        log(f"  phase 13: {time.perf_counter() - t0:.1f} s")
 
-    log("== phase 13: kernels")
+    log("== phase 14: kernels")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     grid = probe["grid"]
 
@@ -1625,6 +2021,8 @@ def main():
                 "launches": nb["arm_launches"], "launches_bigmesh": nb["bigmesh_launches"],
                 "launches_served_query": served["served_launches"]["narrow_band"][
                     "narrow_band_query"],
+                "launches_sharded_query": par["launches"]["narrow_band links"][
+                    "narrow_band_query"],
                 "max_abs_err": nb["max_abs_err"], **{k: main_b[k] for k in keys},
                 "library_ms": None, "shape": f"bigmesh, max_k {main_b['max_k']}, K "
                 f"{main_b['K']}, {main_b['work']['in_band']} in-band points",
@@ -1640,6 +2038,9 @@ def main():
          "launches": cached_launches, "launches_coherent_path": coherent_launches,
          "launches_neural_fit": neural["torus_launches"],
          "launches_served_query": served["served_launches"]["exact"]["closest_point_sweep"],
+         "launches_sharded_query": par["launches"]["exact links"]["closest_point_sweep"],
+         "launches_triangle_sharded": [r["launches"]["triangle"] for r in par["ranks"]],
+         "launches_collision_step": par["step_launches"],
          "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], **bounds(k1), "library_ms": None},
         probe_row("closest_point_sweep_nowind", csrc + "closest_point.cu",
@@ -1660,5 +2061,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--serve"]:
         serve_consumer(sys.argv[2])
+    elif sys.argv[1:2] == ["--parallel-rank"]:
+        parallel_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     else:
         main()

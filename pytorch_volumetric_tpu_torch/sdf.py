@@ -84,8 +84,29 @@ class ObjectFactory(abc.ABC):
         if mesh is not None and weld_tolerance is not None:
             mesh = mesh_mod.weld_vertices(mesh, weld_tolerance)
         self._mesh = mesh
+        self._mesh_was_given = mesh is not None
         self._scene: Optional[mesh_mod.MeshScene] = None
         self.precompute_sdf()
+
+    def _reduce_kwargs(self):
+        kw = dict(scale=self.scale, vis_frame_pos=self.vis_frame_pos,
+                  vis_frame_rot=self.vis_frame_rot,
+                  plausible_suboptimality=self.plausible_suboptimality,
+                  surface_normal_eps=self.surface_normal_eps,
+                  winding_threshold=self.winding_threshold,
+                  weld_tolerance=self.weld_tolerance, device=self.device,
+                  **self.other_load_kwargs)
+        if self._mesh_was_given:
+            # an in-memory mesh has no file to reload from: it travels along
+            # (host numpy)
+            kw["mesh"] = self._mesh
+        return kw
+
+    def __reduce__(self):
+        """Pickled as its constructor call (file or in-memory mesh, and
+        keyword arguments, ``device`` included), never with its device
+        tensors, so that a spawned process can rebuild it."""
+        return partial(self.__class__, **self._reduce_kwargs()), (self.name,)
 
     def make_collision_obj(self, z, rgba=None):
         return None, None
@@ -161,6 +182,10 @@ class MeshObjectFactory(ObjectFactory):
         self.path_prefix = path_prefix
         self.strip_package_prefix = path_prefix != ""
         super().__init__(mesh_name, **kwargs)
+
+    def __reduce__(self):
+        return partial(self.__class__, path_prefix=self.path_prefix,
+                       **self._reduce_kwargs()), (self.name,)
 
     def get_mesh_resource_filename(self) -> str:
         mesh_path = self.name
