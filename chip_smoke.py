@@ -99,7 +99,23 @@ Phases, each fatal on failure:
     ``MeshSDF``) and the collision step on 1 x 2 (its final ``q`` within
     twice the unsharded step's own reorder noise), each rank's blocks held
     to the unsharded result;
-14. one JSON line with every kernel's launches and times, then the result
+14. the north-star workload (``bench/northstar.py``, the JAX package's
+    ``benchmarks/northstar.py`` shape): 200 configurations x 10^6 points in
+    (3, 3, 3) tiles (1,061,208 padded), configuration chunks of 25 (smaller
+    on OOM), each row's robot from a fresh cache (K1 in its build, none in
+    its queries): the arm (8 links, nearest) forward, forward + backward and
+    values only (a warm-up and 3 timed runs each), and one forward and one
+    values only of the trilinear arm and of a free single link (the
+    16,384-face torus, nearest and trilinear); per row the tile contract on
+    the first chunk, a finite forward sum, the values-only sum equal to the
+    forward's value part, NaN gradients only beyond the residual lane's
+    capacity (the middle-tile share printed), and on the first 2
+    configurations at every point the coherent values equal to
+    ``compose_query``'s, gradients equal where finite (else 1e-6 / 1e-5),
+    d/dq within 2e-4 of each configuration's largest, values only equal;
+    and K1 on the torus's own cache-build grid (114 x 114 x 104 points
+    against its 16,384 faces) held to the plain version as in phase 2;
+15. one JSON line with every kernel's launches and times, then the result
     line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
@@ -119,7 +135,10 @@ example_args=("--device", "cpu"), example_env={"PVT_EXAMPLE_SMOKE":
 phase 5's ``torus.obj`` in ``tmp`` and any ``ConfigSpaceNeuralSDF`` on the
 CPU: ``phase_parallel(cpu, arm_dir, tmp, card, model, n_configs=4,
 query_res=0.05, resolution=0.1, reps=1, n_torus=4096)`` (a world of one
-over gloo, then two gloo ranks on the CPU).
+over gloo, then two gloo ranks on the CPU); for phase 14:
+``phase_northstar(cpu, tmp, card, n_configs=4, points_side=24, chunk=2,
+build=dict(resolution=0.04, padding=0.3, arm_joints=3, torus=(0.1, 0.03,
+32, 16)))`` (caches of 0.04 over the 0.01 grid give larger tiles than 27).
 """
 
 import json
@@ -1810,6 +1829,124 @@ def phase_parallel(device, arm_dir, tmp, card, model, n_configs=N_CONFIGS,
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the north-star workload
+# ---------------------------------------------------------------------------
+
+# (robot, interpolation, variants, timed runs, warm-up runs): the arm row
+# all three variants, the other rows one forward and one values_only
+NORTHSTAR_ROWS = (("arm", "nearest", ("forward", "forward_backward", "values_only"), 3, 1),
+                  ("arm", "trilinear", ("forward", "values_only"), 1, 0),
+                  ("free_link", "nearest", ("forward", "values_only"), 1, 0),
+                  ("free_link", "trilinear", ("forward", "values_only"), 1, 0))
+
+
+def northstar_generic_gate(name, robot, ft, q2, pts, seg):
+    """The first configurations ``q2`` at every point: the coherent values
+    and gradients (the bench's chunk query) against ``compose_query`` on
+    the same tables (equal, else 1e-6 / 1e-5 where the gradient is
+    finite), NaN gradients only in tiles beyond the residual lane's
+    capacity, d(v.sum()+g.sum())/dq within 2e-4 of each configuration's
+    largest, and ``values_only`` equal to the values."""
+    from functools import partial
+    from pytorch_volumetric_tpu_torch import sdf as tsdf
+    from pytorch_volumetric_tpu_torch.bench import northstar as ns
+    children = tuple(robot.sdf.sdfs)
+    B = q2.shape[0]
+    v, g, dq = ns.chunk_grad(robot, ft, q2, pts, seg)
+    qq = q2.detach().clone().requires_grad_(True)
+    m, m_inv = robot._link_transforms(qq)
+    vr, gr = tsdf.compose_query(tuple(partial(s.raw_query_with, s.raw_query_aux())
+                                      for s in children), m, m_inv, B, pts)
+    (dqr,) = torch.autograd.grad(vr.sum() + gr.sum(), qq)
+    finite = torch.isfinite(g).all(dim=-1)
+    audit = ns.audit_chunk(robot, ft, q2, pts, seg)
+    check(audit["nan_outside_overflow"] == 0,
+          f"{name}: NaN gradients outside the tiles beyond the residual lane's capacity")
+    exact = exact_or_gate(f"{name}: coherent vs compose_query ({B} x {pts.shape[0]}, "
+                          f"{int((~finite).sum())} NaN gradients beyond the lane)",
+                          v[finite], g[finite], vr.detach()[finite], gr.detach()[finite])
+    check(torch.equal(v, vr.detach()), f"{name}: coherent values differ from compose_query")
+    scale = dqr.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+    dq_sc = ((dq - dqr).abs() / (2e-4 * scale)).max().item()
+    log(f"    {name}: d/dq max |d| {(dq - dqr).abs().max().item():.3g} of largest "
+        f"{dqr.abs().max().item():.4g}: {dq_sc:.3g} of the gate (2e-4 of each configuration's "
+        f"largest)")
+    check(dq_sc <= 1.0, f"{name}: d/dq beyond 2e-4 of compose_query's")
+    vo = ns.chunk_query(robot, ft, q2, pts, seg, values_only=True)
+    check(torch.equal(vo, v), f"{name}: values_only differs from the values")
+    return exact
+
+
+def northstar_build_gate(name, robot, device):
+    """K1 at a free link's own cache build: the cache's grid against the
+    link's whole scene (the 16,384-face torus) with its exterior box, in
+    one launch, held to the plain version by ``compare_kernel``'s rules
+    (distance, closest point and face id exact, |winding| within 1e-4).
+    Phase 2 holds K1 at the arm's build shape, the capsule's grid."""
+    import pytorch_volumetric_tpu_torch as pt
+    (cache,) = robot.sdf.sdfs
+    scene = cache.gt_sdf.obj_factory.scene
+    _, grid = pt.get_coordinates_and_points_in_grid(cache.resolution, cache.ranges,
+                                                    device=device)
+    t0 = time.perf_counter()
+    compare_kernel("base", f"{name}: the cache-build grid", grid.contiguous(), scene.tri, device,
+                   scene.exterior_box)
+    log(f"    {name}: K1 against the plain version on the build grid in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_northstar(device, tmp, card, n_configs=N_CONFIGS, points_side=100, chunk=25,
+                    rows=NORTHSTAR_ROWS, n_generic=2, build=None):
+    """``bench/northstar.py`` at the JAX package's north-star shape: 200
+    configurations x 10^6 points in (3, 3, 3) tiles, each row's robot from
+    a fresh cache (K1 in its build).  ``build``: keyword arguments for
+    ``northstar.build_robot`` (smaller robots to rehearse on the CPU)."""
+    from pytorch_volumetric_tpu_torch.bench import northstar as ns
+    from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
+    out = {"rows": {}, "build_launches": {}, "query_launches": {}}
+    exact = True
+    for kind, interp, variants, row_reps, warmup in rows:
+        name = ns.metric_name(kind, interp)
+        # the main path: the build (K1) and the chunked queries
+        mesh_closest_query_cuda.launches = 0
+        row, (robot, ft, q, pts, seg) = ns.northstar(
+            kind, interp, device, os.path.join(tmp, f"northstar_{kind}_{interp}"), n_configs,
+            points_side, chunk, variants, row_reps, warmup, build, log)
+        sync(device)
+        launches = mesh_closest_query_cuda.launches
+        if points_side == 100:
+            check(seg == 27 and row["padded_points"] == 1_061_208 and row["points"] == 10 ** 6,
+                  f"{name}: expected 1,061,208 padded points in 27-point tiles")
+        r = row["residual"]
+        log(f"    chunk {row['chunk']}; middle tiles per chunk {r['middle_tiles_per_chunk']} of "
+            f"capacity {r['capacity_per_chunk']} ({r['tiles_per_chunk']} tiles a chunk; largest "
+            f"share of the capacity {r['max_middle_share_of_capacity']:.4f}); NaN gradient "
+            f"entries {row['nan_gradient_entries']}; K1 launches {launches} (build "
+            f"{row['k1_launches_build']}); gates {row['gates']}")
+        for g_name, ok in row["gates"].items():
+            check(ok, f"{name}: gate {g_name} failed")
+        check(launches == row["k1_launches_build"], f"{name}: K1 ran in a query")
+        if kind == "free_link" and interp == "nearest":
+            # the trilinear row's build sweeps the same grid and scene
+            northstar_build_gate(name, robot, device)
+        exact &= northstar_generic_gate(name, robot, ft, q[:n_generic], pts, seg)
+        out["rows"][name] = row
+        out["build_launches"][name] = row["k1_launches_build"]
+        out["query_launches"][name] = launches - row["k1_launches_build"]
+        del robot, ft
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    for name, r in out["rows"].items():
+        for variant, v in r["variants"].items():
+            rate = v.get("queries_per_s", v.get("values_per_s"))
+            log(f"  {name} {variant}: {v['ms']:.3f} ms (runs "
+                f"{', '.join(f'{t:.3f}' for t in v['ms_runs'])}), {rate / 1e6:.2f} M/s, peak "
+                f"{(v['peak_bytes'] or float('nan')) / 1e9:.2f} GB, chunk {r['chunk']} [{card}]")
+    log(f"  bit-identical to compose_query everywhere gated: {exact}")
+    return out
+
+
 def free_port():
     import socket
     with socket.socket() as s:
@@ -1986,8 +2123,16 @@ def main():
         t0 = time.perf_counter()
         par = phase_parallel(device, arm_dir, tmp, card, neural.pop("model"))
         log(f"  phase 13: {time.perf_counter() - t0:.1f} s")
+        log("== phase 14: the north-star workload")
+        t0 = time.perf_counter()
+        north = phase_northstar(device, tmp, card)
+        for name, n in north["build_launches"].items():
+            check(n > 0, f"{name}: the cache build launched no kernel")
+        log(f"  closest_point_sweep launches (phase 9's table, continued): north-star "
+            f"path builds {north['build_launches']}, its queries {north['query_launches']}")
+        log(f"  phase 14: {time.perf_counter() - t0:.1f} s")
 
-    log("== phase 14: kernels")
+    log("== phase 15: kernels")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     grid = probe["grid"]
 
@@ -2041,6 +2186,8 @@ def main():
          "launches_sharded_query": par["launches"]["exact links"]["closest_point_sweep"],
          "launches_triangle_sharded": [r["launches"]["triangle"] for r in par["ranks"]],
          "launches_collision_step": par["step_launches"],
+         "launches_northstar_build": north["build_launches"],
+         "launches_northstar_queries": north["query_launches"],
          "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], **bounds(k1), "library_ms": None},
         probe_row("closest_point_sweep_nowind", csrc + "closest_point.cu",

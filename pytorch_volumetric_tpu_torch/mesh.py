@@ -485,7 +485,7 @@ class MeshScene:
 
     @classmethod
     def from_mesh(cls, mesh: TriangleMesh, pad_multiple: int = 128,
-                  device=None) -> "MeshScene":
+                  dtype: torch.dtype = torch.float32, device=None) -> "MeshScene":
         t = mesh.triangles().astype(np.float32)
         n = mesh.face_normals().astype(np.float32)
         F = len(t)
@@ -495,7 +495,8 @@ class MeshScene:
             t = np.concatenate([t, pad_tri], axis=0)
             n = np.concatenate([n, np.zeros((Fp - F, 3), dtype=np.float32)], axis=0)
         dev = resolve_device(device)
-        return cls(torch.as_tensor(t, device=dev), torch.as_tensor(n, device=dev), F)
+        return cls(torch.as_tensor(t, dtype=dtype, device=dev),
+                   torch.as_tensor(n, dtype=dtype, device=dev), F)
 
     @property
     def padded_faces(self) -> int:

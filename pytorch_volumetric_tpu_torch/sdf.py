@@ -581,6 +581,9 @@ def compose_query(child_raw_queries: Tuple[Callable, ...],
 # ``seg`` consecutive points, a view of the flat ``[B, F]``.
 
 COHERENT_SEG = 4
+# the per-tile union's residual lane: its capacity as a fraction of all
+# (configuration, tile) pairs (compose_query_coherent's default)
+RESIDUAL_FRAC = 0.04
 
 
 class _CoherentTables(NamedTuple):
@@ -825,44 +828,59 @@ def _coherent_union_lookup(tables: Sequence[_CoherentTables], pts_c: torch.Tenso
     return val, g_link, win
 
 
-def _tile_candidates(best_i, best_valid, C: int, evaluate):
+def _tile_candidate_ids(best_i, best_valid, C: int):
     """The per-tile winner candidates: the first and the last distinct
     in-bounds winner of each tile, then the smallest one not yet covered.
-    ``evaluate(ceff [B, FS]) -> [B, FS, seg, 3]`` is candidate ``ceff``'s
-    result at every point (``ceff`` is ``-1`` or ``C`` where a tile has no
-    such candidate; it matches no point).  Returns ``(selected, covered)``:
-    each point's result from the candidate that is its winner, and whether
-    one is."""
+    Returns ``(candidates, middle)``: ``(ceff [B, FS], mask [B, FS, seg])``
+    per candidate (``ceff`` is ``-1`` or ``C`` where a tile has no such
+    candidate, and ``mask`` marks the points it wins), and the residual
+    lane's middle tiles ``[B, FS]``: those where an in-bounds point's winner
+    is none of the three (4 or more distinct winners; None for ``C <= 3``,
+    where three candidates cover every winner)."""
     eff_min = torch.where(best_valid, best_i, C).amin(dim=2)
-    specs = [eff_min]
+    ids = [eff_min]
     if C >= 2:
         eff_max = torch.where(best_valid, best_i, -1).amax(dim=2)
-        specs.append(torch.where(eff_max > eff_min, eff_max, -1))
-    if C >= 3:
-        specs.append(None)  # resolved from `covered` below
-    selected, covered = None, torch.zeros_like(best_valid)
-    for ceff in specs:
+        ids.append(torch.where(eff_max > eff_min, eff_max, -1))
+    candidates, covered = [], torch.zeros_like(best_valid)
+    for ceff in ids + [None] * (C >= 3):
         if ceff is None:
             eff_mid = torch.where(best_valid & ~covered, best_i, C).amin(dim=2)
             ceff = torch.where(eff_mid < C, eff_mid, -1)
-        g_k = evaluate(ceff)
         mask = best_i == ceff[:, :, None]
-        selected = g_k if selected is None else torch.where(mask[..., None], g_k, selected)
+        candidates.append((ceff, mask))
         covered = covered | mask
-    return selected, covered
+    return candidates, ((best_valid & ~covered).any(dim=2) if C > 3 else None)
+
+
+def _tile_candidates(candidates, evaluate):
+    """Each point's result from the candidate of :func:`_tile_candidate_ids`
+    that is its winner: ``evaluate(ceff [B, FS]) -> [B, FS, seg, 3]`` is
+    candidate ``ceff``'s result at every point."""
+    selected = None
+    for ceff, mask in candidates:
+        g_k = evaluate(ceff)
+        selected = g_k if selected is None else torch.where(mask[..., None], g_k, selected)
+    return selected
+
+
+def residual_capacity(n_tiles: int, residual_frac: float = RESIDUAL_FRAC) -> int:
+    """The residual lane's capacity over ``n_tiles`` (configuration, tile)
+    pairs: ``residual_frac`` of them, at least 32 (for ``residual_frac >=
+    1e-6``) and at most all."""
+    return min(n_tiles, max(int(math.ceil(n_tiles * residual_frac)),
+                            min(32, n_tiles) if residual_frac >= 1e-6 else 1))
 
 
 def _residual_tiles(middle: torch.Tensor, residual_frac: float):
     """The residual lane's tiles, without a host sync: ``(idx [cap],
     overflow [B, FS])``.  ``idx`` holds the flat indices ``b * FS + f`` of
     the first ``cap`` middle tiles in order, then ``B * FS`` for unused
-    slots; ``overflow`` marks the middle tiles beyond ``cap``.  ``cap`` is
-    ``residual_frac`` of all tiles, at least 32 (for ``residual_frac >=
-    1e-6``) and at most all of them."""
+    slots; ``overflow`` marks the middle tiles beyond ``cap``
+    (:func:`residual_capacity`)."""
     B, FS = middle.shape
     T = B * FS
-    cap = min(T, max(int(math.ceil(T * residual_frac)),
-                     min(32, T) if residual_frac >= 1e-6 else 1))
+    cap = residual_capacity(T, residual_frac)
     mflat = middle.reshape(-1)
     mint = mflat.to(torch.int64)
     rank = torch.cumsum(mint, 0) - mint
@@ -870,6 +888,35 @@ def _residual_tiles(middle: torch.Tensor, residual_frac: float):
     idx = torch.full((cap + 1,), T, dtype=torch.int64, device=middle.device).scatter_(
         0, slot, torch.arange(T, device=middle.device))[:cap]
     return idx, middle & (rank.reshape(B, FS) >= cap)
+
+
+def coherent_middle_tiles(children: Sequence[ObjectFrameSDF], obj_to_link: torch.Tensor,
+                          batch: int, points: torch.Tensor, fast_tables=None,
+                          seg: int = COHERENT_SEG) -> Optional[torch.Tensor]:
+    """``[B, FS]`` bool: the residual lane's middle tiles of
+    :func:`compose_query_coherent`'s per-tile union (:func:`_tile_candidate_ids`),
+    or ``None`` when no per-tile union with more than 3 children runs.
+    Arguments as :func:`compose_query_coherent`'s; computed without
+    gradients."""
+    if _coherent_single_trilinear_child(children) is not None:
+        return None
+    fast, tri_u, _ = _coherent_classify(children)
+    idx = tri_u or fast
+    if len(idx) <= 3:
+        return None
+    tables = fast_tables if fast_tables is not None else coherent_fast_tables(children)
+    if not tri_u and any(t.gbricks is None for t in tables):
+        return None  # the per-point winner rows: no tile candidates
+    S, F = len(children), points.shape[0]
+    with torch.no_grad():
+        pts_all = tfm.transform_points(obj_to_link, points).reshape(S, batch, F // seg, seg, 3)
+        pts_c = torch.stack([pts_all[i] for i in idx])
+        if tri_u:
+            v, (valid, *_) = _trilinear_union_values(tables, pts_c)
+        else:
+            v, valid = _nearest_union(tables, pts_c)[:2]
+        win, pick = _first_min(v)
+        return _tile_candidate_ids(win, pick(valid), len(idx))[1]
 
 
 def _scatter_residual(res: torch.Tensor, idx: torch.Tensor, B: int, FS: int):
@@ -880,19 +927,18 @@ def _scatter_residual(res: torch.Tensor, idx: torch.Tensor, B: int, FS: int):
     return out[:T].reshape((B, FS) + res.shape[1:])
 
 
-def _finish_tile_union(best_v, best_i, best_valid, g_cand, g_oob, covered, residual,
+def _finish_tile_union(best_v, best_i, best_valid, g_cand, g_oob, middle, residual,
                        residual_frac, Rb):
     """The per-tile unions' last step, on link-frame gradients: the
     candidates' ``g_cand`` where a candidate is the point's winner, the
     residual lane's winner rows (``residual(tb, tf) -> [cap, seg, 3]`` for
-    residual tiles ``(tb, tf)``) in middle tiles (``covered`` is None when
-    three candidates cover every winner), NaN in middle tiles beyond the
-    lane's capacity, the AABB fallback ``g_oob`` out of bounds, then
-    rotated with each point's winner's rotation.  Returns ``(val, g_obj,
-    win, g_link)``."""
+    residual tiles ``(tb, tf)``) in the ``middle`` tiles of
+    :func:`_tile_candidate_ids` (None when three candidates cover every
+    winner), NaN in middle tiles beyond the lane's capacity, the AABB
+    fallback ``g_oob`` out of bounds, then rotated with each point's
+    winner's rotation.  Returns ``(val, g_obj, win, g_link)``."""
     B, FS = best_v.shape[:2]
-    if covered is not None:
-        middle = (best_valid & ~covered).any(dim=2)
+    if middle is not None:
         idx, overflow = _residual_tiles(middle, residual_frac)
         tile = idx.clamp(max=B * FS - 1)
         res = _scatter_residual(residual(tile // FS, tile % FS), idx, B, FS)
@@ -931,10 +977,9 @@ def _union_tile_eval(tables, residual_frac, pts_c, Rb):
         # each point's winner row of the packed (value, grad) tables
         return torch.cat([t.vg for t in tables])[pick(flat)[tb, tf]][..., 1:4]
 
-    g_cand, covered = _tile_candidates(win, best_valid, C, candidate)
-    # three candidates cover every winner of up to 3 children: no residual lane
-    return _finish_tile_union(pick(v), win, best_valid, g_cand, pick(g_oob),
-                              covered if C > 3 else None, residual, residual_frac, Rb)
+    candidates, middle = _tile_candidate_ids(win, best_valid, C)
+    return _finish_tile_union(pick(v), win, best_valid, _tile_candidates(candidates, candidate),
+                              pick(g_oob), middle, residual, residual_frac, Rb)
 
 
 def _tile_winner_lookup(pts_c: torch.Tensor, Rb: torch.Tensor, evaluate):
@@ -951,7 +996,7 @@ def _tile_winner_lookup(pts_c: torch.Tensor, Rb: torch.Tensor, evaluate):
 
 
 def _coherent_union_lookup_tile(tables: Sequence[_CoherentTables], pts_c: torch.Tensor,
-                                Rb: torch.Tensor, residual_frac: float = 0.04):
+                                Rb: torch.Tensor, residual_frac: float = RESIDUAL_FRAC):
     """Nearest brick union with per-TILE winner gradients: ``pts_c [C, B,
     FS, seg, 3]``, ``Rb [C, B, 3, 3]`` (link -> object rotations) -> ``(val
     [B, FS, seg], g_obj [B, FS, seg, 3], win [B, FS, seg])`` with ``g_obj``
@@ -969,13 +1014,21 @@ def _coherent_union_lookup_tile(tables: Sequence[_CoherentTables], pts_c: torch.
                                                   residual_frac))
 
 
+def _trilinear_union_values(tables: Sequence[_CoherentTables], pts_c: torch.Tensor):
+    """Every trilinear union child's value ``[C, B, FS, seg]`` (the lerp of
+    its 5x5x5 value brick in the grid, the AABB distance outside) and
+    :func:`_trilinear_anchor`'s tuple."""
+    anchor = _trilinear_anchor(tables, pts_c)
+    valid, _, w, row, base5, v_oob, _ = anchor
+    return torch.where(valid, torch.stack([_lerp5(t.tbricks, r, b, ww) for t, r, b, ww in
+                                           zip(tables, row, base5, w)]), v_oob), anchor
+
+
 def _union_tile_tri_eval(tables, residual_frac, pts_c, Rb=None):
     """Forward of :func:`_coherent_union_lookup_tile_tri` (values only
     without ``Rb``)."""
     C = len(tables)
-    valid, flat0, w, row, base5, v_oob, g_oob = _trilinear_anchor(tables, pts_c)
-    v = torch.where(valid, torch.stack([_lerp5(t.tbricks, r, b, ww) for t, r, b, ww in
-                                        zip(tables, row, base5, w)]), v_oob)
+    v, (valid, flat0, w, row, base5, _, g_oob) = _trilinear_union_values(tables, pts_c)
     if Rb is None:
         return v.amin(dim=0)
     win, pick = _first_min(v)
@@ -1002,14 +1055,14 @@ def _union_tile_tri_eval(tables, residual_frac, pts_c, Rb=None):
             acc = acc + _corner_weight(res_w, offs)[..., None] * vg_cat[res_flat0 + doff][..., 1:4]
         return acc
 
-    g_cand, covered = _tile_candidates(win, best_valid, C, candidate)
-    return _finish_tile_union(pick(v), win, best_valid, g_cand, pick(g_oob),
-                              covered if C > 3 else None, residual, residual_frac, Rb)
+    candidates, middle = _tile_candidate_ids(win, best_valid, C)
+    return _finish_tile_union(pick(v), win, best_valid, _tile_candidates(candidates, candidate),
+                              pick(g_oob), middle, residual, residual_frac, Rb)
 
 
 def _coherent_union_lookup_tile_tri(tables: Sequence[_CoherentTables], pts_c: torch.Tensor,
                                     Rb: Optional[torch.Tensor] = None,
-                                    residual_frac: float = 0.04):
+                                    residual_frac: float = RESIDUAL_FRAC):
     """Multi-child TRILINEAR union on the per-tile winner design of
     :func:`_coherent_union_lookup_tile`: values lerp the 8 corners of each
     point's cell from one 5x5x5 value brick per (child, tile), in
@@ -1070,7 +1123,7 @@ def compose_query_coherent(children: Sequence[ObjectFrameSDF],
                            batch: int, points: torch.Tensor,
                            fast_tables=None, values_only: bool = False,
                            generic_aux=None, seg: int = COHERENT_SEG,
-                           residual_frac: float = 0.04):
+                           residual_frac: float = RESIDUAL_FRAC):
     """Min-union query like :func:`compose_query`, with the brick-gather
     path for ``CachedSDF`` children; results are bit-identical to it.
 
@@ -1756,10 +1809,12 @@ class CachedSDF(ObjectFrameSDF):
 def sample_mesh_points(obj_factory: Optional[ObjectFactory] = None, num_points=100,
                        seed=0, name="", clean_cache=False, dtype=torch.float32,
                        min_init_sample_points=200,
-                       dbpath="model_points_cache.npz", device=None):
+                       dbpath="model_points_cache.npz", device=None, cache=None):
     """Uniform surface samples and their face normals, cached on disk under
     the key ``name/seed/num_points`` (the JAX package's store format, so
     either package reads the other's cache).  Deterministic from ``seed``.
+    ``cache`` is accepted for the reference's signature and unused: the
+    store at ``dbpath`` is the cache.
 
     Returns ``(points [N, 3], normals [N, 3], store)`` on ``device`` (the
     factory's device by default)."""

@@ -312,12 +312,40 @@ class Transform3d:
     def __len__(self) -> int:
         return self.get_matrix().shape[0]
 
+    def __getitem__(self, item) -> "Transform3d":
+        m = self.get_matrix()[item]
+        return Transform3d(matrix=m, dtype=m.dtype)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.matrix.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.matrix.device
+
     def inverse(self) -> "Transform3d":
-        return Transform3d(matrix=invert_tf(self.matrix))
+        return Transform3d(matrix=invert_tf(self.matrix), dtype=self.dtype)
+
+    def compose(self, *others: "Transform3d") -> "Transform3d":
+        """``self.compose(o).transform_points(p) == self(o(p))``: ``o`` is
+        applied first, as the reference chains ``offset^-1`` after
+        ``FK^-1``.  The products are ``mm``'s (true float32)."""
+        m = self.get_matrix()
+        for o in others:
+            m = mm(m, o.get_matrix())
+        return Transform3d(matrix=m, dtype=m.dtype)
 
     def stack(self, *others: "Transform3d") -> "Transform3d":
         ms = [self.get_matrix()] + [o.get_matrix() for o in others]
-        return Transform3d(matrix=torch.cat(ms, dim=0))
+        return Transform3d(matrix=torch.cat(ms, dim=0), dtype=self.dtype)
+
+    def transform_points(self, points: torch.Tensor) -> torch.Tensor:
+        """Points ``[N, 3]`` through a single ``[4, 4]`` give ``[N, 3]``;
+        through a batch ``[B, 4, 4]`` they give ``[B, N, 3]``."""
+        p = as_float_tensor(points, self.matrix.device, self.matrix.dtype)
+        squeeze = p.ndim == 2 and self.matrix.ndim == 2
+        return transform_points(self.matrix if squeeze else self.get_matrix(), p)
 
     def transform_normals(self, normals: torch.Tensor) -> torch.Tensor:
         n = as_float_tensor(normals, self.matrix.device, self.matrix.dtype)
@@ -332,7 +360,12 @@ class Transform3d:
             generator = torch.Generator().manual_seed(0)
         m = self.matrix if self.matrix.ndim == 2 else self.get_matrix()[0]
         return Transform3d(matrix=sample_perturbations(
-            generator, m, n, radian_sigma, translation_sigma))
+            generator, m, n, radian_sigma, translation_sigma), dtype=self.dtype)
+
+    def to(self, dtype: Optional[torch.dtype] = None, device=None) -> "Transform3d":
+        m = self.matrix.to(dtype=dtype if dtype is not None else self.dtype,
+                           device=device if device is not None else self.device)
+        return Transform3d(matrix=m, dtype=m.dtype)
 
 
 def Translate(x: float, y: float, z: float, dtype=torch.float32,

@@ -186,7 +186,10 @@ class GridView:
         res = torch.as_tensor(self.res, dtype=torch.float32, device=self.device)
         return lo + idx.to(torch.float32) * res
 
-    def ravel_multi_index(self, keys: torch.Tensor) -> torch.Tensor:
+    def ravel_multi_index(self, keys: torch.Tensor, shape=None) -> torch.Tensor:
+        """Flat indices of integer keys ``[..., 3]`` over this grid's
+        strides (``shape`` is accepted for the reference's signature and
+        unused: the grid's own shape sets the strides)."""
         strides = torch.as_tensor(self._strides, dtype=torch.int64, device=keys.device)
         return (keys * strides).sum(dim=-1)
 
