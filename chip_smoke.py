@@ -115,7 +115,24 @@ Phases, each fatal on failure:
     d/dq within 2e-4 of each configuration's largest, values only equal;
     and K1 on the torus's own cache-build grid (114 x 114 x 104 points
     against its 16,384 faces) held to the plain version as in phase 2;
-15. one JSON line with every kernel's launches and times, then the result
+15. the JAX side's last benchmark harnesses: ``bench/headline.py``
+    (``bench.py``: 200 and 20 configurations x 15,251 points on the arm of
+    phase 4's cache, forward and forward + backward, then its tight section,
+    the arm at padding 0.1 from a fresh cache), ``bench/roofline_arm.py``
+    (one north-star chunk, 25 x 1,061,208 points, in cumulative stages
+    with their ms, deltas, created bytes, floors and launches) and
+    ``bench/trilinear.py`` (nearest and trilinear caches of the
+    16,384-face torus, generic and coherent rows, from a fresh cache); each
+    JSON line printed and written to ``chiprun_out/harnesses.jsonl``; gates:
+    on 2 configurations the headline's and the tight arm's coherent values
+    equal to ``RobotSDF.query``'s (gradients equal, else 1e-6 / 1e-5; d/dq
+    within 2e-4 of each configuration's largest), the roofline's ``union``
+    sum equal to the ``values_only`` call's and its ``full`` value sum to
+    ``union``'s, the trilinear coherent rows equal to the
+    generic rows on the grid points (else 1e-6 / 1e-5), no ``*_error`` key
+    and no NaN in any line, K1 in the tight arm's and the torus's builds
+    and in no query;
+16. one JSON line with every kernel's launches and times, then the result
     line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
@@ -138,7 +155,13 @@ query_res=0.05, resolution=0.1, reps=1, n_torus=4096)`` (a world of one
 over gloo, then two gloo ranks on the CPU); for phase 14:
 ``phase_northstar(cpu, tmp, card, n_configs=4, points_side=24, chunk=2,
 build=dict(resolution=0.04, padding=0.3, arm_joints=3, torus=(0.1, 0.03,
-32, 16)))`` (caches of 0.04 over the 0.01 grid give larger tiles than 27).
+32, 16)))`` (caches of 0.04 over the 0.01 grid give larger tiles than 27);
+for phase 15, with ``CACHE_RES`` set to 0.1 in ``bench.headline`` and
+``bench.roofline_arm`` and to 0.05 in ``bench.trilinear``, and
+``bench.headline.REPS`` to 1: ``phase_harnesses(cpu, tmp, card, tmp,
+n_configs=4, roofline=dict(chunk=2, points_side=8, reps=1),
+trilinear=dict(points_side=8, reps=1))`` (~15 s; it builds
+``tmp/sdf_cache.npz`` when phase 4 has not).
 """
 
 import json
@@ -349,15 +372,12 @@ def phase_kernel(device, capsule_points=100_000, grid_scale=1.0, reps=5):
 # ---------------------------------------------------------------------------
 
 def headline_inputs(device, n_configs=N_CONFIGS, query_res=QUERY_RES):
-    """The reference benchmark's 200 joint configurations (seeded) and
-    151 x 1 x 101 query grid."""
+    """The reference benchmark's 200 joint configurations (seeded,
+    ``bench/headline.joint_configs``) and 151 x 1 x 101 query grid."""
     import pytorch_volumetric_tpu_torch as pt
-    rng = np.random.default_rng(0)
-    th0 = np.array([0.0, -np.pi / 4, 0.0, np.pi / 2, 0.0, np.pi / 4, 0.0], dtype=np.float32)
-    th = np.concatenate([th0[None], th0 + rng.normal(0, 0.1, (n_configs - 1, 7))])
-    q = torch.as_tensor(th.astype(np.float32), device=device)
+    from pytorch_volumetric_tpu_torch.bench.headline import joint_configs
     _, pts = pt.get_coordinates_and_points_in_grid(query_res, QUERY_RANGE, device=device)
-    return q, pts
+    return joint_configs(n_configs, device), pts
 
 
 def objective_grad(query, q, pts):
@@ -1841,13 +1861,31 @@ NORTHSTAR_ROWS = (("arm", "nearest", ("forward", "forward_backward", "values_onl
                   ("free_link", "trilinear", ("forward", "values_only"), 1, 0))
 
 
+def coherent_reference_gate(name, what, v, g, dq, vr, gr, dqr):
+    """The coherent path's ``(v, g, dq)`` against a reference's on the same
+    configurations and points: values equal, gradients equal where finite
+    (else 1e-6 / 1e-5), d(v.sum()+g.sum())/dq within 2e-4 of each
+    configuration's largest.  Returns whether the gradients were equal too."""
+    finite = torch.isfinite(g).all(dim=-1)
+    exact = exact_or_gate(f"{name}: {what} ({v.shape[0]} x {v.shape[1]}, "
+                          f"{int((~finite).sum())} NaN gradients beyond the lane)",
+                          v[finite], g[finite], vr.detach()[finite], gr.detach()[finite])
+    check(torch.equal(v, vr.detach()), f"{name}: coherent values differ from the reference")
+    scale = dqr.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+    dq_sc = ((dq - dqr).abs() / (2e-4 * scale)).max().item()
+    log(f"    {name}: d/dq max |d| {(dq - dqr).abs().max().item():.3g} of largest "
+        f"{dqr.abs().max().item():.4g}: {dq_sc:.3g} of the gate (2e-4 of each configuration's "
+        f"largest)")
+    check(dq_sc <= 1.0, f"{name}: d/dq beyond 2e-4 of the reference's")
+    return exact
+
+
 def northstar_generic_gate(name, robot, ft, q2, pts, seg):
     """The first configurations ``q2`` at every point: the coherent values
     and gradients (the bench's chunk query) against ``compose_query`` on
-    the same tables (equal, else 1e-6 / 1e-5 where the gradient is
-    finite), NaN gradients only in tiles beyond the residual lane's
-    capacity, d(v.sum()+g.sum())/dq within 2e-4 of each configuration's
-    largest, and ``values_only`` equal to the values."""
+    the same tables (:func:`coherent_reference_gate`), NaN gradients only
+    in tiles beyond the residual lane's capacity, and ``values_only``
+    equal to the values."""
     from functools import partial
     from pytorch_volumetric_tpu_torch import sdf as tsdf
     from pytorch_volumetric_tpu_torch.bench import northstar as ns
@@ -1859,20 +1897,10 @@ def northstar_generic_gate(name, robot, ft, q2, pts, seg):
     vr, gr = tsdf.compose_query(tuple(partial(s.raw_query_with, s.raw_query_aux())
                                       for s in children), m, m_inv, B, pts)
     (dqr,) = torch.autograd.grad(vr.sum() + gr.sum(), qq)
-    finite = torch.isfinite(g).all(dim=-1)
     audit = ns.audit_chunk(robot, ft, q2, pts, seg)
     check(audit["nan_outside_overflow"] == 0,
           f"{name}: NaN gradients outside the tiles beyond the residual lane's capacity")
-    exact = exact_or_gate(f"{name}: coherent vs compose_query ({B} x {pts.shape[0]}, "
-                          f"{int((~finite).sum())} NaN gradients beyond the lane)",
-                          v[finite], g[finite], vr.detach()[finite], gr.detach()[finite])
-    check(torch.equal(v, vr.detach()), f"{name}: coherent values differ from compose_query")
-    scale = dqr.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
-    dq_sc = ((dq - dqr).abs() / (2e-4 * scale)).max().item()
-    log(f"    {name}: d/dq max |d| {(dq - dqr).abs().max().item():.3g} of largest "
-        f"{dqr.abs().max().item():.4g}: {dq_sc:.3g} of the gate (2e-4 of each configuration's "
-        f"largest)")
-    check(dq_sc <= 1.0, f"{name}: d/dq beyond 2e-4 of compose_query's")
+    exact = coherent_reference_gate(name, "coherent vs compose_query", v, g, dq, vr, gr, dqr)
     vo = ns.chunk_query(robot, ft, q2, pts, seg, values_only=True)
     check(torch.equal(vo, v), f"{name}: values_only differs from the values")
     return exact
@@ -1945,6 +1973,90 @@ def phase_northstar(device, tmp, card, n_configs=N_CONFIGS, points_side=100, chu
                 f"{(v['peak_bytes'] or float('nan')) / 1e9:.2f} GB, chunk {r['chunk']} [{card}]")
     log(f"  bit-identical to compose_query everywhere gated: {exact}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the benchmark harnesses (bench.py, roofline_arm.py, trilinear.py)
+# ---------------------------------------------------------------------------
+
+def finite_numbers(obj):
+    """Every number in a JSON-like object is finite."""
+    if isinstance(obj, dict):
+        return all(finite_numbers(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return all(finite_numbers(v) for v in obj)
+    return not isinstance(obj, float) or np.isfinite(obj)
+
+
+def harness_line(name, line, out_dir):
+    """A harness's JSON line: printed, appended to ``out_dir/harnesses.jsonl``
+    and gated (no ``*_error`` key, every number finite)."""
+    text = json.dumps(line)
+    log(f"  {name}: {text}")
+    with open(os.path.join(out_dir, "harnesses.jsonl"), "a") as f:
+        f.write(text + "\n")
+    errors = [k for k in line.get("extra", {}) if k.endswith("_error")]
+    check(not errors, f"{name}: the line holds {errors}")
+    check(finite_numbers(line), f"{name}: a number in the line is not finite")
+
+
+def harness_arm_gate(name, arm, inputs, n_check=2):
+    """The first ``n_check`` configurations of a headline arm: the
+    harness's coherent query against ``RobotSDF.query`` on the same tile
+    points (:func:`coherent_reference_gate`)."""
+    from pytorch_volumetric_tpu_torch.bench import northstar as ns
+    q, pts, _, seg = inputs
+    q2 = q[:n_check]
+    v, g, dq = ns.chunk_grad(arm["robot"], arm["ft"], q2, pts, seg)
+    vr, gr, dqr = query_objective_grad(arm["robot"], q2, pts)
+    check(bool(torch.isfinite(v).all() and torch.isfinite(g).all() and torch.isfinite(dq).all()),
+          f"{name}: non-finite output")
+    return coherent_reference_gate(name, "coherent vs RobotSDF.query", v, g, dq, vr, gr, dqr)
+
+
+def phase_harnesses(device, tmp, card, out_dir, n_configs=N_CONFIGS, roofline=None,
+                    trilinear=None):
+    """``bench/headline.py`` (with its tight section), ``bench/roofline_arm.py``
+    and ``bench/trilinear.py`` at their full sizes: the headline and the
+    roofline arm read phase 4's cache (``tmp/sdf_cache.npz``), the tight arm
+    and the torus build their own (K1).  ``roofline`` and ``trilinear``:
+    keyword arguments of their ``run`` (smaller sizes to rehearse on the
+    CPU).  Returns each cache build's K1 launches."""
+    from pytorch_volumetric_tpu_torch.bench import headline as hl
+    from pytorch_volumetric_tpu_torch.bench import roofline_arm as ra
+    from pytorch_volumetric_tpu_torch.bench import trilinear as tl
+    from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
+    open(os.path.join(out_dir, "harnesses.jsonl"), "w").close()
+    t0 = time.perf_counter()
+    _, arms = hl.run(device, tmp, n_configs, ("tight",),
+                     emit=lambda ln: harness_line("headline", ln, out_dir), log=log)
+    builds = {k: arms[k]["build_launches"] for k in ("headline", "tight")}
+    log(f"  headline: {time.perf_counter() - t0:.1f} s")
+    for name in ("headline", "tight"):
+        harness_arm_gate(name, arms[name], arms["inputs"])
+    del arms
+
+    t0 = time.perf_counter()
+    launches0 = mesh_closest_query_cuda.launches
+    line = ra.run(device, tmp, cache_path=os.path.join(tmp, "sdf_cache.npz"), log=log,
+                  **(roofline or {}))
+    builds["roofline"] = mesh_closest_query_cuda.launches - launches0
+    check(line.pop("ok"), f"roofline: a gate failed: {line['extra']['gates']}")
+    harness_line("roofline", line, out_dir)
+    x = line["extra"]
+    log(f"  roofline: chunk {x['chunk']} x {x['points']} padded points, {x['links']} links; "
+        f"full {x['stage_ms']['full']:.3f} ms; {time.perf_counter() - t0:.1f} s [{card}]")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    line, builds["trilinear"] = tl.run(device, os.path.join(tmp, "harness_trilinear"), log=log,
+                                       **(trilinear or {}))
+    check(line.pop("ok"), f"trilinear: coherent rows differ from the generic rows: "
+                          f"{line['extra']['coherent_gate']}")
+    harness_line("trilinear", line, out_dir)
+    log(f"  trilinear: {time.perf_counter() - t0:.1f} s [{card}]")
+    return builds
 
 
 def free_port():
@@ -2052,6 +2164,7 @@ def main():
     import pytorch_volumetric_tpu_torch  # noqa: F401  (fails outside a checkout)
     from pytorch_volumetric_tpu_torch import native
     from pytorch_volumetric_tpu_torch.ops import cuda_build
+    from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
     from pytorch_volumetric_tpu_torch.utils.robots import make_serial_arm
 
     device = torch.device("cuda", 0)
@@ -2131,8 +2244,24 @@ def main():
         log(f"  closest_point_sweep launches (phase 9's table, continued): north-star "
             f"path builds {north['build_launches']}, its queries {north['query_launches']}")
         log(f"  phase 14: {time.perf_counter() - t0:.1f} s")
+        log("== phase 15: the benchmark harnesses")
+        t0 = time.perf_counter()
+        out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        # the main path: the three harnesses (K1 in the tight arm's and the
+        # torus's cache builds, none in a query)
+        mesh_closest_query_cuda.launches = 0
+        builds = phase_harnesses(device, tmp, card, out_dir)
+        sync(device)
+        harness_launches = mesh_closest_query_cuda.launches
+        check(builds["tight"] > 0, "the tight arm's cache build launched no kernel")
+        check(builds["trilinear"] > 0, "the torus's cache build launched no kernel")
+        check(harness_launches == sum(builds.values()), "K1 ran in a harness's query")
+        log(f"  closest_point_sweep launches (phase 9's table, continued): harness builds "
+            f"{builds}, their queries {harness_launches - sum(builds.values())}")
+        log(f"  phase 15: {time.perf_counter() - t0:.1f} s")
 
-    log("== phase 15: kernels")
+    log("== phase 16: kernels")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     grid = probe["grid"]
 
@@ -2188,6 +2317,8 @@ def main():
          "launches_collision_step": par["step_launches"],
          "launches_northstar_build": north["build_launches"],
          "launches_northstar_queries": north["query_launches"],
+         "launches_harness_builds": builds,
+         "launches_harness_queries": harness_launches - sum(builds.values()),
          "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], **bounds(k1), "library_ms": None},
         probe_row("closest_point_sweep_nowind", csrc + "closest_point.cu",

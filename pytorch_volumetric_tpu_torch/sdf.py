@@ -754,21 +754,50 @@ def _first_min(v: torch.Tensor):
     return win, pick
 
 
+def _nearest_keys(tables: Sequence[_CoherentTables], pts_c: torch.Tensor):
+    """:func:`_nearest_union`'s first step: ``(valid, kc)``, every child's
+    in-grid mask and clamped voxel keys on the tile layout."""
+    return _voxel_keys(pts_c, _stacked(tables, "lo", 3), _stacked(tables, "inv_res", 3),
+                       _stacked(tables, "n", 3))
+
+
+def _nearest_anchor(tables: Sequence[_CoherentTables], kc: torch.Tensor):
+    """:func:`_nearest_union`'s second step: ``(row, cell, flat)`` of the
+    keys ``kc``: each tile's brick row, each point's cell in it and its
+    row of the children's concatenated (value, grad) rows."""
+    row, off = _brick_anchor(kc, _stacked(tables, "bstrides", 2))
+    cell = off[..., 0] * 16 + off[..., 1] * 4 + off[..., 2]
+    flat = (kc * _stacked(tables, "strides", 3)).sum(dim=-1) + _vg_offsets(tables)
+    return row, cell, flat
+
+
+def _nearest_cells(tables: Sequence[_CoherentTables], row, cell) -> torch.Tensor:
+    """:func:`_nearest_union`'s third step: every child's value-brick cell
+    ``[C, B, FS, seg]``."""
+    return torch.stack([_cells(t.bricks, r, c) for t, r, c in zip(tables, row, cell)])
+
+
+def _nearest_select(tables: Sequence[_CoherentTables], pts_c, valid, v_in):
+    """:func:`_nearest_union`'s last step: ``(v, g_oob)``, the cell value
+    ``v_in`` in the grid, the AABB distance outside, and the AABB
+    fallback's gradient."""
+    v_oob, g_oob = _aabb_distance_grad(_stacked(tables, "bb", 3), pts_c)
+    return torch.where(valid, v_in, v_oob), g_oob
+
+
 def _nearest_union(tables: Sequence[_CoherentTables], pts_c: torch.Tensor):
     """Every nearest child at once on the tile layout ``pts_c [C, B, FS,
     seg, 3]``: ``(v, valid, flat, row, cell, g_oob)``, each with the
     children leading: the value (the brick cell in the grid, the AABB
     distance outside), the in-grid mask, the row of the children's
     concatenated (value, grad) rows, each tile's brick row, each point's
-    cell in it, and the AABB fallback's gradient."""
-    valid, kc = _voxel_keys(pts_c, _stacked(tables, "lo", 3), _stacked(tables, "inv_res", 3),
-                            _stacked(tables, "n", 3))
-    row, off = _brick_anchor(kc, _stacked(tables, "bstrides", 2))
-    cell = off[..., 0] * 16 + off[..., 1] * 4 + off[..., 2]
-    v_oob, g_oob = _aabb_distance_grad(_stacked(tables, "bb", 3), pts_c)
-    v = torch.where(valid, torch.stack([_cells(t.bricks, r, c) for t, r, c in
-                                        zip(tables, row, cell)]), v_oob)
-    flat = (kc * _stacked(tables, "strides", 3)).sum(dim=-1) + _vg_offsets(tables)
+    cell in it, and the AABB fallback's gradient.  Its four steps are
+    separate functions, so that ``bench/roofline_arm.py`` times them one
+    by one."""
+    valid, kc = _nearest_keys(tables, pts_c)
+    row, cell, flat = _nearest_anchor(tables, kc)
+    del kc
+    v, g_oob = _nearest_select(tables, pts_c, valid, _nearest_cells(tables, row, cell))
     return v, valid, flat, row, cell, g_oob
 
 

@@ -30,29 +30,27 @@ Prints, per run, the wall time, the summed device-kernel time and the
 number of kernel launches, the device's idle share of the window, the
 share of ``torch.cat``'s kernels, and the kernels with the most device
 time; for the north-star chunks also which calls launch the ``torch.cat``
-kernels (one more traced call with the port's functions labelled: each
-launching operator, its callers in the port and the kernels' device ms).  With ``--out DIR``,
+kernels (one more traced call with the port's functions labelled,
+``utils.profiling.kernel_owners``: each launching operator, its callers in
+the port and the kernels' device ms).  With ``--out DIR``,
 writes Chrome traces there.
 """
 
 import argparse
 import collections
-import contextlib
-import functools
-import importlib
-import inspect
 import os
 import sys
 import tempfile
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402  (the headline inputs and objective)
 import pytorch_volumetric_tpu_torch as pt  # noqa: E402
+from pytorch_volumetric_tpu_torch.utils import profiling  # noqa: E402
 from pytorch_volumetric_tpu_torch.utils.robots import make_serial_arm  # noqa: E402
 
 
@@ -61,7 +59,7 @@ CAT_KERNEL = "CatArray"  # the kernels of torch.cat / torch.stack
 
 def trace(name, fn, out_dir, top=12, cat_owners=False):
     """One traced call of ``fn`` after a warm-up; with ``cat_owners``, also
-    :func:`kernel_owners` of the ``torch.cat`` kernels."""
+    :func:`print_kernel_owners` of the ``torch.cat`` kernels."""
     fn()  # warm up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -83,75 +81,21 @@ def trace(name, fn, out_dir, top=12, cat_owners=False):
     for e in events[:top]:
         print(f"   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
     if cat_owners:
-        kernel_owners(fn, CAT_KERNEL)
+        print_kernel_owners(fn, CAT_KERNEL)
     if out_dir:
         prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
 
 
-# the port's modules on the north-star path, for :func:`kernel_owners`
-PORT_MODULES = ("pytorch_volumetric_tpu_torch.sdf", "pytorch_volumetric_tpu_torch.transforms",
-                "pytorch_volumetric_tpu_torch.kinematics",
-                "pytorch_volumetric_tpu_torch.model_to_sdf",
-                "pytorch_volumetric_tpu_torch.bench.northstar")
-
-
-@contextlib.contextmanager
-def port_annotations():
-    """Every top-level function of :data:`PORT_MODULES` wrapped in a
-    ``record_function`` of its name while the block runs.  Calls that
-    resolve the name at call time (``tfm.transform_points``, a module's
-    own helpers) go through the wrapper.  These labels name a kernel's
-    caller where the profiler records no Python stacks (``with_stack=True``
-    gave none with torch 2.11 on an H100)."""
-    def annotate(f, label):
-        @functools.wraps(f)
-        def wrapped(*args, **kwargs):
-            with record_function(label):
-                return f(*args, **kwargs)
-        return wrapped
-
-    saved, labels = [], set()
-    for name in PORT_MODULES:
-        mod = importlib.import_module(name)
-        for attr, f in list(vars(mod).items()):
-            if inspect.isfunction(f) and f.__module__ == name:
-                label = f"{name.rsplit('.', 1)[-1]}.{attr}"
-                saved.append((mod, attr, f))
-                labels.add(label)
-                setattr(mod, attr, annotate(f, label))
-    try:
-        yield labels
-    finally:
-        for mod, attr, f in saved:
-            setattr(mod, attr, f)
-
-
-def kernel_owners(fn, pattern, top=6):
-    """Which calls launch the kernels whose name holds ``pattern``: one
-    more traced call of ``fn`` under :func:`port_annotations` (kept apart
-    from the timed trace, whose host times the labels would slow).  Prints
-    each launching operator (inside its parent operators) with its two
-    innermost callers in the port, its launches and the kernels' device
-    ms."""
-    with port_annotations() as labels, profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+def print_kernel_owners(fn, pattern, top=6):
+    """Which calls launch the kernels whose name holds ``pattern``
+    (``utils.profiling.kernel_owners``, one more traced call): each
+    launching operator (inside its parent operators) with its two innermost
+    callers in the port, its launches and the kernels' device ms."""
     owners = collections.defaultdict(lambda: [0, 0.0])
-    for e in prof.events():
-        kernels = [k for k in e.kernels if pattern in k.name]
-        if not kernels:
-            continue
-        ops, callers, p = [], [], e
-        while p is not None and len(callers) < 2:
-            if p.name in labels:
-                callers.insert(0, p.name)
-            elif not callers and p.name.startswith("aten::"):
-                ops.insert(0, p.name)
-            p = p.cpu_parent
-        owner = owners[(" > ".join(ops), " > ".join(callers) or "no function of the port")]
-        owner[0] += len(kernels)
-        owner[1] += sum(k.duration for k in kernels) / 1e3
+    for r in profiling.kernel_owners(*profiling.annotated_profile(fn), pattern):
+        owner = owners[(r["ops"], r["caller"])]
+        owner[0] += r["launches"]
+        owner[1] += r["ms"]
     for (ops, caller), (n, ms) in sorted(owners.items(), key=lambda kv: -kv[1][1])[:top]:
         print(f"   {pattern} from {ops} in {caller}: {n} launches, {ms:.3f} ms")
 
