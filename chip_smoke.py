@@ -41,7 +41,12 @@ Phases, each fatal on failure:
    the 151 x 1 x 101 grid in 12-point tiles, its values, gradients and
    d/dq against ``RobotSDF.query`` on the card, ``values_only``, the
    residual lane's overflow, small single-child and trilinear cases, and
-   its times beside phase 4's;
+   its times beside phase 4's; the per-tile union runs as one kernel
+   (``csrc/coherent_union.cu``, ``coherent_union_tile``): launched on the
+   query (K1 only in the build), held bit for bit to its plain version on
+   the query's own inputs (timed, with its bytes bound), at
+   ``residual_frac=1e-9``, and on sphere unions of 2, 4 and 8 links at
+   every seg of ``UNION_SEGS`` (1 to 100) with NaN and +-inf points;
 9. the sweep kernel's launch counts on the paths of phases 3-8;
 10. the narrow-band SDF of large meshes: its kernel (``csrc/narrow_band.cu``)
     against its plain version on the card (values, gradients and slots
@@ -77,7 +82,8 @@ Phases, each fatal on failure:
     cache), exact and narrow-band (phase 10's) links exported at 200 x
     15,251 (``utils.serving``, ``torch.export``) and loaded in a fresh
     process that imports ``utils.serving`` alone, where one served query
-    launches K1, or the narrow-band kernel, once per link; the served
+    launches K1, or the narrow-band kernel, once per link (the served grid
+    query the union kernel); the served
     values, gradients and d/dq against the live query (equal, else 1e-6 /
     1e-5 and phase 8's d/dq gate), with export, load, file sizes and served
     times beside the live ones; the grid export at phase 8's grid (and
@@ -88,9 +94,9 @@ Phases, each fatal on failure:
 13. ``parallel`` at world size 1 (NCCL, a 1 x 1 mesh): the sharded query of
     phase 4's cached arm, the exact arm (8 K1 launches a query) and phase
     10's narrow-band arm (8 NB launches), the coherent grid (phase 8's
-    tiles through ``pad_for_mesh``), phase 11's model and phase 5's torus
-    (2^17 points), each equal to its unsharded call (else 1e-6 / 1e-5) with
-    both times, and five collision steps against the unsharded step (loss
+    tiles through ``pad_for_mesh``; the union kernel, no K1), phase 11's
+    model and phase 5's torus (2^17 points), each equal to its unsharded
+    call (else 1e-6 / 1e-5) with both times, and five collision steps against the unsharded step (loss
     1e-6 relative, ``q`` 1e-5, the loss falls); the audit finds no
     collective in a forward and all-reduces only in the step.  Then a world
     of two ranks on this card (gloo; ``--parallel-rank``): the exact arm on
@@ -113,7 +119,10 @@ Phases, each fatal on failure:
     configurations at every point the coherent values equal to
     ``compose_query``'s, gradients equal where finite (else 1e-6 / 1e-5),
     d/dq within 2e-4 of each configuration's largest, values only equal;
-    and K1 on the torus's own cache-build grid (114 x 114 x 104 points
+    the union kernel's launches per row (none missing on a nearest row) and
+    the kernel held bit for bit to its plain version on the arm's first
+    chunk, timed beside it and its bytes bound; and K1 on the torus's own
+    cache-build grid (114 x 114 x 104 points
     against its 16,384 faces) held to the plain version as in phase 2;
 15. the JAX side's last benchmark harnesses: ``bench/headline.py``
     (``bench.py``: 200 and 20 configurations x 15,251 points on the arm of
@@ -131,7 +140,8 @@ Phases, each fatal on failure:
     ``union``'s, the trilinear coherent rows equal to the
     generic rows on the grid points (else 1e-6 / 1e-5), no ``*_error`` key
     and no NaN in any line, K1 in the tight arm's and the torus's builds
-    and in no query;
+    and in no query; the union kernel launched, and held bit for bit to its
+    plain version on the headline and tight arms' inputs;
 16. one JSON line with every kernel's launches and times, then the result
     line ``{"ok": true, "device": {...}}``.
 
@@ -551,6 +561,257 @@ def nonfinite_lookup(robot, ref, q, device):
 
 
 # ---------------------------------------------------------------------------
+# the coherent union kernel against its plain version (phases 8, 14, 15)
+# ---------------------------------------------------------------------------
+
+HBM_BYTES_PER_S = 3.35e12  # one H100 SXM's memory rate (NVIDIA's data sheet)
+UNION_SEGS = (1, 4, 12, 27, 32, 33, 64, 100)
+
+
+def same_bits(a, b):
+    """``a`` and ``b`` equal bit for bit, every NaN taken as one pattern
+    (``torch.where`` writes Python's NaN, the card's arithmetic its own
+    canonical NaN; the plain version mixes both): shapes, dtypes, the NaN
+    places and every other bit, the sign of a zero included."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]))
+
+
+def union_inputs(robot, ft, q, pts, seg):
+    """``(tables, pts_c, Rb)`` exactly as ``compose_query_coherent`` hands
+    them to the per-tile union for the configurations ``q``."""
+    from pytorch_volumetric_tpu_torch import sdf as tsdf
+    from pytorch_volumetric_tpu_torch import transforms as tfm
+    children = tuple(robot.sdf.sdfs)
+    fast = tsdf._coherent_classify(children)[0]
+    S, B, F = len(children), q.shape[0], pts.shape[0]
+    with torch.no_grad():
+        m, m_inv = robot._link_transforms(q)
+        pts_all = tfm.transform_points(m, pts).reshape(S, B, F // seg, seg, 3)
+        R_back = m_inv.reshape(S, B, 4, 4)[..., :3, :3]
+        pts_c = torch.stack([pts_all[i] for i in fast])
+        Rb = torch.stack([R_back[i] for i in fast])
+    return tuple(ft), pts_c, Rb
+
+
+def _distinct(keys, size):
+    """The number of distinct entries of ``keys``, integers in ``[0,
+    size)``."""
+    seen = torch.zeros(size, dtype=torch.bool, device=keys.device)
+    seen[keys] = True
+    return int(seen.sum())
+
+
+def union_bound(tables, pts_c, cap=None):
+    """``(bound_ms, bytes)``: the bytes the union must move at least, over
+    3.35 TB/s, each input byte counted once however often the call reads
+    it.  Read: the points (12 B a link-point); the rotations (36 B a link
+    and configuration); each distinct value cell that an in-grid point
+    reads (4 B; a (link, brick row, cell) counted once over all
+    configurations and tiles); each distinct cell of the winners'
+    gradient bricks (12 B: three channels; a (winner, brick row, cell)
+    counted once) that an in-grid point of a tile outside the residual
+    lane reads, and each distinct packed (value, grad) row (its 12 B of
+    gradient) that an in-grid point of a lane tile within the capacity
+    reads.  Written: val (4 B a point) and g_obj (12), win (8), g_link (12).
+    Values only (``cap`` None): the points, the value cells and val.  The
+    small per-link fields and the residual lane's tile flags are left
+    out."""
+    from pytorch_volumetric_tpu_torch import sdf as tsdf
+    C, B, FS, seg = pts_c.shape[:4]
+    N = B * FS * seg
+    dev = pts_c.device
+
+    def bases(name):
+        b = tsdf._coherent_row_bases([getattr(t, name) for t in tables])
+        return torch.as_tensor(b[:-1], device=dev).view(C, 1, 1), int(b[-1])
+
+    with torch.no_grad():
+        v, valid, flat, row, cell, _ = tsdf._nearest_union(tables, pts_c)
+        vb, v_rows = bases("bricks")
+        cells = _distinct((((row + vb) * 64)[..., None] + cell)[valid], v_rows * 64)
+        nbytes = C * N * 12 + cells * 4 + N * 4
+        if cap is None:
+            return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+        win, pick = tsdf._first_min(v)
+        del v
+        bvalid = pick(valid)
+        middle = tsdf._tile_candidate_ids(win, bvalid, C)[1]
+        if middle is None:
+            middle = lane = torch.zeros((B, FS), dtype=torch.bool, device=dev)
+        else:
+            lane = middle & ~tsdf._residual_tiles(middle, cap)[1]
+        gb, g_rows = bases("gbricks")
+        gkey = pick((((row + gb) * 64)[..., None] + cell))
+        gcells = _distinct(gkey[bvalid & ~middle[..., None]], g_rows * 64)
+        vg_rows = _distinct(pick(flat)[bvalid & lane[..., None]],
+                            sum(int(t.vg.shape[0]) for t in tables))
+    nbytes += C * B * 36 + (gcells + vg_rows) * 12 + N * (12 + 8 + 12)
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def union_kernel_times(tables, pts_c, Rb, cap, reps=5):
+    """Times of one union call, forward and values only: ``ms`` (CUDA
+    events around ``reps`` back-to-back calls of the op: the union kernel
+    and, with more than three links, the cumsum and the poison pass),
+    ``kernel_ms`` (the union kernel's own device time, from a profiler
+    trace), ``plain_ms`` (the plain version on the card)."""
+    from pytorch_volumetric_tpu_torch import sdf as tsdf
+    from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
+    from pytorch_volumetric_tpu_torch.utils.profiling import device_time, kernel_time
+    out = {}
+    for name, kern, plain in (
+            ("forward", lambda p: coherent_union_tile(tables, p, Rb, cap),
+             lambda p: tsdf._union_tile_eval(tables, cap, p, Rb)),
+            ("values_only", lambda p: coherent_union_tile(tables, p, values_only=True),
+             lambda p: tsdf._union_values_eval(tables, p))):
+        r = {"ms": device_time(kern, pts_c, reps=reps) * 1e3,
+             "plain_ms": device_time(plain, pts_c, reps=2) * 1e3}
+        r["kernel_ms"], r["calls_ms"] = None, {}
+        if pts_c.device.type == "cuda":
+            _, _, by_name = kernel_time(kern, pts_c, reps=reps, by_name=True)
+            r["kernel_ms"] = sum(s for k, s in by_name.items() if "union_" in k) * 1e3
+            r["calls_ms"] = {k[:60]: s * 1e3 for k, s in by_name.items()}
+        out[name] = r
+    return out
+
+
+def compare_union(name, tables, pts_c, Rb, residual_frac=None, timed=False):
+    """The union kernel (``pvt::coherent_union_tile``) against its plain
+    version on the same inputs: forward (``val``, ``g_obj``, ``win``,
+    ``g_link``) and values only, every output bit for bit (:func:`same_bits`);
+    on CPU tensors both sides are the plain version.  ``residual_frac``:
+    the residual lane's fraction (``sdf.RESIDUAL_FRAC`` when None).  With
+    ``timed`` the times (:func:`union_kernel_times`) and the bound of this
+    run's inputs.  Returns ``{max_abs_err, ...}`` (0: the check fails on
+    any difference)."""
+    from pytorch_volumetric_tpu_torch import sdf as tsdf
+    from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
+    device = pts_c.device
+    C, B, FS, seg = pts_c.shape[:4]
+    frac = tsdf.RESIDUAL_FRAC if residual_frac is None else residual_frac
+    cap = tsdf.residual_capacity(B * FS, frac)
+    before = coherent_union_tile.launches
+    with torch.no_grad():
+        out = coherent_union_tile(tables, pts_c, Rb, cap)
+        vo = coherent_union_tile(tables, pts_c, values_only=True)
+        sync(device)
+        if device.type == "cuda":
+            check(coherent_union_tile.launches == before + 2, f"{name}: the kernel did not launch")
+        ref = tsdf._union_tile_eval(tables, cap, pts_c, Rb)
+        ref_vo = tsdf._union_values_eval(tables, pts_c)
+    same = [same_bits(a, b) for a, b in zip(out, ref)] + [same_bits(vo, ref_vo)]
+    n_nan = int(torch.isnan(ref[3]).any(dim=-1).sum())
+    log(f"    {name}: C={C} B={B} FS={FS} seg={seg}, residual_frac {frac:g} (capacity {cap}): "
+        f"bit for bit (val, g_obj, win, g_link, values only) {same}; NaN gradients {n_nan}")
+    check(all(same), f"{name}: the union kernel differs from its plain version")
+    res = {"max_abs_err": 0.0}
+    del out, vo, ref, ref_vo
+    if timed:
+        res["times"] = union_kernel_times(tables, pts_c, Rb, cap)
+        res["bound_ms"], res["bound_bytes"] = union_bound(tables, pts_c, cap)
+        res["values_bound_ms"], _ = union_bound(tables, pts_c)
+        t = res["times"]
+        log(f"    {name}: forward {t['forward']['ms']:.4f} ms (kernel "
+            f"{t['forward']['kernel_ms']} device ms; calls {t['forward']['calls_ms']}), "
+            f"plain {t['forward']['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+            f"({res['bound_bytes'] / 1e9:.3f} GB); values only {t['values_only']['ms']:.4f} ms "
+            f"(kernel {t['values_only']['kernel_ms']} device ms), plain "
+            f"{t['values_only']['plain_ms']:.4f} ms, bound {res['values_bound_ms']:.4f} ms")
+    return res
+
+
+def union_cases(device, tmp, n_configs=3, n_tiles=96):
+    """``(name, tables, pts_c, Rb)``: sphere caches (0.04 over [-0.5,
+    0.5]^3) of radius 0.02 centred on a circle of 0.012, 2, 4 and 8 of
+    them, so that tiles at the circle's centre see 4 or more winners; tiles
+    of every seg of :data:`UNION_SEGS` at random centres (most within 0.06
+    of the centre, some up to 0.8 away: out of the grid), their points
+    within 0.01 of the centre (inside a brick) or, in every ninth tile,
+    0.1 (a tile that breaks the contract: the offsets clamp to 3); some
+    points NaN or +-inf in one or all coordinates; random rotations."""
+    import pytorch_volumetric_tpu_torch as pt
+    rng = np.random.default_rng(7)
+    spheres = []
+    for i in range(8):
+        spheres.append(pt.CachedSDF(f"u{i}", 0.04, np.array([[-0.5, 0.5]] * 3),
+                                    pt.SphereSDF(0.02, device=device),
+                                    cache_path=os.path.join(tmp, "union_cases.npz")))
+    cases = []
+    for C in (2, 4, 8):
+        tables = tuple(s._coherent_tables(with_gradonly_bricks=True) for s in spheres[:C])
+        ang = 2 * np.pi * np.arange(C) / C + 0.3
+        shift = np.stack([0.012 * np.cos(ang), 0.012 * np.sin(ang), np.zeros(C)], 1)
+        for seg in UNION_SEGS:
+            far = rng.random(n_tiles) < 0.15
+            centre = np.where(far[:, None], rng.uniform(-0.8, 0.8, (n_tiles, 3)),
+                              rng.uniform(-0.06, 0.06, (n_tiles, 3)))
+            spread = np.where(np.arange(n_tiles) % 9 == 8, 0.1, 0.01)[:, None, None]
+            obj = (centre[None, :, None] + rng.uniform(-1, 1, (n_configs, n_tiles, seg, 3))
+                   * spread).astype(np.float32)
+            flat = obj.reshape(-1, 3)
+            bad = rng.choice(len(flat), size=max(1, len(flat) // 50), replace=False)
+            for j, k in enumerate(bad):
+                flat[k, j % 3] = (np.nan, np.inf, -np.inf)[j % 3]
+                if j % 7 == 0:
+                    flat[k] = np.nan
+            # each link's frame: the point less its sphere's offset, jittered per configuration
+            pts_c = (obj[None] - shift[:, None, None, None]
+                     - rng.uniform(-0.003, 0.003, (C, n_configs, 1, 1, 3))).astype(np.float32)
+            Rb = np.stack([[_random_rotation(rng) for _ in range(n_configs)] for _ in range(C)])
+            cases.append((f"{C} spheres, seg {seg}", tables,
+                          torch.as_tensor(pts_c, device=device).contiguous(),
+                          torch.as_tensor(Rb.astype(np.float32), device=device).contiguous()))
+    return cases
+
+
+def _random_rotation(rng):
+    q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+    return q * np.sign(np.diag(r))
+
+
+def norm_order_probe(device, n=4_000_000):
+    """Mismatches of three summation orders against
+    ``torch.linalg.vector_norm`` over a last dimension of 3 on 4 M random
+    float32 vectors (magnitudes 1e-6 to 1e3): the union kernel writes the
+    AABB distance as ``sqrt((x0^2 + x2^2) + x1^2)``, the order this
+    reduction takes on the card.  ``{order: mismatches}``."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(n, 3)) * 10.0 ** rng.uniform(-6, 3, (n, 1))
+    x = torch.as_tensor(x.astype(np.float32), device=device)
+    ref = torch.linalg.vector_norm(x, dim=-1)
+    sq = x * x
+    orders = {"(0+1)+2": (sq[:, 0] + sq[:, 1]) + sq[:, 2],
+              "(0+2)+1": (sq[:, 0] + sq[:, 2]) + sq[:, 1],
+              "0+(1+2)": sq[:, 0] + (sq[:, 1] + sq[:, 2])}
+    out = {k: int((torch.sqrt(v) != ref).sum()) for k, v in orders.items()}
+    log(f"    vector_norm's order on {device.type}: mismatches of {n} {out}")
+    return out
+
+
+def union_case_checks(device, tmp):
+    """Every case of :func:`union_cases` at the default residual fraction
+    and at 1e-9; fails unless an overflow case put NaN somewhere (the lane
+    overflows where a case has middle tiles)."""
+    overflowed = False
+    from pytorch_volumetric_tpu_torch import sdf as tsdf
+    for name, tables, pts_c, Rb in union_cases(device, tmp):
+        for frac in (tsdf.RESIDUAL_FRAC, 1e-9):
+            compare_union(name, tables, pts_c, Rb, frac)
+            if frac < 1e-6 and len(tables) > 3:
+                with torch.no_grad():
+                    cap = tsdf.residual_capacity(pts_c.shape[1] * pts_c.shape[2], frac)
+                    g = tsdf._union_tile_eval(tables, cap, pts_c, Rb)[3]
+                overflowed |= bool(torch.isnan(g).any())
+    check(overflowed, "no union case overflowed the residual lane at residual_frac 1e-9")
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the coherent grid path
 # ---------------------------------------------------------------------------
 
@@ -615,6 +876,7 @@ def phase_coherent(device, arm_dir, tmp, card, generic_ms, n_configs=N_CONFIGS,
     import pytorch_volumetric_tpu_torch as pt
     from pytorch_volumetric_tpu_torch import sdf as tsdf
     from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
+    from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
 
     text = open(os.path.join(arm_dir, "arm.urdf")).read()
     q, pts_g = headline_inputs(device, n_configs, query_res)
@@ -626,16 +888,23 @@ def phase_coherent(device, arm_dir, tmp, card, generic_ms, n_configs=N_CONFIGS,
         return v.detach().reshape(q.shape[0], -1), g.detach().reshape(q.shape[0], -1, 3), dq
 
     # the main path, from a fresh cache: the build (K1) and the grid query
-    # with its gradient w.r.t. the joint angles
+    # with its gradient w.r.t. the joint angles (the union kernel)
     mesh_closest_query_cuda.launches = 0
+    coherent_union_tile.launches = 0
     robot = pt.RobotSDF(pt.build_serial_chain_from_urdf(text, "link7", device=device),
                         path_prefix=arm_dir,
                         link_sdf_cls=pt.cache_link_sdf_factory(
                             resolution=resolution, padding=1.0,
                             cache_path=os.path.join(tmp, "coherent_cache.npz")))
+    sync(device)
+    build_launches = mesh_closest_query_cuda.launches
     v, g, dq = objective_grad(lambda qq: robot.query_grid(qq, QUERY_RANGE, query_res))
     sync(device)
     launches = mesh_closest_query_cuda.launches
+    union_launches = coherent_union_tile.launches
+    check(launches == build_launches, "coherent path: K1 ran in the grid query")
+    log(f"  launches on the main path: K1 {build_launches} (the cache build; 0 in the query), "
+        f"coherent_union_tile {union_launches}")
 
     children = tuple(robot.sdf.sdfs)
     fast, _, generic = tsdf._coherent_classify(children)
@@ -699,6 +968,16 @@ def phase_coherent(device, arm_dir, tmp, card, generic_ms, n_configs=N_CONFIGS,
     check(nan_tiles > 0, "residual_frac=1e-9 left every gradient finite")
     check(nan_tiles + 1 <= cap, "more middle tiles than the default capacity")
 
+    # the union kernel against its plain version on this path's own inputs,
+    # at the default capacity (timed) and at 1e-9, then on the sphere cases
+    # (every seg of UNION_SEGS, NaN and +-inf points)
+    u_in = union_inputs(robot, tables, q, pts, seg)
+    union = compare_union(f"union kernel, {q.shape[0]} x {pts.shape[0]}", *u_in, timed=True)
+    compare_union("union kernel, residual_frac 1e-9", *u_in, residual_frac=1e-9)
+    union_case_checks(device, tmp)
+    union["norm_order_mismatches"] = norm_order_probe(device)
+    del u_in
+
     for name, comp, res, rng_pd, cache_res in coherent_small_cases(device, tmp):
         pts_t, take_t, seg_t = pt.get_coherent_tile_points(res, rng_pd, cache_resolution=cache_res,
                                                            device=device)
@@ -730,7 +1009,8 @@ def phase_coherent(device, arm_dir, tmp, card, generic_ms, n_configs=N_CONFIGS,
         f"{vo_ms:.3f} ms; the generic cached path in phase 4: forward {generic_ms[0]:.3f} ms, "
         f"forward+backward {generic_ms[1]:.3f} ms [{card}]; kernel launches on the path "
         f"(its cache build): {launches}; bit-identical everywhere: {exact}")
-    return launches, fwd_ms, vo_ms
+    union["launches"] = union_launches
+    return launches, fwd_ms, vo_ms, union
 
 
 # ---------------------------------------------------------------------------
@@ -1419,6 +1699,7 @@ def phase_serving(device, arm_dir, tmp, card, generic_ms, coherent_ms, nb_ms,
     ``checked_query`` on the cached arm, and the four ``examples/torch_*.py``
     at their full settings."""
     import pytorch_volumetric_tpu_torch as pt
+    from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
     from pytorch_volumetric_tpu_torch.utils import serving
     from pytorch_volumetric_tpu_torch.utils.debug import QueryCheckError, checked_query
 
@@ -1510,7 +1791,12 @@ def phase_serving(device, arm_dir, tmp, card, generic_ms, coherent_ms, nb_ms,
                 f"{s['artifact_bytes']} B, load {load_s:.2f} s; served {ms:.3f} ms (live, phase "
                 f"8: {coherent_ms[1]:.3f} ms); equal to the served grid's values [{card}]")
             continue
+        coherent_union_tile.launches = 0
         vg, gg, dq = grid_objective(grid_query)
+        sync(device)
+        served_launches["grid"] = {"coherent_union_tile": coherent_union_tile.launches}
+        check(coherent_union_tile.launches > 0 or device.type != "cuda",
+              "the served grid query launched no coherent_union_tile")
         vgr, ggr, dqr = grid_objective(lambda qq: robot.query_grid(qq, QUERY_RANGE, query_res))
         served_gate("grid export vs query_grid", vg, gg, vgr, ggr, dq, dqr)
         del vgr, ggr
@@ -1589,9 +1875,11 @@ def counted(device, fn):
     """``fn()`` with every kernel's launch count set to 0 just before it
     and read just after: ``(result, {kernel: launches})``."""
     from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
+    from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
     from pytorch_volumetric_tpu_torch.ops.narrow_band_cuda import narrow_band_query_cuda
     wrappers = {"closest_point_sweep": mesh_closest_query_cuda,
-                "narrow_band_query": narrow_band_query_cuda}
+                "narrow_band_query": narrow_band_query_cuda,
+                "coherent_union_tile": coherent_union_tile}
     for w in wrappers.values():
         w.launches = 0
     out = fn()
@@ -1749,6 +2037,9 @@ def phase_parallel(device, arm_dir, tmp, card, model, n_configs=N_CONFIGS,
     with torch.no_grad():
         (v, g), launches = counted(device, lambda: fn(q, pts_t))
         vr, gr = robot.query_grid(q, QUERY_RANGE, query_res)
+    check(launches["closest_point_sweep"] == 0 and (launches["coherent_union_tile"] > 0
+                                                    or device.type != "cuda"),
+          f"sharded coherent grid: launches {launches}, expected the union kernel and no K1")
     A = q.shape[0]
     equal_gate(f"sharded coherent grid ({seg}-point tiles)", v.to_local()[:, :orig][:, take],
                g.to_local()[:, :orig][:, take], vr.reshape(A, -1), gr.reshape(A, -1, 3),
@@ -1932,17 +2223,23 @@ def phase_northstar(device, tmp, card, n_configs=N_CONFIGS, points_side=100, chu
     ``northstar.build_robot`` (smaller robots to rehearse on the CPU)."""
     from pytorch_volumetric_tpu_torch.bench import northstar as ns
     from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
-    out = {"rows": {}, "build_launches": {}, "query_launches": {}}
+    from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
+    out = {"rows": {}, "build_launches": {}, "query_launches": {}, "union_launches": {}}
     exact = True
     for kind, interp, variants, row_reps, warmup in rows:
         name = ns.metric_name(kind, interp)
-        # the main path: the build (K1) and the chunked queries
+        # the main path: the build (K1) and the chunked queries (the union
+        # kernel on the nearest rows: the arm's forward, and values only)
         mesh_closest_query_cuda.launches = 0
+        coherent_union_tile.launches = 0
         row, (robot, ft, q, pts, seg) = ns.northstar(
             kind, interp, device, os.path.join(tmp, f"northstar_{kind}_{interp}"), n_configs,
             points_side, chunk, variants, row_reps, warmup, build, log)
         sync(device)
         launches = mesh_closest_query_cuda.launches
+        out["union_launches"][name] = coherent_union_tile.launches
+        check(coherent_union_tile.launches > 0 or interp != "nearest" or device.type != "cuda",
+              f"{name}: no coherent_union_tile launch")
         if points_side == 100:
             check(seg == 27 and row["padded_points"] == 1_061_208 and row["points"] == 10 ** 6,
                   f"{name}: expected 1,061,208 padded points in 27-point tiles")
@@ -1959,6 +2256,14 @@ def phase_northstar(device, tmp, card, n_configs=N_CONFIGS, points_side=100, chu
             # the trilinear row's build sweeps the same grid and scene
             northstar_build_gate(name, robot, device)
         exact &= northstar_generic_gate(name, robot, ft, q[:n_generic], pts, seg)
+        if kind == "arm" and interp == "nearest":
+            # the union kernel against its plain version on the first chunk
+            out["union"] = compare_union(f"{name}: union kernel, chunk of {row['chunk']}",
+                                         *union_inputs(robot, ft, q[:row["chunk"]], pts, seg),
+                                         timed=True)
+            out["union"]["launches"] = out["union_launches"][name]
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
         out["rows"][name] = row
         out["build_launches"][name] = row["k1_launches_build"]
         out["query_launches"][name] = launches - row["k1_launches_build"]
@@ -1971,7 +2276,8 @@ def phase_northstar(device, tmp, card, n_configs=N_CONFIGS, points_side=100, chu
             log(f"  {name} {variant}: {v['ms']:.3f} ms (runs "
                 f"{', '.join(f'{t:.3f}' for t in v['ms_runs'])}), {rate / 1e6:.2f} M/s, peak "
                 f"{(v['peak_bytes'] or float('nan')) / 1e9:.2f} GB, chunk {r['chunk']} [{card}]")
-    log(f"  bit-identical to compose_query everywhere gated: {exact}")
+    log(f"  bit-identical to compose_query everywhere gated: {exact}; coherent_union_tile "
+        f"launches per row {out['union_launches']}")
     return out
 
 
@@ -2021,25 +2327,40 @@ def phase_harnesses(device, tmp, card, out_dir, n_configs=N_CONFIGS, roofline=No
     roofline arm read phase 4's cache (``tmp/sdf_cache.npz``), the tight arm
     and the torus build their own (K1).  ``roofline`` and ``trilinear``:
     keyword arguments of their ``run`` (smaller sizes to rehearse on the
-    CPU).  Returns each cache build's K1 launches."""
+    CPU).  Returns each cache build's K1 launches and the union kernel's
+    launches in each harness's own run, the count set to 0 just before the
+    run and read just after (the gates' and comparisons' launches not
+    counted)."""
     from pytorch_volumetric_tpu_torch.bench import headline as hl
     from pytorch_volumetric_tpu_torch.bench import roofline_arm as ra
     from pytorch_volumetric_tpu_torch.bench import trilinear as tl
     from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
+    from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
     open(os.path.join(out_dir, "harnesses.jsonl"), "w").close()
+    union = {}
     t0 = time.perf_counter()
+    coherent_union_tile.launches = 0
     _, arms = hl.run(device, tmp, n_configs, ("tight",),
                      emit=lambda ln: harness_line("headline", ln, out_dir), log=log)
+    sync(device)
+    union["headline"] = coherent_union_tile.launches
     builds = {k: arms[k]["build_launches"] for k in ("headline", "tight")}
     log(f"  headline: {time.perf_counter() - t0:.1f} s")
+    q, pts, _, seg = arms["inputs"]
     for name in ("headline", "tight"):
         harness_arm_gate(name, arms[name], arms["inputs"])
+        # the union kernel against its plain version on the arm's own inputs
+        compare_union(f"{name}: union kernel", *union_inputs(
+            arms[name]["robot"], arms[name]["ft"], q, pts, seg))
     del arms
 
     t0 = time.perf_counter()
     launches0 = mesh_closest_query_cuda.launches
+    coherent_union_tile.launches = 0
     line = ra.run(device, tmp, cache_path=os.path.join(tmp, "sdf_cache.npz"), log=log,
                   **(roofline or {}))
+    sync(device)
+    union["roofline"] = coherent_union_tile.launches
     builds["roofline"] = mesh_closest_query_cuda.launches - launches0
     check(line.pop("ok"), f"roofline: a gate failed: {line['extra']['gates']}")
     harness_line("roofline", line, out_dir)
@@ -2050,13 +2371,16 @@ def phase_harnesses(device, tmp, card, out_dir, n_configs=N_CONFIGS, roofline=No
         torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    coherent_union_tile.launches = 0
     line, builds["trilinear"] = tl.run(device, os.path.join(tmp, "harness_trilinear"), log=log,
                                        **(trilinear or {}))
+    sync(device)
+    union["trilinear"] = coherent_union_tile.launches
     check(line.pop("ok"), f"trilinear: coherent rows differ from the generic rows: "
                           f"{line['extra']['coherent_gate']}")
     harness_line("trilinear", line, out_dir)
     log(f"  trilinear: {time.perf_counter() - t0:.1f} s [{card}]")
-    return builds
+    return builds, union
 
 
 def free_port():
@@ -2165,6 +2489,7 @@ def main():
     from pytorch_volumetric_tpu_torch import native
     from pytorch_volumetric_tpu_torch.ops import cuda_build
     from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
+    from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
     from pytorch_volumetric_tpu_torch.utils.robots import make_serial_arm
 
     device = torch.device("cuda", 0)
@@ -2216,8 +2541,10 @@ def main():
         mjcf_launches = phase_mjcf(device, arm_dir, card)
         check(mjcf_launches > 0, "MJCF robot path launched no kernel")
         log("== phase 8: the coherent grid path")
-        coherent_launches, *coherent_ms = phase_coherent(device, arm_dir, tmp, card, generic_ms)
+        coherent_launches, *coherent_ms, union8 = phase_coherent(device, arm_dir, tmp, card,
+                                                                 generic_ms)
         check(coherent_launches > 0, "the coherent path's cache build launched no kernel")
+        check(union8["launches"] > 0, "query_grid launched no coherent_union_tile")
         log("== phase 9: the sweep's launches")
         log(f"  closest_point_sweep launches: exact-link path {exact_launches}, cached-link "
             f"path {cached_launches}, chamfer exact/cached {chamfer_launches}, "
@@ -2251,14 +2578,17 @@ def main():
         # the main path: the three harnesses (K1 in the tight arm's and the
         # torus's cache builds, none in a query)
         mesh_closest_query_cuda.launches = 0
-        builds = phase_harnesses(device, tmp, card, out_dir)
+        builds, harness_union = phase_harnesses(device, tmp, card, out_dir)
         sync(device)
         harness_launches = mesh_closest_query_cuda.launches
+        for name in ("headline", "roofline"):
+            check(harness_union[name] > 0, f"{name}: the harness launched no coherent_union_tile")
         check(builds["tight"] > 0, "the tight arm's cache build launched no kernel")
         check(builds["trilinear"] > 0, "the torus's cache build launched no kernel")
         check(harness_launches == sum(builds.values()), "K1 ran in a harness's query")
         log(f"  closest_point_sweep launches (phase 9's table, continued): harness builds "
-            f"{builds}, their queries {harness_launches - sum(builds.values())}")
+            f"{builds}, their queries {harness_launches - sum(builds.values())}; "
+            f"coherent_union_tile launches {harness_union}")
         log(f"  phase 15: {time.perf_counter() - t0:.1f} s")
 
     log("== phase 16: kernels")
@@ -2306,6 +2636,38 @@ def main():
                                                    "plain_ms", "bound_ms", "launches",
                                                    "points", "in_band")}}
 
+    def union_row():
+        """The coherent union kernel at the north-star chunk (the arm's 8
+        links x 25 configurations x 1,061,208 points, seg 27), launches on
+        phase 14's arm row; phase 8's headline shape beside it."""
+        u, h = north["union"], union8
+        fwd, vo = u["times"]["forward"], u["times"]["values_only"]
+        small = lambda r: {k: r[k] for k in ("ms", "kernel_ms", "plain_ms")}
+        return {"name": "coherent_union_tile", "route": "cuda",
+                "source": csrc + "coherent_union.cu",
+                "replaces": "pytorch_volumetric_tpu/sdf.py:1005",
+                "replaces_note": "XLA program (_coherent_union_lookup_tile; values only "
+                                 "_coherent_union_values, :817), no Pallas kernel",
+                "launches": u["launches"],
+                "launches_northstar_rows": north["union_launches"],
+                "launches_query_grid": union8["launches"],
+                "launches_served_grid": served["served_launches"]["grid"][
+                    "coherent_union_tile"],
+                "launches_sharded_coherent": par["launches"]["coherent grid"][
+                    "coherent_union_tile"],
+                "launches_harnesses": harness_union,
+                # compare_union fails on any bit that differs
+                "max_abs_err": max(u["max_abs_err"], h["max_abs_err"]),
+                **small(fwd), "bound_ms": u["bound_ms"], "bound_by": "bytes",
+                "bound_bytes": u["bound_bytes"], "library_ms": None,
+                "shape": "north-star chunk: 8 links x 25 x 1,061,208 points, seg 27",
+                "values_only": {**small(vo), "bound_ms": u["values_bound_ms"]},
+                "norm_order_mismatches": h["norm_order_mismatches"],
+                "headline_200x15504": {**small(h["times"]["forward"]),
+                                       "bound_ms": h["bound_ms"],
+                                       "values_only": {**small(h["times"]["values_only"]),
+                                                       "bound_ms": h["values_bound_ms"]}}}
+
     log(json.dumps({"kernels": [
         {"name": "closest_point_sweep", "route": "cuda", "source": csrc + "closest_point.cu",
          "replaces": "pytorch_volumetric_tpu/ops/pallas/closest_point.py:62",
@@ -2330,6 +2692,7 @@ def main():
         probe_row("fma_probe", csrc + "fma_probe.cu", "benchmarks/pallas_mfu.py:65",
                   "fma_probe_cuda", probe["fma"], probe["fma"]["max_abs_err"]),
         narrow_band_row(nb),
+        union_row(),
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

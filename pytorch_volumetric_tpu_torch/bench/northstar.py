@@ -256,7 +256,7 @@ def audit_chunk(robot, ft, q_chunk, pts, seg) -> dict:
             overflow = torch.zeros(nan.shape[:2], dtype=torch.bool, device=nan.device)
             n_middle = 0
         else:
-            _, overflow = tsdf._residual_tiles(middle, tsdf.RESIDUAL_FRAC)
+            _, overflow = tsdf._residual_tiles(middle, tsdf.residual_capacity(middle.numel()))
             n_middle = int(middle.sum())
         return {"middle_tiles": n_middle, "capacity": tsdf.residual_capacity(C * (F // seg)),
                 "tiles": C * (F // seg), "nan_entries": int(nan.sum()),

@@ -1,4 +1,4 @@
-"""One north-star chunk of the arm on one GPU, timed in cumulative stages.
+"""One north-star chunk of the arm on one GPU, timed in stages.
 
     python -m pytorch_volumetric_tpu_torch.bench.roofline_arm [--chunk 25]
         [--points-side 100] [--reps 4] [--device cuda|cpu]
@@ -9,28 +9,34 @@ configurations, the first ``B`` of its N(0, 0.3) draws from seed 0) x the
 ``side^3`` grid at half the cache resolution (100^3 at 0.01 from -0.5, in
 (3, 3, 3) tiles: 1,061,208 padded points) x the 8 nearest cached links
 (``cache_link_sdf_factory(CACHE_RES, 1.0)``, ``CACHE_RES`` = 0.02).  The
-chunk runs in cumulative stages, each a whole run of every stage before it
-plus its own step; the steps are ``sdf._nearest_union``'s own, the
-functions the per-tile winner path runs:
+chunk runs in stages, each a whole run from the joint angles; its delta is
+its time less that of the stage it builds on (``DELTA_BASE``).  The stages
+of the path the library runs, where the union is one kernel
+(``ops/coherent_union.py``, ``csrc/coherent_union.cu``; its plain version
+on the CPU):
 
-  transform  ``RobotSDF._link_transforms`` + ``transforms.transform_points``
-             -> ``pts_c [C, B, FS, seg, 3]``
-  keys       + ``sdf._nearest_keys`` (the in-grid mask and the clamped keys)
-  anchor     + ``sdf._nearest_anchor``: each tile's brick row, each point's
-             cell in it and the int64 packed-row index ``flat``
-  cells      + ``sdf._nearest_cells`` of each child's value bricks
-  union      + ``sdf._nearest_select`` (the AABB fallback, the ``where``),
-             ``amin``: the values-only path (``sdf._coherent_union_values``)
-  full       ``compose_query_coherent``'s forward (``_first_min`` in place of
-             ``amin``, then ``_tile_candidate_ids``, the gradient-brick
-             candidates, the residual lane and ``_rotate_winners``)
-  fwd_bwd    + ``d(v.sum() + g.sum()) / dq``
+  transform    ``RobotSDF._link_transforms`` + ``transforms.transform_points``
+               -> ``pts_c [C, B, FS, seg, 3]``
+  union        + the union kernel, values only (``sdf._coherent_union_values``)
+  full         ``compose_query_coherent``'s forward: the transform and the
+               union kernel with its gradients and winners
+               (``sdf._coherent_union_lookup_tile``), delta against transform
+  fwd_bwd      + ``d(v.sum() + g.sum()) / dq`` (delta against full)
+
+and, for comparison, the plain version's chain (``sdf._union_values_eval``'s
+steps, ``sdf._nearest_union``'s own functions), cumulative from transform:
+
+  plain_keys    + ``sdf._nearest_keys`` (the in-grid mask and the clamped keys)
+  plain_anchor  + ``sdf._nearest_anchor``: each tile's brick row, each point's
+                cell in it and the int64 packed-row index ``flat``
+  plain_cells   + ``sdf._nearest_cells`` of each child's value bricks
+  plain_union   + ``sdf._nearest_select`` (the AABB fallback, the ``where``),
+                ``amin``: the values-only result of the plain version
 
 A stage returns the sums of the tensors it hands on (as the JAX script's
 stages sum every live output; eager PyTorch drops no dead work, so the
 sums only make the stages' results comparable).  Each stage is timed with
-CUDA events, a warm-up then ``--reps`` runs, the median; its delta is its
-time less the stage before's (``fwd_bwd``'s is the backward).  In
+CUDA events, a warm-up then ``--reps`` runs, the median.  In
 separate runs: the launches, the device ms and the top kernels of one
 traced run with the port's functions labelled (``utils.profiling.kernel_owners``), and the
 bytes of every tensor the stage creates, counted from shapes and dtypes
@@ -41,9 +47,11 @@ next smaller divisor of the chunk (``northstar.with_oom_retry``).
 
 Gates, bit for bit: ``union``'s sum equals a direct ``values_only`` call
 of ``compose_query_coherent`` (the stages' transform and tile layout are
-the library's), and ``full``'s value sum equals ``union``'s (``full`` is
+the library's), ``full``'s value sum equals ``union``'s (``full`` is
 ``compose_query_coherent``'s forward itself, so it is held to the
-values-only path: the per-tile winners' values against the ``amin``).
+values-only path: the per-tile winners' values against the ``amin``), and
+``plain_union``'s sum equals ``union``'s (the kernel against its plain
+version).
 The JAX script's TPU gather cost model and XLA ``cost_analysis`` have no
 counterpart here: the bytes count stands in their place.
 
@@ -74,34 +82,43 @@ from pytorch_volumetric_tpu_torch.bench import northstar as ns
 
 METRIC = "northstar_arm_chunk_roofline"
 CACHE_RES = ns.CACHE_RES  # the links' cache resolution; the grid takes half of it
-PIECEWISE = ("transform", "keys", "anchor", "cells", "union")
-STAGES = PIECEWISE + ("full", "fwd_bwd")
+PLAIN = ("plain_keys", "plain_anchor", "plain_cells", "plain_union")
+PIECEWISE = ("transform", "union") + PLAIN
+STAGES = ("transform", "union", "full", "fwd_bwd") + PLAIN
+# the stage each delta is taken against
+DELTA_BASE = {"union": "transform", "full": "transform", "fwd_bwd": "full",
+              "plain_keys": "transform", "plain_anchor": "plain_keys",
+              "plain_cells": "plain_anchor", "plain_union": "plain_cells"}
 HBM_BYTES_PER_S = 3.35e12  # one H100 SXM's memory rate (NVIDIA's data sheet)
 TOP_KERNELS = 5
 
 
 def stage_outputs(stage: str, robot, ft, q: torch.Tensor, pts: torch.Tensor, seg: int):
     """The tensors the chunk's nearest union hands on at the end of
-    ``stage`` (one of :data:`PIECEWISE`), computed without gradients by
-    ``sdf._nearest_union``'s own steps, in its order.  ``union`` gives the
-    values-only result ``[B, F]`` (``sdf._coherent_union_values``)."""
+    ``stage`` (one of :data:`PIECEWISE`), computed without gradients:
+    ``union`` gives the kernel's values-only result ``[B, F]``
+    (``sdf._coherent_union_values``), the ``plain_*`` stages the plain
+    version's steps (``sdf._nearest_union``'s own), in its order,
+    ``plain_union`` its values-only result."""
     S, B, F = len(ft), q.shape[0], pts.shape[0]
     with torch.no_grad():
         m, _ = robot._link_transforms(q)
         pts_c = tfm.transform_points(m, pts).reshape(S, B, F // seg, seg, 3)
         if stage == "transform":
             return (pts_c,)
+        if stage == "union":
+            return (tsdf._coherent_union_values(ft, pts_c).reshape(B, F),)
         valid, kc = tsdf._nearest_keys(ft, pts_c)
-        if stage == "keys":
+        if stage == "plain_keys":
             return valid, kc
         row, cell, flat = tsdf._nearest_anchor(ft, kc)
         del kc
-        if stage == "anchor":
+        if stage == "plain_anchor":
             return valid, row, cell, flat
         v_in = tsdf._nearest_cells(ft, row, cell)
-        if stage == "cells":
+        if stage == "plain_cells":
             return valid, v_in, flat
-        if stage == "union":
+        if stage == "plain_union":
             v, _ = tsdf._nearest_select(ft, pts_c, valid, v_in)
             return (v.amin(dim=0).reshape(B, F),)
     raise ValueError(f"unknown piecewise stage {stage!r}")
@@ -188,15 +205,17 @@ def measure(robot, ft, q, pts, seg, reps: int = 4,
 
 
 def gates(robot, ft, q, pts, seg, stages: dict) -> Dict[str, bool]:
-    """``union``'s sum equals a direct ``values_only`` call's, and
-    ``full``'s value sum equals ``union``'s, bit for bit."""
+    """``union``'s sum equals a direct ``values_only`` call's, ``full``'s
+    value sum equals ``union``'s and ``plain_union``'s equals ``union``'s,
+    bit for bit."""
     with torch.no_grad():
         m, m_inv = robot._link_transforms(q)
         vo = tsdf.compose_query_coherent(tuple(robot.sdf.sdfs), m, m_inv, q.shape[0], pts,
                                          fast_tables=ft, seg=seg, values_only=True)
         union = [vo.sum().double().item()]
     return {"union_equals_values_only": stages["union"]["sums"] == union,
-            "full_values_equal_union": stages["full"]["sums"][0] == union[0]}
+            "full_values_equal_union": stages["full"]["sums"][0] == union[0],
+            "plain_union_equals_union": stages["plain_union"]["sums"] == union}
 
 
 def run(device, directory: str, chunk: int = 25, points_side: int = 100, reps: int = 4,
@@ -227,9 +246,7 @@ def run(device, directory: str, chunk: int = 25, points_side: int = 100, reps: i
 
     B, (stages, gate) = ns.with_oom_retry(attempt, chunk, chunk, log)
     ms = {k: r["ms"] for k, r in stages.items()}
-    delta = {STAGES[0]: ms[STAGES[0]]}
-    for a, b in zip(STAGES, STAGES[1:]):
-        delta[b] = ms[b] - ms[a]
+    delta = {k: ms[k] - ms[DELTA_BASE[k]] if k in DELTA_BASE else ms[k] for k in STAGES}
     log(f"  gates {gate}")
     M = len(take_idx)
     extra = {"stage_ms": ms, "delta_ms": delta,

@@ -1,0 +1,215 @@
+"""The coherent per-tile nearest union as a hand-written CUDA kernel.
+
+:func:`coherent_union_tile` (``csrc/coherent_union.cu``) is the drop-in
+equivalent of the plain versions ``sdf._union_tile_eval`` (value, object-
+and link-frame gradients and winner of every point of a per-tile winner
+union) and ``sdf._union_values_eval`` (values only).  For CUDA tensors it
+launches the kernel on PyTorch's current stream (the library is built from
+``csrc/`` at first use), or raises; for CPU tensors it runs the plain
+version.  One call launches the union kernel once, counted in
+``.launches``; with more than three children it also runs a ``cumsum`` of
+the per-tile middle flags and the kernel's poison pass, which put NaN in
+the middle tiles beyond the residual lane's capacity.  Neither waits for
+the device.
+
+The wrapper reaches the kernel through the registered custom op
+``pvt::coherent_union_tile`` (CUDA: the kernel; CPU: the plain version,
+which ``sdf`` registers, so that this module knows nothing of ``sdf``; a
+fake implementation gives the outputs' shapes), with each child's tables
+as lists of tensors, so ``torch.export`` keeps the union as one opaque node
+that a loaded program dispatches to the kernel on the card.  The kernel
+reads the tables in place through a device array of their pointers, built
+once for each set of tables (cached by the pointers themselves, so an
+entry never holds other content than its key says).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from collections import OrderedDict
+from typing import List, Sequence, Tuple
+
+import torch
+
+from pytorch_volumetric_tpu_torch.ops import cuda_build
+
+KERNEL = "coherent_union"
+_TILE, _POISON = "pvt_coherent_union_tile", "pvt_coherent_union_poison"
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the per-child fields the kernel reads, in the order of its pointer array
+FIELDS = ("lo", "inv_res", "n", "strides", "bstrides", "bb", "bricks", "gbricks", "vg")
+_SHAPES = {"lo": ((3,), torch.float32), "inv_res": ((3,), torch.float32),
+           "n": ((3,), torch.int64), "strides": ((3,), torch.int64),
+           "bstrides": ((3,), torch.int64), "bb": ((3, 2), torch.float32)}
+_DESC_CACHE: "OrderedDict[tuple, Tuple[torch.Tensor, torch.Tensor]]" = OrderedDict()
+_DESC_CACHE_SIZE = 64
+
+
+def _entry():
+    lib = cuda_build.load(KERNEL)
+    tile, poison = getattr(lib, _TILE), getattr(lib, _POISON)
+    if tile.argtypes is None:
+        tile.argtypes = [_p, _p, _p, _i, _i, _i, _i, _i, _p, _p, _p, _p, _p, _p, _p]
+        tile.restype = ctypes.c_int
+        poison.argtypes = [_p, _p, _i, _ll, _i, _p, _p, _p, _p]
+        poison.restype = ctypes.c_int
+    return lib, tile, poison
+
+
+def _check_inputs(pts_c: torch.Tensor, Rb: torch.Tensor, fields: dict,
+                  values_only: bool) -> None:
+    if pts_c.dim() != 5 or pts_c.shape[-1] != 3:
+        raise ValueError(f"pts_c must be [C, B, FS, seg, 3], got {tuple(pts_c.shape)}")
+    C, B = pts_c.shape[:2]
+    named = [("pts_c", pts_c)]
+    if not values_only:
+        if tuple(Rb.shape) != (C, B, 3, 3):
+            raise ValueError(f"Rb must be [C, B, 3, 3] = {(C, B, 3, 3)}, got {tuple(Rb.shape)}")
+        named.append(("Rb", Rb))
+    for name in FIELDS:
+        ts = fields[name]
+        if name == "gbricks" and values_only:
+            continue
+        if len(ts) != C:
+            raise ValueError(f"{name}: {len(ts)} tensors for {C} children")
+        for c, t in enumerate(ts):
+            shape, dtype = _SHAPES.get(name, (None, torch.float32))
+            if shape is not None and tuple(t.shape) != shape:
+                raise ValueError(f"{name}[{c}] must be {shape}, got {tuple(t.shape)}")
+            if shape is None:
+                want = {"bricks": (64,), "gbricks": (3, 64), "vg": (4,)}[name]
+                if t.dim() != len(want) + 1 or tuple(t.shape[1:]) != want:
+                    raise ValueError(f"{name}[{c}] must be [rows, {', '.join(map(str, want))}]"
+                                     f", got {tuple(t.shape)}")
+            if t.dtype != dtype:
+                raise TypeError(f"{name}[{c}] must be {dtype}, got {t.dtype}")
+            named.append((f"{name}[{c}]", t))
+    for name, t in named:
+        if name in ("pts_c", "Rb") and t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != pts_c.device:
+            raise ValueError(f"{name} lies on {t.device}, pts_c on {pts_c.device}")
+    if max(pts_c.shape[1:4]) >= 2 ** 31:
+        raise ValueError("B, FS and seg must each fit 32 bits")
+    if pts_c.device.type != "cuda":
+        raise ValueError(f"the kernel takes CUDA tensors, got {pts_c.device}")
+
+
+def _descriptor(fields: dict, device: torch.device) -> torch.Tensor:
+    """The device array ``[C, 9]`` int64 of each child's table pointers (in
+    :data:`FIELDS` order; 0 for a missing gradient brick table), copied
+    once for each set of pointers."""
+    C = len(fields["vg"])
+    ptrs = tuple(fields[name][c].data_ptr() if fields[name] else 0
+                 for c in range(C) for name in FIELDS)
+    key = (device.index, ptrs)
+    hit = _DESC_CACHE.get(key)
+    if hit is not None:
+        _DESC_CACHE.move_to_end(key)
+        return hit[1]
+    host = torch.tensor(ptrs, dtype=torch.int64).pin_memory()
+    desc = host.to(device, non_blocking=True)
+    _DESC_CACHE[key] = (host, desc)  # the pinned source lives until the copy has run
+    if len(_DESC_CACHE) > _DESC_CACHE_SIZE:
+        _DESC_CACHE.popitem(last=False)
+    return desc
+
+
+def _coherent_union_tile_op_cuda(
+        pts_c: torch.Tensor, Rb: torch.Tensor, lo: List[torch.Tensor],
+        inv_res: List[torch.Tensor], n: List[torch.Tensor], strides: List[torch.Tensor],
+        bstrides: List[torch.Tensor], bb: List[torch.Tensor], bricks: List[torch.Tensor],
+        gbricks: List[torch.Tensor], vg: List[torch.Tensor], capacity: int, values_only: bool
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(val [B, FS, seg], g_obj [B, FS, seg, 3], win [B, FS, seg] int64,
+    g_link [B, FS, seg, 3])`` of the per-tile nearest union of ``pts_c [C,
+    B, FS, seg, 3]`` with rotations ``Rb [C, B, 3, 3]``; with
+    ``values_only`` just ``val`` and three empty tensors (``Rb`` and
+    ``gbricks`` unread).  ``capacity``: the residual lane's capacity in
+    tiles; the middle tiles beyond it get NaN gradients.  The kernel."""
+    if capacity < 0:
+        raise ValueError(f"capacity must be >= 0, got {capacity}")
+    fields = dict(zip(FIELDS, (lo, inv_res, n, strides, bstrides, bb, bricks, gbricks, vg)))
+    _check_inputs(pts_c, Rb, fields, values_only)
+    lib, tile, poison = _entry()
+    C, B, FS, seg = pts_c.shape[:4]
+    dev = pts_c.device
+    N = B * FS * seg
+    val = torch.empty((B, FS, seg), dtype=torch.float32, device=dev)
+    if values_only:
+        e = val.new_empty(0)
+        g_obj, win, g_link = e, e.to(torch.int64), e.clone()
+    else:
+        g_obj = torch.empty((B, FS, seg, 3), dtype=torch.float32, device=dev)
+        win = torch.empty((B, FS, seg), dtype=torch.int64, device=dev)
+        g_link = torch.empty_like(g_obj)
+    lane = not values_only and C > 3  # the residual lane's middle tiles
+    middle = torch.empty(B * FS if lane else 0, dtype=torch.int32, device=dev)
+    mask = torch.empty(N if lane else 0, dtype=torch.uint8, device=dev)
+    if N:
+        if values_only:
+            fields["gbricks"] = []
+        desc = _descriptor(fields, dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            code = tile(pts_c.data_ptr(), None if values_only else Rb.data_ptr(),
+                        desc.data_ptr(), C, B, FS, seg, int(values_only), val.data_ptr(),
+                        g_obj.data_ptr(), win.data_ptr(), g_link.data_ptr(),
+                        middle.data_ptr(), mask.data_ptr(), stream)
+            cuda_build.check_launch(lib, code, _TILE)
+            coherent_union_tile.launches += 1
+            if lane:
+                rank = torch.cumsum(middle, 0, dtype=torch.int32)
+                code = poison(middle.data_ptr(), rank.data_ptr(), seg, N, capacity,
+                              mask.data_ptr(),
+                              g_obj.data_ptr(), g_link.data_ptr(), stream)
+                cuda_build.check_launch(lib, code, _POISON)
+    return val, g_obj, win, g_link
+
+
+# the op's CUDA kernel; ``sdf`` registers its CPU kernel, the plain version
+coherent_union_tile_op = torch.library.custom_op(
+    "pvt::coherent_union_tile", _coherent_union_tile_op_cuda, mutates_args=(),
+    device_types="cuda")
+
+
+@coherent_union_tile_op.register_fake
+def _coherent_union_tile_op_fake(pts_c, Rb, lo, inv_res, n, strides, bstrides, bb, bricks,
+                                 gbricks, vg, capacity, values_only):
+    B, FS, seg = pts_c.shape[1:4]
+    if values_only:
+        e = pts_c.new_empty(0)
+        return pts_c.new_empty((B, FS, seg)), e, e.to(torch.int64), e.clone()
+    return (pts_c.new_empty((B, FS, seg)), pts_c.new_empty((B, FS, seg, 3)),
+            pts_c.new_empty((B, FS, seg), dtype=torch.int64), pts_c.new_empty((B, FS, seg, 3)))
+
+
+def op_args(tables: Sequence, values_only: bool = False) -> List[List[torch.Tensor]]:
+    """The op's per-child table lists, in :data:`FIELDS` order (no gradient
+    bricks with ``values_only``)."""
+    return [[] if name == "gbricks" and values_only
+            else [getattr(t, name).contiguous() for t in tables] for name in FIELDS]
+
+
+def coherent_union_tile(tables: Sequence, pts_c: torch.Tensor, Rb: torch.Tensor = None,
+                        capacity: int = None, values_only: bool = False):
+    """The per-tile nearest union of the children's ``sdf._CoherentTables``
+    over ``pts_c [C, B, FS, seg, 3]`` (detached): ``(val, g_obj, win,
+    g_link)`` with the rotations ``Rb [C, B, 3, 3]`` and the residual
+    lane's ``capacity`` in tiles (``sdf.residual_capacity`` of ``B * FS``),
+    or ``val [B, FS, seg]`` alone with ``values_only``."""
+    if pts_c.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {pts_c.device}")
+    if values_only:
+        Rb, capacity = pts_c.new_empty(0), 0
+    elif Rb is None or capacity is None:
+        raise ValueError("the forward takes the rotations Rb and the residual lane's capacity")
+    out = coherent_union_tile_op(pts_c.contiguous(), Rb.contiguous(),
+                                 *op_args(tables, values_only), int(capacity),
+                                 bool(values_only))
+    return out[0] if values_only else out
+
+
+coherent_union_tile.launches = 0

@@ -32,6 +32,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = {
     "closest_point": ("closest_point.cu", ("-fmad=false",)),
     "narrow_band": ("narrow_band.cu", ("-fmad=false",)),
+    "coherent_union": ("coherent_union.cu", ("-fmad=false",)),
     "closest_point_mma": ("closest_point_mma.cu", ("-fmad=false",)),
     "fma_probe": ("fma_probe.cu", ("-fmad=false",)),
     "closest_point_fmad": ("closest_point.cu", ("-fmad=true",)),

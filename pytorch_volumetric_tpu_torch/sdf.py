@@ -31,6 +31,8 @@ import torch
 
 from pytorch_volumetric_tpu_torch import mesh as mesh_mod
 from pytorch_volumetric_tpu_torch import transforms as tfm
+from pytorch_volumetric_tpu_torch.ops.coherent_union import (
+    FIELDS as _UNION_FIELDS, coherent_union_tile, coherent_union_tile_op)
 from pytorch_volumetric_tpu_torch.ops.point_triangle import signed_closest_query
 from pytorch_volumetric_tpu_torch.ops.straight_through import (
     straight_through, tile_winner_straight_through, winner_straight_through)
@@ -830,10 +832,17 @@ def _lerp5(table: torch.Tensor, row, base5, w) -> torch.Tensor:
     return acc
 
 
+def _union_values_eval(tables: Sequence[_CoherentTables], pts_c: torch.Tensor):
+    """The plain version of :func:`_coherent_union_values`."""
+    return _nearest_union(tables, pts_c)[0].amin(dim=0)
+
+
 def _coherent_union_values(tables: Sequence[_CoherentTables], pts_c: torch.Tensor):
     """Values only of the nearest brick union: ``pts_c [C, B, FS, seg, 3]
-    -> val [B, FS, seg]`` (no winner, no gradient; callers detach)."""
-    return _nearest_union(tables, pts_c)[0].amin(dim=0)
+    -> val [B, FS, seg]`` (no winner, no gradient; callers detach), through
+    ``pvt::coherent_union_tile`` (:mod:`ops.coherent_union`: the kernel on
+    the card, :func:`_union_values_eval` on the CPU)."""
+    return coherent_union_tile(tables, pts_c, values_only=True)
 
 
 def _winner_rows_eval(tables, pts_c):
@@ -901,15 +910,14 @@ def residual_capacity(n_tiles: int, residual_frac: float = RESIDUAL_FRAC) -> int
                             min(32, n_tiles) if residual_frac >= 1e-6 else 1))
 
 
-def _residual_tiles(middle: torch.Tensor, residual_frac: float):
+def _residual_tiles(middle: torch.Tensor, cap: int):
     """The residual lane's tiles, without a host sync: ``(idx [cap],
     overflow [B, FS])``.  ``idx`` holds the flat indices ``b * FS + f`` of
     the first ``cap`` middle tiles in order, then ``B * FS`` for unused
-    slots; ``overflow`` marks the middle tiles beyond ``cap``
+    slots; ``overflow`` marks the middle tiles beyond the capacity ``cap``
     (:func:`residual_capacity`)."""
     B, FS = middle.shape
     T = B * FS
-    cap = residual_capacity(T, residual_frac)
     mflat = middle.reshape(-1)
     mint = mflat.to(torch.int64)
     rank = torch.cumsum(mint, 0) - mint
@@ -956,19 +964,18 @@ def _scatter_residual(res: torch.Tensor, idx: torch.Tensor, B: int, FS: int):
     return out[:T].reshape((B, FS) + res.shape[1:])
 
 
-def _finish_tile_union(best_v, best_i, best_valid, g_cand, g_oob, middle, residual,
-                       residual_frac, Rb):
+def _finish_tile_union(best_v, best_i, best_valid, g_cand, g_oob, middle, residual, cap, Rb):
     """The per-tile unions' last step, on link-frame gradients: the
     candidates' ``g_cand`` where a candidate is the point's winner, the
     residual lane's winner rows (``residual(tb, tf) -> [cap, seg, 3]`` for
     residual tiles ``(tb, tf)``) in the ``middle`` tiles of
     :func:`_tile_candidate_ids` (None when three candidates cover every
-    winner), NaN in middle tiles beyond the lane's capacity, the AABB
+    winner), NaN in middle tiles beyond the lane's capacity ``cap``, the AABB
     fallback ``g_oob`` out of bounds, then rotated with each point's
     winner's rotation.  Returns ``(val, g_obj, win, g_link)``."""
     B, FS = best_v.shape[:2]
     if middle is not None:
-        idx, overflow = _residual_tiles(middle, residual_frac)
+        idx, overflow = _residual_tiles(middle, cap)
         tile = idx.clamp(max=B * FS - 1)
         res = _scatter_residual(residual(tile // FS, tile % FS), idx, B, FS)
         g_cand = torch.where(middle[:, :, None, None], res, g_cand)
@@ -986,9 +993,10 @@ def _rotate_winners(Rb: torch.Tensor, win: torch.Tensor, g_link: torch.Tensor):
     return tfm.rotate_vectors(R, g_link[..., None, :])[..., 0, :]
 
 
-def _union_tile_eval(tables, residual_frac, pts_c, Rb):
-    """Forward of :func:`_coherent_union_lookup_tile`, plus the winner's
-    link-frame gradient for the backward."""
+def _union_tile_eval(tables, cap, pts_c, Rb):
+    """The plain version of :func:`_coherent_union_lookup_tile`'s forward,
+    plus the winner's link-frame gradient for the backward: ``(val, g_obj,
+    win, g_link)``; ``cap``: the residual lane's capacity in tiles."""
     C = len(tables)
     v, valid, flat, row, cell, g_oob = _nearest_union(tables, pts_c)
     win, pick = _first_min(v)
@@ -1008,7 +1016,22 @@ def _union_tile_eval(tables, residual_frac, pts_c, Rb):
 
     candidates, middle = _tile_candidate_ids(win, best_valid, C)
     return _finish_tile_union(pick(v), win, best_valid, _tile_candidates(candidates, candidate),
-                              pick(g_oob), middle, residual, residual_frac, Rb)
+                              pick(g_oob), middle, residual, cap, Rb)
+
+
+@coherent_union_tile_op.register_kernel("cpu")
+def _coherent_union_tile_op_cpu(pts_c, Rb, lo, inv_res, n, strides, bstrides, bb, bricks,
+                                gbricks, vg, capacity, values_only):
+    """``pvt::coherent_union_tile`` on the CPU: the plain version."""
+    fields = dict(zip(_UNION_FIELDS, (lo, inv_res, n, strides, bstrides, bb, bricks, gbricks,
+                                      vg)))
+    tables = tuple(_CoherentTables(**{k: fields[k][c] for k in _UNION_FIELDS if k != "gbricks"},
+                                   gbricks=gbricks[c] if gbricks else None)
+                   for c in range(len(vg)))
+    if values_only:
+        e = pts_c.new_empty(0)
+        return _union_values_eval(tables, pts_c), e, e.to(torch.int64), e.clone()
+    return _union_tile_eval(tables, capacity, pts_c, Rb)
 
 
 def _tile_winner_lookup(pts_c: torch.Tensor, Rb: torch.Tensor, evaluate):
@@ -1038,9 +1061,12 @@ def _coherent_union_lookup_tile(tables: Sequence[_CoherentTables], pts_c: torch.
     tiles) take a residual lane of per-point winner rows; its capacity is
     ``residual_frac`` of all tiles, and middle tiles beyond it get NaN
     gradients (values unaffected).  Each point's gradient is then rotated
-    with its winner's rotation (:func:`_finish_tile_union`)."""
-    return _tile_winner_lookup(pts_c, Rb, partial(_union_tile_eval, tuple(tables),
-                                                  residual_frac))
+    with its winner's rotation (:func:`_finish_tile_union`).  The forward
+    is ``pvt::coherent_union_tile`` (:mod:`ops.coherent_union`: the kernel
+    on the card, :func:`_union_tile_eval` on the CPU)."""
+    tables = tuple(tables)
+    cap = residual_capacity(pts_c.shape[1] * pts_c.shape[2], residual_frac)
+    return _tile_winner_lookup(pts_c, Rb, lambda p, R: coherent_union_tile(tables, p, R, cap))
 
 
 def _trilinear_union_values(tables: Sequence[_CoherentTables], pts_c: torch.Tensor):
@@ -1086,7 +1112,9 @@ def _union_tile_tri_eval(tables, residual_frac, pts_c, Rb=None):
 
     candidates, middle = _tile_candidate_ids(win, best_valid, C)
     return _finish_tile_union(pick(v), win, best_valid, _tile_candidates(candidates, candidate),
-                              pick(g_oob), middle, residual, residual_frac, Rb)
+                              pick(g_oob), middle, residual,
+                              residual_capacity(win.shape[0] * win.shape[1], residual_frac),
+                              Rb)
 
 
 def _coherent_union_lookup_tile_tri(tables: Sequence[_CoherentTables], pts_c: torch.Tensor,

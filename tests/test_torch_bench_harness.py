@@ -231,7 +231,8 @@ def test_roofline_stages_equal_the_coherent_path(roofline_case):
     stages = ra.measure(robot, ft, q, pts, seg, reps=1)
     assert list(stages) == list(ra.STAGES)
     gate = ra.gates(robot, ft, q, pts, seg, stages)
-    assert list(gate) == ["union_equals_values_only", "full_values_equal_union"]
+    assert list(gate) == ["union_equals_values_only", "full_values_equal_union",
+                          "plain_union_equals_union"]
     assert all(gate.values())
 
 
@@ -258,16 +259,21 @@ def test_roofline_stage_outputs_and_bytes(roofline_case):
               for st in ra.PIECEWISE}
     tile = (S, B, F // seg, seg)
     assert shapes["transform"] == [tile + (3,)]
-    assert shapes["keys"] == [tile, tile + (3,)]
-    assert shapes["anchor"] == [tile, (S, B, F // seg), tile, tile]
-    assert shapes["cells"] == [tile, tile, tile]
     assert shapes["union"] == [(B, F)]
-    # every stage creates at least the tensors it hands on, and more than
-    # the stage before (the piecewise stages are cumulative)
-    created = [ra.created_bytes(lambda st=st: ra.stage_sums(st, robot, ft, q, pts, seg))
-               for st in ra.STAGES]
-    assert all(a["bytes"] < b["bytes"] for a, b in zip(created[:5], created[1:5]))
-    assert created[0]["bytes"] >= S * B * F * 3 * 4
+    assert shapes["plain_keys"] == [tile, tile + (3,)]
+    assert shapes["plain_anchor"] == [tile, (S, B, F // seg), tile, tile]
+    assert shapes["plain_cells"] == [tile, tile, tile]
+    assert shapes["plain_union"] == [(B, F)]
+    # every stage creates at least the tensors it hands on; the plain
+    # chain's stages are cumulative from transform, each creating more than
+    # the one before, and the plain union more than the kernel's
+    created = {st: ra.created_bytes(lambda st=st: ra.stage_sums(st, robot, ft, q, pts, seg))
+               for st in ra.STAGES}
+    chain = [created[st]["bytes"] for st in ("transform",) + ra.PLAIN]
+    assert all(a < b for a, b in zip(chain, chain[1:]))
+    assert created["transform"]["bytes"] >= S * B * F * 3 * 4
+    assert created["union"]["bytes"] < created["plain_union"]["bytes"]
+    assert set(ra.DELTA_BASE) == set(ra.STAGES) - {"transform"}
 
     with ra.CreatedBytes() as counter:
         x = torch.ones(10) + 1          # two new float32 tensors: 80 bytes

@@ -1,0 +1,339 @@
+"""The coherent per-tile nearest union as the op ``pvt::coherent_union_tile``
+(``ops/coherent_union.py``; its kernel ``csrc/coherent_union.cu`` runs only
+on the card) on the CPU, where the op is the plain version:
+
+- against the JAX package's ``_coherent_union_lookup_tile`` and
+  ``_coherent_union_values`` on the same numpy inputs (tiles around the
+  junction of 2 and 4 cached spheres, some tiles out of the grid, NaN and
+  +-inf points, random rotations), at the default residual fraction and at
+  1e-9, where the lane overflows.  Tolerances are the coherent path's
+  against the JAX package (``test_torch_coherent``): values 1e-5,
+  gradients 1e-4, winners and NaN places equal;
+- the op's schema and fake implementation (``torch.library.opcheck``) and
+  the wrapper's refusals;
+- the kernel's design mirrored in torch: the winner by an in-order scan,
+  the middle tiles as those with four or more distinct in-grid winners
+  (the lanes' four-smallest lists merged as the kernel merges them), each
+  point's gradient from its winner alone, then the overflow poisoned in a
+  second pass (a cumsum of the tile flags) -- equal to the plain
+  ``_union_tile_eval``, the lane overflowing or not;
+- a served grid query (``utils/serving``) whose graph holds the op, equal to
+  the live ``query_grid``.
+"""
+
+import math
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+import pytorch_volumetric_tpu_torch as pt
+from pytorch_volumetric_tpu import sdf as jsdf
+from pytorch_volumetric_tpu.sdf import coherent_fast_tables as jax_fast_tables
+from pytorch_volumetric_tpu_torch import sdf as tsdf
+from pytorch_volumetric_tpu_torch.ops import coherent_union as cu
+from pytorch_volumetric_tpu_torch.utils import serving
+from pytorch_volumetric_tpu_torch.utils.robots import make_serial_arm
+from test_torch_coherent import _junction
+from torch_cpu_guard import warm_sqrt
+
+warm_sqrt()
+
+V_TOL, G_TOL = 1e-5, 1e-4
+SEG, B, FS = 12, 2, 48
+
+
+@pytest.fixture(scope="module")
+def junctions(tmp_path_factory):
+    """``C -> (JAX composition, port composition)`` for 2 and 4 spheres."""
+    return {c: _junction(str(tmp_path_factory.mktemp(f"j{c}")), n_children=c) for c in (2, 4)}
+
+
+def _rotations(rng, shape):
+    q, r = np.linalg.qr(rng.normal(size=shape + (3, 3)))
+    return (q * np.sign(np.diagonal(r, axis1=-2, axis2=-1))[..., None, :]).astype(np.float32)
+
+
+def _inputs(ct, seed, seg=SEG, fs=FS, near=0.05):
+    """``(pts_c [C, B, FS, seg, 3], Rb [C, B, 3, 3])`` in numpy: tiles at
+    random centres (most within ``near`` of the junction, one in six up to 0.8
+    away: out of the grid), their points within 0.01 of the centre; in one
+    tile in eight one coordinate of every point is NaN, +inf or -inf (every
+    fourth such tile all NaN), so that the tile keeps the contract (the JAX
+    package reads a tile that breaks it through a one-hot that misses, the
+    port clamps its offsets: they differ there by design); each child's
+    points in its frame (the junction's frames translate)."""
+    rng = np.random.default_rng(seed)
+    far = rng.random(fs) < 1 / 6
+    centre = np.where(far[:, None], rng.uniform(-0.8, 0.8, (fs, 3)),
+                      rng.uniform(-near, near, (fs, 3)))
+    obj = (centre[None, :, None] + rng.uniform(-0.01, 0.01, (B, fs, seg, 3))).astype(np.float32)
+    for j, f in enumerate(rng.choice(fs, size=max(4, fs // 8), replace=False)):
+        obj[:, f, :, j % 3] = (np.nan, np.inf, -np.inf)[j % 3]
+        if j % 4 == 3:
+            obj[:, f] = np.nan
+    m = ct.obj_frame_to_link_frame.get_matrix().numpy()
+    pts_c = np.stack([obj + m[c, :3, 3] for c in range(len(m))]).astype(np.float32)
+    return pts_c, _rotations(rng, (len(m), B))
+
+
+def _port(ct, pts_c, Rb, frac, values_only=False):
+    tables = tsdf.coherent_fast_tables(tuple(ct.sdfs))
+    cap = tsdf.residual_capacity(pts_c.shape[1] * pts_c.shape[2], frac)
+    with torch.no_grad():
+        return cu.coherent_union_tile(tables, torch.as_tensor(pts_c), torch.as_tensor(Rb), cap,
+                                      values_only=values_only)
+
+
+def _jax(cj, pts_c, Rb, frac, seg=SEG):
+    """The JAX package's union on the same inputs, in the port's ``[B, FS,
+    seg]`` layout: ``(val, g_obj, win)`` and the values-only ``val``."""
+    children = tuple(cj.sdfs)
+    smalls = [c._coherent_tables() for c in children]
+    ft = jax_fast_tables(children)
+    bricks = tuple(t.bricks for t in ft)
+    g_cat = jnp.concatenate([t.gbricks for t in ft])
+    vg_cat = jnp.concatenate([t.vg for t in ft])
+    lookup = jsdf._coherent_union_lookup_tile(
+        smalls, [(b.shape, b.dtype) for b in bricks], (g_cat.shape, g_cat.dtype),
+        (vg_cat.shape, vg_cat.dtype), (Rb.shape, Rb.dtype), seg=seg, residual_frac=frac)
+    pj = jnp.asarray(np.swapaxes(pts_c, 2, 3))
+    val, g_obj, win = jax.jit(lookup)(pj, bricks, g_cat, vg_cat, jnp.asarray(Rb))
+    vo = jax.jit(jsdf._coherent_union_values(smalls, seg=seg))(pj, bricks)
+    return tuple(np.swapaxes(np.asarray(x), 1, 2) for x in (val, g_obj, win, vo))
+
+
+def _close(a, b, tol):
+    a, b = np.asarray(a), np.asarray(b)
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+    fin = ~np.isnan(a)
+    np.testing.assert_array_equal(np.isinf(a[fin]), np.isinf(b[fin]))
+    fin &= np.isfinite(a)
+    assert np.abs(a[fin] - b[fin]).max(initial=0.0) <= tol
+
+
+@pytest.mark.parametrize("C,frac", [(2, 0.04), (4, 0.04), (4, 1e-9)])
+def test_op_matches_jax(junctions, C, frac):
+    cj, ct = junctions[C]
+    pts_c, Rb = _inputs(ct, seed=C)
+    val, g_obj, win, g_link = _port(ct, pts_c, Rb, frac)
+    vj, gj, wj, voj = _jax(cj, pts_c, Rb, frac)
+    assert val.shape == (B, FS, SEG) and g_obj.shape == g_link.shape == (B, FS, SEG, 3)
+    assert win.dtype == torch.int64
+    np.testing.assert_array_equal(win.numpy(), wj)
+    _close(val, vj, V_TOL)
+    _close(g_obj, gj, G_TOL)
+    vo = _port(ct, pts_c, Rb, frac, values_only=True)
+    _close(vo, voj, V_TOL)
+    assert torch.equal(vo, val)
+    finite = np.isfinite(pts_c).all(axis=(0, -1))
+    assert np.isnan(pts_c).any() and np.isinf(pts_c).any()
+    if C > 3:
+        # tiles of four winners exist, and at 1e-9 the lane (one tile)
+        # overflows: NaN gradients at finite points
+        middle = tsdf._tile_candidate_ids(win, _valid_of_winner(ct, pts_c, win), C)[1]
+        assert int(middle.sum()) >= 2
+        overflow = torch.isnan(g_link).any(dim=-1) & torch.as_tensor(finite)
+        assert bool(overflow.any()) == (frac < 1e-6)
+
+
+def _valid_of_winner(ct, pts_c, win):
+    tables = tsdf.coherent_fast_tables(tuple(ct.sdfs))
+    valid = tsdf._nearest_union(tables, torch.as_tensor(pts_c))[1]
+    return valid.gather(0, win[None])[0]
+
+
+def _op_args(ct, pts_c, Rb, values_only):
+    tables = tsdf.coherent_fast_tables(tuple(ct.sdfs))
+    return (torch.as_tensor(pts_c), torch.as_tensor(Rb) if not values_only else torch.empty(0),
+            *cu.op_args(tables, values_only), tsdf.residual_capacity(B * pts_c.shape[2]),
+            values_only)
+
+
+@pytest.mark.parametrize("values_only", [False, True])
+def test_op_schema_and_fake(junctions, values_only):
+    _, ct = junctions[4]
+    pts_c, Rb = _inputs(ct, seed=5, fs=8)
+    args = _op_args(ct, pts_c, Rb, values_only)
+    torch.library.opcheck(cu.coherent_union_tile_op, args,
+                          test_utils=("test_schema", "test_faketensor"))
+    real = cu.coherent_union_tile_op(*args)
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fake = cu.coherent_union_tile_op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor)
+                                           else [mode.from_tensor(t) for t in a]
+                                           if isinstance(a, list) else a for a in args))
+    for r, f in zip(real, fake):
+        assert r.shape == f.shape and r.dtype == f.dtype
+    assert real[0].shape == (B, 8, SEG)
+    if values_only:
+        assert all(r.numel() == 0 for r in real[1:])
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take(junctions):
+    _, ct = junctions[4]
+    tables = tsdf.coherent_fast_tables(tuple(ct.sdfs))
+    pts_c, Rb = (torch.as_tensor(x) for x in _inputs(ct, seed=6, fs=4))
+    with pytest.raises(ValueError, match="unsupported device"):
+        cu.coherent_union_tile(tables, pts_c.to("meta"), Rb.to("meta"), 32)
+    with pytest.raises(ValueError, match="residual lane's capacity"):
+        cu.coherent_union_tile(tables, pts_c, Rb)
+
+    def cuda_impl(pts, rb, values_only=False, **change):
+        fields = dict(zip(cu.FIELDS, cu.op_args(tables, values_only)))
+        fields.update(change)
+        return cu._coherent_union_tile_op_cuda(pts, rb, *fields.values(), 32, values_only)
+
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_impl(pts_c, Rb)
+    with pytest.raises(ValueError, match="capacity must be >= 0"):
+        cu._coherent_union_tile_op_cuda(pts_c, Rb, *cu.op_args(tables), -1, False)
+    with pytest.raises(ValueError, match=r"pts_c must be \[C, B, FS, seg, 3\]"):
+        cuda_impl(pts_c[..., :2], Rb)
+    with pytest.raises(TypeError, match="pts_c must be float32"):
+        cuda_impl(pts_c.double(), Rb)
+    with pytest.raises(ValueError, match="Rb must be"):
+        cuda_impl(pts_c, Rb[:, :1])
+    with pytest.raises(ValueError, match="pts_c must be contiguous"):
+        cuda_impl(pts_c.transpose(2, 3).contiguous().transpose(2, 3), Rb)
+    with pytest.raises(ValueError, match="tensors for 4 children"):
+        cuda_impl(pts_c, Rb, bricks=[t.bricks for t in tables[:3]])
+    with pytest.raises(TypeError, match=r"n\[0\] must be torch.int64"):
+        cuda_impl(pts_c, Rb, n=[t.n.int() for t in tables])
+    with pytest.raises(ValueError, match=r"gbricks\[1\] must be \[rows, 3, 64\]"):
+        cuda_impl(pts_c, Rb, gbricks=[t.gbricks[:, :2] if i == 1 else t.gbricks
+                                      for i, t in enumerate(tables)])
+
+
+def _kernel_emulation(tables, pts_c, Rb, lanes=None):
+    """The kernel's raw outputs, before its poison pass: ``(val, g_obj,
+    win, g_link, middle [B, FS], mask [B, FS, seg])``.  Per child the plain
+    steps; the winner by an in-order scan (NaN first, else strictly less);
+    a tile is middle when it holds four or more distinct in-grid winners,
+    found from each lane's four smallest distinct winners (``lanes``: the
+    number of lanes a tile's points are dealt to, one point a lane when
+    None) merged by four successive minima above the last; each point's
+    gradient from its winner alone: the AABB fallback out of the grid, its
+    packed row in a middle tile, else its gradient-brick cell."""
+    C = len(tables)
+    v, valid, flat, row, cell, g_oob = tsdf._nearest_union(tables, pts_c)
+    best, win = v[0], torch.zeros(v.shape[1:], dtype=torch.int64)
+    for c in range(1, C):
+        take = torch.where(torch.isnan(v[c]), ~torch.isnan(best), v[c] < best)
+        best, win = torch.where(take, v[c], best), torch.where(take, c, win)
+    pick = lambda x: x.gather(0, win.view((1,) + win.shape + (1,) * (x.dim() - 4)).expand(
+        (1,) + x.shape[1:]))[0]
+    bvalid = pick(valid)
+    middle = _middle_by_lane_lists(torch.where(bvalid, win, -1), lanes) & (C > 3)
+    g_cell = torch.stack([t.gbricks[row[c][..., None], :, cell[c]] for c, t in
+                          enumerate(tables)])           # [C, B, FS, seg, 3]
+    g_row = torch.stack([t.vg[flat[c] - int(tsdf._vg_offsets(tables)[c]), 1:4]
+                         for c, t in enumerate(tables)])
+    g = torch.where(middle[..., None, None], pick(g_row), pick(g_cell))
+    g = torch.where(bvalid[..., None], g, pick(g_oob))
+    return best, tsdf._rotate_winners(Rb, win, g), win, g, middle, middle[..., None] & bvalid
+
+
+def _middle_by_lane_lists(w, lanes):
+    """``[B, FS]``: four or more distinct non-negative entries in a tile of
+    ``w [B, FS, seg]``, as the kernel finds them (see
+    :func:`_kernel_emulation`)."""
+    B_, FS_, seg = w.shape
+    none = math.inf
+    out = torch.zeros((B_, FS_), dtype=torch.bool)
+    for b in range(B_):
+        for f in range(FS_):
+            pts = [x for x in w[b, f].tolist()]
+            n = seg if lanes is None else lanes
+            lists = []
+            for lane in range(n):
+                s = sorted(set(x for x in pts[lane::n] if x >= 0))[:4]
+                lists.append(s + [none] * (4 - len(s)))
+            d = min(s[0] for s in lists)
+            for _ in range(3):
+                if d == none:
+                    break
+                d = min(next((x for x in s if x > d), none) for s in lists)
+            out[b, f] = d != none
+    return out
+
+
+def _poison(middle, mask, g_obj, g_link, cap):
+    """The kernel's second pass: the middle tiles whose inclusive cumsum
+    of the flags exceeds the capacity get NaN at their in-grid points."""
+    rank = torch.cumsum(middle.reshape(-1).to(torch.int32), 0).reshape(middle.shape)
+    bad = ((middle & (rank > cap))[..., None] & mask)[..., None]
+    return torch.where(bad, float("nan"), g_obj), torch.where(bad, float("nan"), g_link)
+
+
+def _same(a, b):
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(a[~torch.isnan(a)], b[~torch.isnan(b)]))
+
+
+@pytest.mark.parametrize("frac", [0.04, 1e-9])
+@pytest.mark.parametrize("C,seg,lanes", [(2, 12, None), (4, 12, None), (4, 27, None),
+                                         (4, 64, 32), (4, 100, 32)])
+def test_kernel_design_equals_plain(junctions, frac, C, seg, lanes):
+    _, ct = junctions[C]
+    tables = tsdf.coherent_fast_tables(tuple(ct.sdfs))
+    pts_c, Rb = (torch.as_tensor(x) for x in _inputs(ct, seed=10 + seg, seg=seg, fs=24,
+                                                              near=0.02))
+    with torch.no_grad():
+        val, g_obj, win, g_link, middle, mask = _kernel_emulation(tables, pts_c, Rb, lanes)
+        cap = tsdf.residual_capacity(middle.numel(), frac)
+        g_obj, g_link = _poison(middle, mask, g_obj, g_link, cap)
+        ref = tsdf._union_tile_eval(tables, cap, pts_c, Rb)
+    assert _same(val, ref[0]) and torch.equal(win, ref[2])
+    assert _same(g_obj, ref[1]) and _same(g_link, ref[3])
+    if C > 3:
+        assert int(middle.sum()) >= 2
+        finite = torch.isfinite(pts_c).all(dim=-1).all(dim=0)
+        assert bool(torch.isnan(g_link[finite]).any()) == (frac < 1e-6)
+
+
+def test_served_grid_query_holds_the_op(tmp_path):
+    """A grid export of a 4-link cached arm: its graph calls the op, and the
+    loaded query equals ``query_grid`` (values, gradients, values only)."""
+    urdf, end = make_serial_arm(str(tmp_path), num_joints=3, segments=6, rings=2)
+    robot = pt.RobotSDF(pt.build_serial_chain_from_urdf(open(urdf).read(), end, device="cpu"),
+                        path_prefix=str(tmp_path), link_sdf_cls=pt.cache_link_sdf_factory(
+                            resolution=0.05, padding=0.2,
+                            cache_path=os.path.join(str(tmp_path), "cache.npz")))
+    assert len(robot.sdf.sdfs) == 4
+    qr = np.array([[-0.3, 0.1], [0.0, 0.0], [-0.1, 0.3]])
+    q = torch.as_tensor(np.random.default_rng(3).normal(0, 0.4, (2, 3)).astype(np.float32))
+    for values_only in (False, True):
+        path = str(tmp_path / f"grid_{values_only}.pt2")
+        serving.export_robot_grid_query(robot, n_configs=2, query_range=qr, resolution=0.025,
+                                        path=path, values_only=values_only)
+        # values only: the no-grad region is a submodule of the program
+        targets = {str(n.target) for m in torch.export.load(path).graph_module.modules()
+                   if isinstance(m, torch.fx.GraphModule) for n in m.graph.nodes
+                   if n.op == "call_function"}
+        assert "pvt.coherent_union_tile.default" in targets, targets
+        query = serving.load_robot_grid_query(path, device="cpu")
+        with torch.no_grad():
+            out = query(q)
+            ref = robot.query_grid(q, qr, 0.025, values_only=values_only)
+        if values_only:
+            assert torch.equal(out, ref)
+        else:
+            assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+
+
+def test_op_module_knows_nothing_of_sdf():
+    """The layering: ``ops/coherent_union.py`` imports nothing of ``sdf``
+    (which imports it and registers the op's CPU kernel), and the residual
+    lane's fraction is not defined a second time there: the callers pass
+    the capacity."""
+    import ast
+    tree = ast.parse(open(cu.__file__).read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [f"{n.module}.{a.name}" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)
+              for a in n.names]
+    assert not [x for x in names if "sdf" in x.split(".")], names
+    assert "residual_frac" not in open(cu.__file__).read()

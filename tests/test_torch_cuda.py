@@ -415,3 +415,92 @@ def test_served_exact_query_launches_k1(card, tmp_path):
         outs.append((v.detach(), g.detach(), dq))
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+def _union_case(device, C, seg, tmp_path, n_configs=3, n_tiles=64):
+    """The per-tile union's inputs: ``C`` cached spheres (radius 0.02,
+    0.04 voxels) centred on a circle of 0.012, tiles within 0.05 of its
+    centre (every ninth one spread over 0.1: it breaks the contract and its
+    offsets clamp), points NaN or +-inf in one or all coordinates, random
+    rotations.  Returns ``(tables, pts_c, Rb)``."""
+    rng = np.random.default_rng(C * 100 + seg)
+    tables = tuple(pt.CachedSDF(f"u{i}", 0.04, np.array([[-0.5, 0.5]] * 3),
+                                pt.SphereSDF(0.02, device=device),
+                                cache_path=str(tmp_path / "union.npz"))._coherent_tables(
+        with_gradonly_bricks=True) for i in range(C))
+    ang = 2 * np.pi * np.arange(C) / C + 0.3
+    shift = np.stack([0.012 * np.cos(ang), 0.012 * np.sin(ang), np.zeros(C)], 1)
+    spread = np.where(np.arange(n_tiles) % 9 == 8, 0.1, 0.01)[:, None, None]
+    obj = rng.uniform(-0.05, 0.05, (n_tiles, 1, 3)) + rng.uniform(
+        -1, 1, (n_configs, n_tiles, seg, 3)) * spread
+    flat = obj.reshape(-1, 3)
+    for j, k in enumerate(rng.choice(len(flat), size=len(flat) // 40, replace=False)):
+        flat[k, j % 3] = (np.nan, np.inf, -np.inf)[j % 3]
+        if j % 5 == 0:
+            flat[k] = np.nan
+    pts_c = (obj[None] - shift[:, None, None, None]).astype(np.float32)
+    R, r = np.linalg.qr(rng.normal(size=(C, n_configs, 3, 3)))
+    Rb = (R * np.sign(np.diagonal(r, axis1=-2, axis2=-1))[..., None, :]).astype(np.float32)
+    return tables, torch.as_tensor(pts_c, device=device), torch.as_tensor(Rb, device=device)
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, every NaN taken as one pattern."""
+    nan = torch.isnan(a) if a.is_floating_point() else torch.zeros_like(a, dtype=torch.bool)
+    if not torch.equal(nan, torch.isnan(b) if b.is_floating_point() else nan):
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return torch.equal(a.view(torch.int32)[~nan], b.view(torch.int32)[~nan])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [2, 4, 8])
+@pytest.mark.parametrize("seg", [1, 12, 27, 32, 64])
+def test_coherent_union_kernel_matches_plain_on_card(card, tmp_path, C, seg):
+    """The union kernel (``csrc/coherent_union.cu``) against its plain
+    version (``sdf._union_tile_eval``, ``sdf._union_values_eval``) on the
+    card: ``val``, ``g_obj``, ``win``, ``g_link`` and the values-only
+    ``val`` bit for bit, at the default residual fraction and at 1e-9, one
+    launch a call."""
+    from pytorch_volumetric_tpu_torch import sdf as tsdf
+    from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
+    tables, pts_c, Rb = _union_case(card, C, seg, tmp_path)
+    for frac in (tsdf.RESIDUAL_FRAC, 1e-9):
+        cap = tsdf.residual_capacity(pts_c.shape[1] * pts_c.shape[2], frac)
+        before = coherent_union_tile.launches
+        out = coherent_union_tile(tables, pts_c, Rb, cap)
+        vo = coherent_union_tile(tables, pts_c, values_only=True)
+        torch.cuda.synchronize()
+        assert coherent_union_tile.launches == before + 2
+        ref = tsdf._union_tile_eval(tables, cap, pts_c, Rb)
+        for name, a, b in zip(("val", "g_obj", "win", "g_link"), out, ref):
+            assert _same_bits(a, b), (name, frac)
+        assert _same_bits(vo, tsdf._union_values_eval(tables, pts_c)), frac
+
+
+@pytest.mark.cuda
+def test_coherent_union_checks_inputs(card, tmp_path):
+    from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
+    tables, pts_c, Rb = _union_case(card, 4, 12, tmp_path, n_tiles=4)
+    with pytest.raises(TypeError, match="float32"):
+        coherent_union_tile(tables, pts_c.double(), Rb, 32)
+    with pytest.raises(ValueError, match="Rb must be"):
+        coherent_union_tile(tables, pts_c, Rb[:, :1], 32)
+    with pytest.raises(ValueError, match="lies on cpu"):
+        coherent_union_tile(tables, pts_c, Rb.cpu(), 32)
+    cpu_tables = tuple(t._replace(vg=t.vg.cpu()) for t in tables)
+    with pytest.raises(ValueError, match="lies on cpu"):
+        coherent_union_tile(cpu_tables, pts_c, Rb, 32)
+
+
+@pytest.mark.cuda
+def test_coherent_union_op_fake_shapes_match_card(card, tmp_path):
+    from pytorch_volumetric_tpu_torch.ops import coherent_union as cu
+    tables, pts_c, Rb = _union_case(card, 4, 27, tmp_path, n_tiles=8)
+    for values_only in (False, True):
+        torch.library.opcheck(
+            cu.coherent_union_tile_op,
+            (pts_c, Rb if not values_only else pts_c.new_empty(0),
+             *cu.op_args(tables, values_only), 32, values_only),
+            test_utils=("test_schema", "test_faketensor"))

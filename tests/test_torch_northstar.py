@@ -188,7 +188,7 @@ def test_middle_tiles_are_the_residual_lanes_tiles(rows):
         _, g = tsdf.compose_query_coherent(children, m, m_inv, 8, pp, seg=seg,
                                            residual_frac=1e-9)
     nan_tiles = torch.isnan(g).reshape(8, -1, seg * 3).any(dim=-1)
-    _, overflow = tsdf._residual_tiles(middle, 1e-9)
+    _, overflow = tsdf._residual_tiles(middle, tsdf.residual_capacity(middle.numel(), 1e-9))
     assert torch.equal(nan_tiles, overflow)
     assert int(middle.sum()) == int(nan_tiles.sum()) + (1 if middle.any() else 0)
     _, rf = rows[("free_link", "nearest")]
