@@ -301,12 +301,14 @@ def compare_kernel(kind, case, pts, tri, device, box=None):
     1e-4 at every point; the probe's kernels are held to the closest point
     on the face they chose and to the winding off the surface."""
     from pytorch_volumetric_tpu_torch.bench import sweep_roofline as sr
+    from pytorch_volumetric_tpu_torch.ops.closest_point import LAUNCHES
+    from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
     wrapper, plain, _ = sr.SWEEPS[kind]
-    before = wrapper.launches
+    before = COUNTERS[LAUNCHES[wrapper]]
     out = wrapper(pts, tri, exterior_box=box) if kind in sr.TAKES_BOX else wrapper(pts, tri)
     sync(device)
     if device.type == "cuda":
-        check(wrapper.launches == before + 1, f"{kind}, {case}: no launch")
+        check(COUNTERS[LAUNCHES[wrapper]] == before + 1, f"{kind}, {case}: no launch")
     ref = plain(pts, tri)
     d1, c1, f1, w1 = out
     check(d1.shape == ref[0].shape and c1.shape == ref[1].shape and f1.dtype == torch.int32,
@@ -418,17 +420,17 @@ def time_robot(robot, q, pts, device, reps):
 def phase_exact_robot(device, arm_dir, card, n_configs=N_CONFIGS, query_res=QUERY_RES,
                       reps=3):
     import pytorch_volumetric_tpu_torch as pt
-    from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
+    from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
 
     text = open(os.path.join(arm_dir, "arm.urdf")).read()
     q, pts = headline_inputs(device, n_configs, query_res)
 
-    mesh_closest_query_cuda.launches = 0
+    COUNTERS["kernel.closest_point_sweep"] = 0
     robot = pt.RobotSDF(pt.build_serial_chain_from_urdf(text, "link7", device=device),
                         path_prefix=arm_dir)
     v, g, dq = query_objective_grad(robot, q, pts)
     sync(device)
-    launches = mesh_closest_query_cuda.launches
+    launches = COUNTERS["kernel.closest_point_sweep"]
     check(v.shape == (n_configs, pts.shape[0]) and g.shape == v.shape + (3,),
           "exact robot: output shape")
     check(bool(torch.isfinite(v).all() and torch.isfinite(g).all()
@@ -458,7 +460,7 @@ def phase_exact_robot(device, arm_dir, card, n_configs=N_CONFIGS, query_res=QUER
 def phase_cached_robot(device, arm_dir, cache_dir, card, n_configs=N_CONFIGS,
                        query_res=QUERY_RES, resolution=0.02, reps=5):
     import pytorch_volumetric_tpu_torch as pt
-    from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
+    from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
 
     text = open(os.path.join(arm_dir, "arm.urdf")).read()
     cache_path = os.path.join(cache_dir, "sdf_cache.npz")
@@ -467,7 +469,7 @@ def phase_cached_robot(device, arm_dir, cache_dir, card, n_configs=N_CONFIGS,
     # the main path: cache build (the kernel sweeps every unique link mesh
     # over its grid), then the batched value + gradient query and its
     # gradient w.r.t. the joint angles
-    mesh_closest_query_cuda.launches = 0
+    COUNTERS["kernel.closest_point_sweep"] = 0
     t0 = time.perf_counter()
     robot = pt.RobotSDF(pt.build_serial_chain_from_urdf(text, "link7", device=device),
                         path_prefix=arm_dir,
@@ -477,7 +479,7 @@ def phase_cached_robot(device, arm_dir, cache_dir, card, n_configs=N_CONFIGS,
     build_s = time.perf_counter() - t0
     v, g, dq = query_objective_grad(robot, q, pts)
     sync(device)
-    launches = mesh_closest_query_cuda.launches
+    launches = COUNTERS["kernel.closest_point_sweep"]
     grids = [tuple(s.voxels.shape) for s in robot.sdf.sdfs]
     log(f"  cache build {build_s:.3f} s for {len(grids)} links, grids {sorted(set(grids))}")
     check(v.shape == (n_configs, pts.shape[0]) and g.shape == v.shape + (3,),
@@ -692,17 +694,19 @@ def compare_union(name, tables, pts_c, Rb, residual_frac=None, timed=False):
     any difference)."""
     from pytorch_volumetric_tpu_torch import sdf as tsdf
     from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
+    from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
     device = pts_c.device
     C, B, FS, seg = pts_c.shape[:4]
     frac = tsdf.RESIDUAL_FRAC if residual_frac is None else residual_frac
     cap = tsdf.residual_capacity(B * FS, frac)
-    before = coherent_union_tile.launches
+    before = COUNTERS["kernel.coherent_union_tile"]
     with torch.no_grad():
         out = coherent_union_tile(tables, pts_c, Rb, cap)
         vo = coherent_union_tile(tables, pts_c, values_only=True)
         sync(device)
         if device.type == "cuda":
-            check(coherent_union_tile.launches == before + 2, f"{name}: the kernel did not launch")
+            check(COUNTERS["kernel.coherent_union_tile"] == before + 2,
+                  f"{name}: the kernel did not launch")
         ref = tsdf._union_tile_eval(tables, cap, pts_c, Rb)
         ref_vo = tsdf._union_values_eval(tables, pts_c)
     same = [same_bits(a, b) for a, b in zip(out, ref)] + [same_bits(vo, ref_vo)]
@@ -875,8 +879,7 @@ def phase_coherent(device, arm_dir, tmp, card, generic_ms, n_configs=N_CONFIGS,
     8 nearest links on the per-tile winner union, ``seg`` = 12."""
     import pytorch_volumetric_tpu_torch as pt
     from pytorch_volumetric_tpu_torch import sdf as tsdf
-    from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
-    from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
+    from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
 
     text = open(os.path.join(arm_dir, "arm.urdf")).read()
     q, pts_g = headline_inputs(device, n_configs, query_res)
@@ -889,19 +892,19 @@ def phase_coherent(device, arm_dir, tmp, card, generic_ms, n_configs=N_CONFIGS,
 
     # the main path, from a fresh cache: the build (K1) and the grid query
     # with its gradient w.r.t. the joint angles (the union kernel)
-    mesh_closest_query_cuda.launches = 0
-    coherent_union_tile.launches = 0
+    COUNTERS["kernel.closest_point_sweep"] = 0
+    COUNTERS["kernel.coherent_union_tile"] = 0
     robot = pt.RobotSDF(pt.build_serial_chain_from_urdf(text, "link7", device=device),
                         path_prefix=arm_dir,
                         link_sdf_cls=pt.cache_link_sdf_factory(
                             resolution=resolution, padding=1.0,
                             cache_path=os.path.join(tmp, "coherent_cache.npz")))
     sync(device)
-    build_launches = mesh_closest_query_cuda.launches
+    build_launches = COUNTERS["kernel.closest_point_sweep"]
     v, g, dq = objective_grad(lambda qq: robot.query_grid(qq, QUERY_RANGE, query_res))
     sync(device)
-    launches = mesh_closest_query_cuda.launches
-    union_launches = coherent_union_tile.launches
+    launches = COUNTERS["kernel.closest_point_sweep"]
+    union_launches = COUNTERS["kernel.coherent_union_tile"]
     check(launches == build_launches, "coherent path: K1 ran in the grid query")
     log(f"  launches on the main path: K1 {build_launches} (the cache build; 0 in the query), "
         f"coherent_union_tile {union_launches}")
@@ -1053,7 +1056,7 @@ def chamfer_subset_err(errors, ref):
 def phase_chamfer(device, tmp, card, n_est=32, n_plausible=128, n_points=500,
                   resolution=0.01, padding=0.06, reps=2, n_check=4):
     import pytorch_volumetric_tpu_torch as pt
-    from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
+    from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
 
     path = os.path.join(tmp, "torus.obj")
     pt.mesh.save_obj(pt.mesh.torus_mesh(0.1, 0.03, 128, 64), path)
@@ -1068,20 +1071,20 @@ def phase_chamfer(device, tmp, card, n_est=32, n_plausible=128, n_points=500,
         return errors, pd.do_evaluate_plausible_diversity_on_pairwise_chamfer_dist(errors)
 
     # exact: every model point of every pose pair through the sweep kernel
-    mesh_closest_query_cuda.launches = 0
+    COUNTERS["kernel.closest_point_sweep"] = 0
     t0 = time.perf_counter()
     pd = pt.PlausibleDiversity(factory, model_points_eval=pts)
     errors, ret = evaluate(pd)
     sync(device)
     first_s = time.perf_counter() - t0
-    exact_launches = mesh_closest_query_cuda.launches
+    exact_launches = COUNTERS["kernel.closest_point_sweep"]
     check(errors.shape == (n_est, n_plausible), "chamfer: error matrix shape")
     check(bool(torch.isfinite(errors).all() and (errors >= 0).all()),
           "chamfer: non-finite or negative errors")
     exact_ms = time_ms(lambda: evaluate(pd), device, reps=reps, warmup=0)
 
     # cached: a CachedSDF the kernel builds, then nearest-voxel lookups
-    mesh_closest_query_cuda.launches = 0
+    COUNTERS["kernel.closest_point_sweep"] = 0
     t0 = time.perf_counter()
     obj_sdf = pt.CachedSDF(factory.name, resolution, factory.bounding_box(padding=padding),
                            pt.MeshSDF(factory), cache_path=os.path.join(tmp, "chamfer.npz"))
@@ -1090,7 +1093,7 @@ def phase_chamfer(device, tmp, card, n_est=32, n_plausible=128, n_points=500,
     pdc = pt.PlausibleDiversity(factory, model_points_eval=pts, obj_sdf=obj_sdf)
     errors_c, ret_c = evaluate(pdc)
     sync(device)
-    cached_launches = mesh_closest_query_cuda.launches
+    cached_launches = COUNTERS["kernel.closest_point_sweep"]
     check(bool(torch.isfinite(errors_c).all()), "chamfer (cached): non-finite errors")
     cached_ms = time_ms(lambda: evaluate(pdc), device, reps=reps, warmup=0)
 
@@ -1127,7 +1130,8 @@ def phase_chamfer(device, tmp, card, n_est=32, n_plausible=128, n_points=500,
 
 def phase_probe(device, card, reps=5):
     from pytorch_volumetric_tpu_torch.bench import sweep_roofline as sr
-    from pytorch_volumetric_tpu_torch.ops.fma_probe import fma_probe_cuda
+    from pytorch_volumetric_tpu_torch.ops.closest_point import LAUNCHES
+    from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
 
     errs = {"nowind": 0.0, "mxu": 0.0, "mxu_wind": 0.0}
     cases = sweep_cases(device)
@@ -1141,11 +1145,12 @@ def phase_probe(device, card, reps=5):
 
     # the probe's own run (it checks each kernel against its plain version
     # at its first launch, then times it): the launches counted for them
-    wrappers = [w for w, _, _ in sr.SWEEPS.values()] + [fma_probe_cuda]
-    for w in wrappers:
-        w.launches = 0
+    keys = {w.__name__: LAUNCHES[w] for w, _, _ in sr.SWEEPS.values()}
+    keys["fma_probe_cuda"] = "kernel.fma_probe"
+    for key in keys.values():
+        COUNTERS[key] = 0
     out = sr.run(device, reps=reps)
-    launches = {w.__name__: w.launches for w in wrappers}
+    launches = {name: COUNTERS[key] for name, key in keys.items()}
     log(f"  launches in the probe run: {launches}")
     fma = out["fma"]
     log(f"  FP32 ceiling (fma_probe, {fma['n']} threads x {fma['iters']} x 32 FMAs): "
@@ -1190,17 +1195,17 @@ def phase_probe(device, card, reps=5):
 
 def phase_mjcf(device, arm_dir, card, n_configs=N_CONFIGS, query_res=QUERY_RES, reps=3):
     import pytorch_volumetric_tpu_torch as pt
-    from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
+    from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
     from pytorch_volumetric_tpu_torch.utils.robots import serial_arm_mjcf
 
     q, pts = headline_inputs(device, n_configs, query_res)
-    mesh_closest_query_cuda.launches = 0
+    COUNTERS["kernel.closest_point_sweep"] = 0
     robot = pt.RobotSDF(pt.build_serial_chain_from_mjcf(serial_arm_mjcf(), "link7",
                                                         device=device),
                         path_prefix=arm_dir)
     v, g, dq = query_objective_grad(robot, q, pts)
     sync(device)
-    launches = mesh_closest_query_cuda.launches
+    launches = COUNTERS["kernel.closest_point_sweep"]
     urdf = pt.RobotSDF(pt.build_serial_chain_from_urdf(
         open(os.path.join(arm_dir, "arm.urdf")).read(), "link7", device=device),
         path_prefix=arm_dir)
@@ -1247,7 +1252,7 @@ def phase_narrow_band(device, arm_dir, tmp, card, n_configs=N_CONFIGS, query_res
     narrow-band links."""
     import pytorch_volumetric_tpu_torch as pt
     from pytorch_volumetric_tpu_torch.bench import bigmesh as bm
-    from pytorch_volumetric_tpu_torch.ops.narrow_band_cuda import narrow_band_query_cuda
+    from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
 
     err = 0.0
     log("  kernel vs plain version:")
@@ -1262,10 +1267,10 @@ def phase_narrow_band(device, arm_dir, tmp, card, n_configs=N_CONFIGS, query_res
         err = max(err, c["max_abs_err"])
 
     log("  bigmesh (bench/bigmesh.py):")
-    narrow_band_query_cuda.launches = 0
+    COUNTERS["kernel.narrow_band_query"] = 0
     big_out = bm.run(device, log=lambda m: log(f"    {m}"), **(bigmesh or {}))
     sync(device)
-    bigmesh_launches = narrow_band_query_cuda.launches
+    bigmesh_launches = COUNTERS["kernel.narrow_band_query"]
     check(big_out["ok"], "bigmesh: a gate failed (kernel vs plain, in-band vs the exact "
           "sweep, or the far field)")
     for r in big_out["builds"].values():
@@ -1275,7 +1280,7 @@ def phase_narrow_band(device, arm_dir, tmp, card, n_configs=N_CONFIGS, query_res
     # capsule links share one build)
     text = open(os.path.join(arm_dir, "arm.urdf")).read()
     q, pts = headline_inputs(device, n_configs, query_res)
-    narrow_band_query_cuda.launches = 0
+    COUNTERS["kernel.narrow_band_query"] = 0
     t0 = time.perf_counter()
     robot = pt.RobotSDF(pt.build_serial_chain_from_urdf(text, "link7", device=device),
                         path_prefix=arm_dir, link_sdf_cls=pt.narrow_band_link_sdf_factory(
@@ -1283,7 +1288,7 @@ def phase_narrow_band(device, arm_dir, tmp, card, n_configs=N_CONFIGS, query_res
     build_s = time.perf_counter() - t0
     v, g, dq = query_objective_grad(robot, q, pts)
     sync(device)
-    arm_launches = narrow_band_query_cuda.launches
+    arm_launches = COUNTERS["kernel.narrow_band_query"]
     check(v.shape == (n_configs, pts.shape[0]) and g.shape == v.shape + (3,),
           "narrow-band robot: output shape")
     check(bool(torch.isfinite(v).all() and torch.isfinite(g).all() and torch.isfinite(dq).all()),
@@ -1295,10 +1300,11 @@ def phase_narrow_band(device, arm_dir, tmp, card, n_configs=N_CONFIGS, query_res
     plain = pt.RobotSDF(pt.build_serial_chain_from_urdf(text, "link7", device=device),
                         path_prefix=arm_dir, link_sdf_cls=pt.narrow_band_link_sdf_factory(
                             cache_path=os.path.join(tmp, "narrow_band.npz"), backend="torch"))
-    before = narrow_band_query_cuda.launches
+    before = COUNTERS["kernel.narrow_band_query"]
     vp, gp, dqp = query_objective_grad(plain, q, pts)
     sync(device)
-    check(narrow_band_query_cuda.launches == before, "the plain narrow-band arm launched the kernel")
+    check(COUNTERS["kernel.narrow_band_query"] == before,
+          "the plain narrow-band arm launched the kernel")
     dv, dg = v != vp, (g != gp).any(dim=-1)
     err_v, err_g = (v - vp).abs().max().item(), (g - gp).abs().max().item()
     err_dq = ((dq - dqp).abs() / dqp.abs().clamp(min=1.0)).max().item()
@@ -1465,7 +1471,7 @@ def phase_neural(device, arm_dir, cache_dir, tmp, card, generic_ms, coherent_ms,
     phase 5's torus with an exact ``MeshSDF`` oracle (K1 on every oracle
     query); npz from the card to the CPU; ``draw_sdf_slice``."""
     import pytorch_volumetric_tpu_torch as pt
-    from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
+    from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
 
     fit = dict(NEURAL_FIT, **(fit or {}))
     check(torch.get_float32_matmul_precision() == "highest", "float32 matmul precision is "
@@ -1567,12 +1573,12 @@ def phase_neural(device, arm_dir, cache_dir, tmp, card, generic_ms, coherent_ms,
     path = os.path.join(tmp, "torus_neural.obj")
     pt.mesh.save_obj(pt.mesh.torus_mesh(0.1, 0.03, 128, 64), path)
     torus = pt.MeshSDF(pt.MeshObjectFactory(path, device=device))
-    mesh_closest_query_cuda.launches = 0
+    COUNTERS["kernel.closest_point_sweep"] = 0
     t0 = time.perf_counter()
     tmodel, tlosses = pt.fit_neural_sdf(torus, key=0, device=device, **(torus_fit or {}))
     sync(device)
     torus_s = time.perf_counter() - t0
-    torus_launches = mesh_closest_query_cuda.launches
+    torus_launches = COUNTERS["kernel.closest_point_sweep"]
     loss_gate("fit_neural_sdf, torus", tlosses)
     bb = torus.surface_bounding_box(padding=0.1)
     u = torch.rand((65536, 3), generator=torch.Generator(device=device).manual_seed(2),
@@ -1611,19 +1617,18 @@ EXAMPLES = ("torch_trajectory_optimization.py", "torch_pose_estimation.py",
 def serve_consumer(jobs_path):
     """The serving side of phase 12, in a process of its own that imports
     ``pytorch_volumetric_tpu_torch.utils.serving`` and nothing else of the
-    port (the loader registers the kernels' ops): each job's program and
-    sidecar loaded on the card, one served query's kernel launches counted,
+    port but its counters, ``utils.profiling.COUNTERS`` (the loader registers
+    the kernels' ops): each job's program and sidecar loaded on the card,
+    one served query's kernel launches counted,
     values, gradients and ``d(v.sum() + g.sum())/dq`` written to an npz,
     and the served forward and forward + backward timed.  Prints one JSON
     line: ``name -> {load_s, fwd_ms, fb_ms, launches}``."""
+    from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
     from pytorch_volumetric_tpu_torch.utils.serving import load_robot_query
 
     with open(jobs_path) as f:
         jobs = json.load(f)
-    wrappers = {"closest_point_sweep": ("pytorch_volumetric_tpu_torch.ops.closest_point",
-                                        "mesh_closest_query_cuda"),
-                "narrow_band_query": ("pytorch_volumetric_tpu_torch.ops.narrow_band_cuda",
-                                      "narrow_band_query_cuda")}
+    kernels = ("closest_point_sweep", "narrow_band_query")
     report = {}
     for job in jobs:
         device = torch.device(job["device"])
@@ -1634,15 +1639,14 @@ def serve_consumer(jobs_path):
             pts = torch.as_tensor(d["pts"], device=device)
         sync(device)
         load_s = time.perf_counter() - t0
-        counted = {k: getattr(sys.modules[m], w) for k, (m, w) in wrappers.items()}
         with torch.no_grad():
             query(q, pts)  # first call: the kernels' libraries load
             sync(device)
-            for w in counted.values():
-                w.launches = 0
+            for k in kernels:
+                COUNTERS[f"kernel.{k}"] = 0
             query(q, pts)
             sync(device)
-        launches = {k: w.launches for k, w in counted.items()}
+        launches = {k: COUNTERS[f"kernel.{k}"] for k in kernels}
         v, g, dq = objective_grad(query, q, pts)
 
         def fwd():
@@ -1699,9 +1703,9 @@ def phase_serving(device, arm_dir, tmp, card, generic_ms, coherent_ms, nb_ms,
     ``checked_query`` on the cached arm, and the four ``examples/torch_*.py``
     at their full settings."""
     import pytorch_volumetric_tpu_torch as pt
-    from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
     from pytorch_volumetric_tpu_torch.utils import serving
     from pytorch_volumetric_tpu_torch.utils.debug import QueryCheckError, checked_query
+    from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
 
     text = open(os.path.join(arm_dir, "arm.urdf")).read()
     q, pts = headline_inputs(device, n_configs, query_res)
@@ -1791,11 +1795,11 @@ def phase_serving(device, arm_dir, tmp, card, generic_ms, coherent_ms, nb_ms,
                 f"{s['artifact_bytes']} B, load {load_s:.2f} s; served {ms:.3f} ms (live, phase "
                 f"8: {coherent_ms[1]:.3f} ms); equal to the served grid's values [{card}]")
             continue
-        coherent_union_tile.launches = 0
+        COUNTERS["kernel.coherent_union_tile"] = 0
         vg, gg, dq = grid_objective(grid_query)
         sync(device)
-        served_launches["grid"] = {"coherent_union_tile": coherent_union_tile.launches}
-        check(coherent_union_tile.launches > 0 or device.type != "cuda",
+        served_launches["grid"] = {"coherent_union_tile": COUNTERS["kernel.coherent_union_tile"]}
+        check(COUNTERS["kernel.coherent_union_tile"] > 0 or device.type != "cuda",
               "the served grid query launched no coherent_union_tile")
         vgr, ggr, dqr = grid_objective(lambda qq: robot.query_grid(qq, QUERY_RANGE, query_res))
         served_gate("grid export vs query_grid", vg, gg, vgr, ggr, dq, dqr)
@@ -1874,17 +1878,13 @@ def phase_serving(device, arm_dir, tmp, card, generic_ms, coherent_ms, nb_ms,
 def counted(device, fn):
     """``fn()`` with every kernel's launch count set to 0 just before it
     and read just after: ``(result, {kernel: launches})``."""
-    from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
-    from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
-    from pytorch_volumetric_tpu_torch.ops.narrow_band_cuda import narrow_band_query_cuda
-    wrappers = {"closest_point_sweep": mesh_closest_query_cuda,
-                "narrow_band_query": narrow_band_query_cuda,
-                "coherent_union_tile": coherent_union_tile}
-    for w in wrappers.values():
-        w.launches = 0
+    from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
+    kernels = ("closest_point_sweep", "narrow_band_query", "coherent_union_tile")
+    for k in kernels:
+        COUNTERS[f"kernel.{k}"] = 0
     out = fn()
     sync(device)
-    return out, {k: w.launches for k, w in wrappers.items()}
+    return out, {k: COUNTERS[f"kernel.{k}"] for k in kernels}
 
 
 def audit_gate(name, counts, step=False):
@@ -2222,23 +2222,23 @@ def phase_northstar(device, tmp, card, n_configs=N_CONFIGS, points_side=100, chu
     a fresh cache (K1 in its build).  ``build``: keyword arguments for
     ``northstar.build_robot`` (smaller robots to rehearse on the CPU)."""
     from pytorch_volumetric_tpu_torch.bench import northstar as ns
-    from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
-    from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
+    from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
     out = {"rows": {}, "build_launches": {}, "query_launches": {}, "union_launches": {}}
     exact = True
     for kind, interp, variants, row_reps, warmup in rows:
         name = ns.metric_name(kind, interp)
         # the main path: the build (K1) and the chunked queries (the union
         # kernel on the nearest rows: the arm's forward, and values only)
-        mesh_closest_query_cuda.launches = 0
-        coherent_union_tile.launches = 0
+        COUNTERS["kernel.closest_point_sweep"] = 0
+        COUNTERS["kernel.coherent_union_tile"] = 0
         row, (robot, ft, q, pts, seg) = ns.northstar(
             kind, interp, device, os.path.join(tmp, f"northstar_{kind}_{interp}"), n_configs,
             points_side, chunk, variants, row_reps, warmup, build, log)
         sync(device)
-        launches = mesh_closest_query_cuda.launches
-        out["union_launches"][name] = coherent_union_tile.launches
-        check(coherent_union_tile.launches > 0 or interp != "nearest" or device.type != "cuda",
+        launches = COUNTERS["kernel.closest_point_sweep"]
+        out["union_launches"][name] = COUNTERS["kernel.coherent_union_tile"]
+        check(COUNTERS["kernel.coherent_union_tile"] > 0 or interp != "nearest"
+              or device.type != "cuda",
               f"{name}: no coherent_union_tile launch")
         if points_side == 100:
             check(seg == 27 and row["padded_points"] == 1_061_208 and row["points"] == 10 ** 6,
@@ -2334,16 +2334,15 @@ def phase_harnesses(device, tmp, card, out_dir, n_configs=N_CONFIGS, roofline=No
     from pytorch_volumetric_tpu_torch.bench import headline as hl
     from pytorch_volumetric_tpu_torch.bench import roofline_arm as ra
     from pytorch_volumetric_tpu_torch.bench import trilinear as tl
-    from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
-    from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
+    from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
     open(os.path.join(out_dir, "harnesses.jsonl"), "w").close()
     union = {}
     t0 = time.perf_counter()
-    coherent_union_tile.launches = 0
+    COUNTERS["kernel.coherent_union_tile"] = 0
     _, arms = hl.run(device, tmp, n_configs, ("tight",),
                      emit=lambda ln: harness_line("headline", ln, out_dir), log=log)
     sync(device)
-    union["headline"] = coherent_union_tile.launches
+    union["headline"] = COUNTERS["kernel.coherent_union_tile"]
     builds = {k: arms[k]["build_launches"] for k in ("headline", "tight")}
     log(f"  headline: {time.perf_counter() - t0:.1f} s")
     q, pts, _, seg = arms["inputs"]
@@ -2355,13 +2354,13 @@ def phase_harnesses(device, tmp, card, out_dir, n_configs=N_CONFIGS, roofline=No
     del arms
 
     t0 = time.perf_counter()
-    launches0 = mesh_closest_query_cuda.launches
-    coherent_union_tile.launches = 0
+    launches0 = COUNTERS["kernel.closest_point_sweep"]
+    COUNTERS["kernel.coherent_union_tile"] = 0
     line = ra.run(device, tmp, cache_path=os.path.join(tmp, "sdf_cache.npz"), log=log,
                   **(roofline or {}))
     sync(device)
-    union["roofline"] = coherent_union_tile.launches
-    builds["roofline"] = mesh_closest_query_cuda.launches - launches0
+    union["roofline"] = COUNTERS["kernel.coherent_union_tile"]
+    builds["roofline"] = COUNTERS["kernel.closest_point_sweep"] - launches0
     check(line.pop("ok"), f"roofline: a gate failed: {line['extra']['gates']}")
     harness_line("roofline", line, out_dir)
     x = line["extra"]
@@ -2371,11 +2370,11 @@ def phase_harnesses(device, tmp, card, out_dir, n_configs=N_CONFIGS, roofline=No
         torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    coherent_union_tile.launches = 0
+    COUNTERS["kernel.coherent_union_tile"] = 0
     line, builds["trilinear"] = tl.run(device, os.path.join(tmp, "harness_trilinear"), log=log,
                                        **(trilinear or {}))
     sync(device)
-    union["trilinear"] = coherent_union_tile.launches
+    union["trilinear"] = COUNTERS["kernel.coherent_union_tile"]
     check(line.pop("ok"), f"trilinear: coherent rows differ from the generic rows: "
                           f"{line['extra']['coherent_gate']}")
     harness_line("trilinear", line, out_dir)
@@ -2488,8 +2487,7 @@ def main():
     import pytorch_volumetric_tpu_torch  # noqa: F401  (fails outside a checkout)
     from pytorch_volumetric_tpu_torch import native
     from pytorch_volumetric_tpu_torch.ops import cuda_build
-    from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
-    from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
+    from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
     from pytorch_volumetric_tpu_torch.utils.robots import make_serial_arm
 
     device = torch.device("cuda", 0)
@@ -2577,10 +2575,10 @@ def main():
         os.makedirs(out_dir, exist_ok=True)
         # the main path: the three harnesses (K1 in the tight arm's and the
         # torus's cache builds, none in a query)
-        mesh_closest_query_cuda.launches = 0
+        COUNTERS["kernel.closest_point_sweep"] = 0
         builds, harness_union = phase_harnesses(device, tmp, card, out_dir)
         sync(device)
-        harness_launches = mesh_closest_query_cuda.launches
+        harness_launches = COUNTERS["kernel.closest_point_sweep"]
         for name in ("headline", "roofline"):
             check(harness_union[name] > 0, f"{name}: the harness launched no coherent_union_tile")
         check(builds["tight"] > 0, "the tight arm's cache build launched no kernel")

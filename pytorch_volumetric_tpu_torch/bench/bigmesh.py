@@ -56,7 +56,7 @@ from pytorch_volumetric_tpu_torch.bench.sweep_roofline import (
     CLOSEST_OPS, PEAK_BYTES_PER_S, PEAK_FP32_FLOPS, card_name)
 from pytorch_volumetric_tpu_torch.ops import narrow_band as nb
 from pytorch_volumetric_tpu_torch.ops.narrow_band_cuda import narrow_band_query_cuda
-from pytorch_volumetric_tpu_torch.utils.profiling import device_time, kernel_time
+from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS, device_time, kernel_time
 
 RADIUS, SUBDIV, POINTS = 0.5, 7, 262_144
 CELL_RES, BAND, PADDING = 0.015, 0.01, 0.15
@@ -140,11 +140,11 @@ def compare(smalls, big, points, eps: float = 1e-3) -> dict:
     places (NaN in both counts as equal, NaN in one as a difference), and
     finite at every finite point unless the table holds non-finite rows;
     the first differing point and its cause are reported."""
-    before = narrow_band_query_cuda.launches
+    before = COUNTERS["kernel.narrow_band_query"]
     v, g, s = narrow_band_query_cuda(smalls, big, points, eps, with_slots=True)
     if points.device.type == "cuda":
         torch.cuda.synchronize(points.device)
-        if narrow_band_query_cuda.launches != before + 1:
+        if COUNTERS["kernel.narrow_band_query"] != before + 1:
             raise RuntimeError("narrow_band_query_cuda did not launch")
     vr, gr, sr = nb._query_impl(smalls, big, points, eps)
     same_v, same_g = _same(v, vr), _same(g, gr)

@@ -56,7 +56,7 @@ import torch
 import pytorch_volumetric_tpu_torch as pt
 from pytorch_volumetric_tpu_torch import sdf as tsdf
 from pytorch_volumetric_tpu_torch.bench import northstar as ns
-from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
+from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
 
 METRIC = "robot_sdf_query_throughput"
 UNIT = "config-point queries/s ({n} configs x {m} pts, {links} cached links)"
@@ -164,12 +164,12 @@ def prepare(robot, q, pts, seg):
 def bench_tight(arms: dict, device, directory: str, q, pts, seg, n_real: int, log) -> dict:
     """``bench.py``'s tight-cache section: the arm rebuilt with padding 0.1
     (most (link, tile) pairs out of bounds, the AABB fallback's work)."""
-    launches0 = mesh_closest_query_cuda.launches
+    launches0 = COUNTERS["kernel.closest_point_sweep"]
     t0 = time.perf_counter()
     robot = build_arm(directory, device, os.path.join(directory, "sdf_cache_tight.npz"),
                       padding=TIGHT_PADDING, resolution=CACHE_RES)
     ns._sync(device)
-    build_launches = mesh_closest_query_cuda.launches - launches0
+    build_launches = COUNTERS["kernel.closest_point_sweep"] - launches0
     log(f"tight-cache arm (padding {TIGHT_PADDING}) ready in {time.perf_counter() - t0:.1f} s; "
         f"K1 launches in its build: {build_launches}")
     ft = prepare(robot, q, pts, seg)
@@ -198,12 +198,12 @@ def run(device, directory: str, n_configs: int = N_CONFIGS, sections: Sequence[s
     unknown = set(sections) - set(SECTIONS)
     if unknown:
         raise ValueError(f"unknown sections {sorted(unknown)}; known: {SECTIONS}")
-    launches0 = mesh_closest_query_cuda.launches
+    launches0 = COUNTERS["kernel.closest_point_sweep"]
     t0 = time.perf_counter()
     robot = build_arm(directory, device, os.path.join(directory, "sdf_cache.npz"),
                       resolution=CACHE_RES)
     ns._sync(device)
-    build_launches = mesh_closest_query_cuda.launches - launches0
+    build_launches = COUNTERS["kernel.closest_point_sweep"] - launches0
     log(f"robot + link caches ready in {time.perf_counter() - t0:.1f} s; K1 launches in the "
         f"build: {build_launches}")
     pts, take_idx, seg = grid_points(CACHE_RES, device)

@@ -61,7 +61,7 @@ import torch
 
 import pytorch_volumetric_tpu_torch as pt
 from pytorch_volumetric_tpu_torch import sdf as tsdf
-from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
+from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
 
 LO, RES = -0.5, 0.01
 CACHE_RES, CACHE_PADDING = 0.02, 1.0
@@ -214,7 +214,7 @@ def time_variant(variant: str, robot, ft, q, pts, seg, chunk: int, reps: int = R
     device = pts.device
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    launches0 = mesh_closest_query_cuda.launches
+    launches0 = COUNTERS["kernel.closest_point_sweep"]
     for _ in range(warmup):
         run_variant(variant, robot, ft, q, pts, seg, chunk)
     _sync(device)
@@ -236,7 +236,7 @@ def time_variant(variant: str, robot, ft, q, pts, seg, chunk: int, reps: int = R
             "peak_bytes": (torch.cuda.max_memory_allocated(device)
                            if device.type == "cuda" else None),
             "sum": step_scalar(terms), "value_sum": float(terms[:, 0].sum()),
-            "k1_launches": mesh_closest_query_cuda.launches - launches0,
+            "k1_launches": COUNTERS["kernel.closest_point_sweep"] - launches0,
             "terms": terms}
 
 
@@ -309,12 +309,12 @@ def northstar(robot_kind: str, interp: str, device, workdir: str, n_configs: int
     (``build``: keyword arguments of :func:`build_robot`).  Returns ``(out,
     (robot, ft, q, pts, seg))``: the JSON row, then the robot, its brick
     tables and the inputs."""
-    launches0 = mesh_closest_query_cuda.launches
+    launches0 = COUNTERS["kernel.closest_point_sweep"]
     robot, n_dof = build_robot(robot_kind, interp, workdir, device,
                                os.path.join(workdir, f"{robot_kind}_{interp}.npz"),
                                **(build or {}))
     _sync(device)
-    build_launches = mesh_closest_query_cuda.launches - launches0
+    build_launches = COUNTERS["kernel.closest_point_sweep"] - launches0
     children = tuple(robot.sdf.sdfs)
     pts, take_idx, seg = northstar_points(points_side,
                                           tsdf.coherent_min_cache_resolution(children), device)

@@ -44,7 +44,7 @@ import pytorch_volumetric_tpu_torch as pt
 from pytorch_volumetric_tpu_torch import sdf as tsdf
 from pytorch_volumetric_tpu_torch.bench import headline as hl
 from pytorch_volumetric_tpu_torch.bench import northstar as ns
-from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
+from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
 
 METRIC = "trilinear_vs_nearest"
 CACHE_RES = 0.01
@@ -112,10 +112,10 @@ def run(device, directory: str, points_side: int = 100, reps: int = 5,
     """The benchmark from a fresh cache in ``directory``.  Returns ``(line,
     build_launches)``: the JSON line (with ``ok``) and K1's launches in the
     caches' build."""
-    launches0 = mesh_closest_query_cuda.launches
+    launches0 = COUNTERS["kernel.closest_point_sweep"]
     nearest, trilin = build_caches(directory, device)
     ns._sync(device)
-    build_launches = mesh_closest_query_cuda.launches - launches0
+    build_launches = COUNTERS["kernel.closest_point_sweep"] - launches0
     log(f"caches ready ({tuple(nearest.voxels.shape)} grid); K1 launches in the build: "
         f"{build_launches}")
     res = CACHE_RES / 2

@@ -19,6 +19,7 @@ from pytorch_volumetric_tpu_torch import sdf
 from pytorch_volumetric_tpu_torch import transforms as tfm
 from pytorch_volumetric_tpu_torch.kinematics import Chain
 from pytorch_volumetric_tpu_torch.sdf import compose_query
+from pytorch_volumetric_tpu_torch.utils import profiling
 from pytorch_volumetric_tpu_torch.utils.batching import (
     as_float_tensor, flatten_tensors, unflatten_tensors)
 from pytorch_volumetric_tpu_torch.voxel import (
@@ -44,7 +45,7 @@ class RobotSDF(sdf.ObjectFrameSDF):
         self.sdf: typing.Optional[sdf.ComposedSDF] = None
         self.sdf_to_link_name = []
         self.configuration_batch = None
-        # query_grid's tiled points per grid, see query_grid
+        # query_grid's tiled points per grid (None: the generic path), see query_grid
         self._grid_layouts = {}
 
         sdfs = []
@@ -84,11 +85,12 @@ class RobotSDF(sdf.ObjectFrameSDF):
     def _link_transforms(self, q_flat: torch.Tensor):
         """``q [A, M]`` -> link-major ``(obj->link [L*A,4,4],
         link->obj [L*A,4,4])`` with object->link = offset^-1 o FK(link)^-1."""
-        fk = self.chain.fk_matrices(q_flat)
-        mats = [tfm.mm(self._offset_inv[i], tfm.invert_tf(fk[link_name]))
-                for i, link_name in enumerate(self.sdf_to_link_name)]
-        m = torch.cat(mats, dim=0)
-        return m, tfm.invert_tf(m)
+        with profiling.span("pvt.fk"):
+            fk = self.chain.fk_matrices(q_flat)
+            mats = [tfm.mm(self._offset_inv[i], tfm.invert_tf(fk[link_name]))
+                    for i, link_name in enumerate(self.sdf_to_link_name)]
+            m = torch.cat(mats, dim=0)
+            return m, tfm.invert_tf(m)
 
     def _flat_configs(self, joint_config):
         q = as_float_tensor(joint_config, self.device)
@@ -125,14 +127,15 @@ class RobotSDF(sdf.ObjectFrameSDF):
         :param points_in_object_frame: ``[B x] N x 3``
         :return: ``([A x] [B x] N, [A x] [B x] N x 3)``
         """
-        q, q_flat = self._flat_configs(joint_config)
-        pts = as_float_tensor(points_in_object_frame, self.device)
-        pts_flat = pts.reshape(-1, pts.shape[-1])
-        # the tables are fetched on every call, so a table swap takes effect
-        fn, leaves = self.fused_query_fn()
-        vv, gg = fn(q_flat, pts_flat, *leaves)
-        out_batch = q.shape[:-1] + pts.shape[:-1]
-        return vv.reshape(out_batch), gg.reshape(out_batch + (3,))
+        with profiling.span("pvt.query"):
+            q, q_flat = self._flat_configs(joint_config)
+            pts = as_float_tensor(points_in_object_frame, self.device)
+            pts_flat = pts.reshape(-1, pts.shape[-1])
+            # the tables are fetched on every call, so a table swap takes effect
+            fn, leaves = self.fused_query_fn()
+            vv, gg = fn(q_flat, pts_flat, *leaves)
+            out_batch = q.shape[:-1] + pts.shape[:-1]
+            return vv.reshape(out_batch), gg.reshape(out_batch + (3,))
 
     def fused_query_fn(self):
         """``(fn, leaves)``: ``fn(q_flat [A, M], pts_flat [P, 3], *leaves)
@@ -177,44 +180,53 @@ class RobotSDF(sdf.ObjectFrameSDF):
         :return: ``(val [A x] n1 x n2 x n3, grad ... x 3)`` over the grid,
             or ``val`` alone with ``values_only``
         """
-        coords, _ = get_coordinates_and_points_in_grid(resolution, query_range,
-                                                       device="cpu", get_points=False)
-        grid_shape = tuple(len(c) for c in coords)
-        q, q_flat = self._flat_configs(joint_config)
-        out_shape = q.shape[:-1] + grid_shape
-        children = tuple(self.sdf.sdfs)
-        min_cache_res = sdf.coherent_min_cache_resolution(children)
-        if min_cache_res is not None and 2.0 * resolution > min_cache_res:
-            logger.info(
-                "query_grid: sweep resolution %.4g too coarse for cached "
-                "link resolution %.4g (needs <= half); using the generic "
-                "query path", resolution, min_cache_res)
-            _, pts_g = get_coordinates_and_points_in_grid(resolution, query_range,
-                                                          device=self.device)
-            vv, gg = self.query(joint_config, pts_g)
-            if values_only:
-                return vv.detach().reshape(out_shape)
-            return vv.reshape(out_shape), gg.reshape(out_shape + (3,))
+        with profiling.span("pvt.query_grid"):
+            coords, _ = get_coordinates_and_points_in_grid(resolution, query_range,
+                                                           device="cpu", get_points=False)
+            grid_shape = tuple(len(c) for c in coords)
+            q, q_flat = self._flat_configs(joint_config)
+            out_shape = q.shape[:-1] + grid_shape
+            children = tuple(self.sdf.sdfs)
+            min_cache_res = sdf.coherent_min_cache_resolution(children)
+            key = (float(resolution), np.asarray(query_range, dtype=np.float64).tobytes(),
+                   min_cache_res)
+            if key not in self._grid_layouts:
+                if min_cache_res is not None and 2.0 * resolution > min_cache_res:
+                    logger.info(
+                        "query_grid: sweep resolution %.4g too coarse for cached "
+                        "link resolution %.4g (needs <= half); using the generic "
+                        "query path", resolution, min_cache_res)
+                    self._grid_layouts[key] = None
+                else:
+                    # built once per grid: the points and the un-tiling index
+                    # stay on the device (a host-to-device copy on every call
+                    # would wait for the card)
+                    pts, take_idx, seg = get_coherent_tile_points(
+                        resolution, query_range, cache_resolution=min_cache_res,
+                        device=self.device)
+                    self._grid_layouts[key] = (
+                        pts, torch.as_tensor(take_idx, device=self.device), seg)
+            layout = self._grid_layouts[key]
+            if layout is None:
+                profiling.count("path.grid_fallback")
+                _, pts_g = get_coordinates_and_points_in_grid(resolution, query_range,
+                                                              device=self.device)
+                vv, gg = self.query(joint_config, pts_g)
+                if values_only:
+                    return vv.detach().reshape(out_shape)
+                return vv.reshape(out_shape), gg.reshape(out_shape + (3,))
 
-        key = (float(resolution), np.asarray(query_range, dtype=np.float64).tobytes(),
-               min_cache_res)
-        if key not in self._grid_layouts:
-            # built once per grid: the points and the un-tiling index stay on
-            # the device (a host-to-device copy on every call would wait for
-            # the card)
-            pts, take_idx, seg = get_coherent_tile_points(
-                resolution, query_range, cache_resolution=min_cache_res, device=self.device)
-            self._grid_layouts[key] = (pts, torch.as_tensor(take_idx, device=self.device), seg)
-        pts, take, seg = self._grid_layouts[key]
-        m, m_inv = self._link_transforms(q_flat)
-        out = sdf.compose_query_coherent(
-            children, m, m_inv, q_flat.shape[0], pts,
-            fast_tables=sdf.coherent_fast_tables(children), values_only=values_only,
-            generic_aux=sdf.coherent_generic_aux(children), seg=seg)
-        if values_only:
-            return out[:, take].reshape(out_shape)
-        vv, gg = out
-        return vv[:, take].reshape(out_shape), gg[:, take].reshape(out_shape + (3,))
+            profiling.count("path.grid_coherent")
+            pts, take, seg = layout
+            m, m_inv = self._link_transforms(q_flat)
+            out = sdf.compose_query_coherent(
+                children, m, m_inv, q_flat.shape[0], pts,
+                fast_tables=sdf.coherent_fast_tables(children), values_only=values_only,
+                generic_aux=sdf.coherent_generic_aux(children), seg=seg)
+            if values_only:
+                return out[:, take].reshape(out_shape)
+            vv, gg = out
+            return vv[:, take].reshape(out_shape), gg[:, take].reshape(out_shape + (3,))
 
     # -- geometry ----------------------------------------------------------------
     def surface_bounding_box(self, **kwargs):

@@ -4,7 +4,8 @@ Each wrapper is a drop-in equivalent of a plain version in
 ``ops.point_triangle``.  For a CUDA tensor it launches its kernel on
 PyTorch's current stream (the library is built from ``csrc/`` at first use),
 or raises; for a CPU tensor it runs the plain version.  Each wrapper counts
-its kernel launches in its own ``.launches``.
+its kernel launches in ``utils.profiling.COUNTERS`` under its key in
+:data:`LAUNCHES`.
 
 - :func:`mesh_closest_query_cuda` (``csrc/closest_point.cu``): the sweep of
   the main path, plain version ``mesh_closest_query``.  It reaches the
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from pytorch_volumetric_tpu_torch.ops import cuda_build
+from pytorch_volumetric_tpu_torch.utils import profiling
 from pytorch_volumetric_tpu_torch.ops.point_triangle import (
     _FOUR_PI, DEFAULT_POINT_CHUNK, DEFAULT_TRI_CHUNK, mesh_closest_query,
     mesh_closest_query_expanded)
@@ -116,7 +118,7 @@ def _launch(wrapper, library: str, symbol: str, points: torch.Tensor,
             code = fn(points.data_ptr(), P, tri.data_ptr(), F, *outs, *(options or ()),
                       stream)
         cuda_build.check_launch(lib, code, symbol)
-        wrapper.launches += 1
+        profiling.count(LAUNCHES[wrapper])
     return torch.sqrt(d2), closest, fid, wind / _FOUR_PI
 
 
@@ -218,6 +220,8 @@ def mesh_closest_query_contracted_cuda(points: torch.Tensor, tri: torch.Tensor,
                    "pvt_closest_point_sweep", points, tri, options=options)
 
 
-for _wrapper in (mesh_closest_query_cuda, mesh_closest_query_nowind_cuda,
-                 mesh_closest_query_mma_cuda, mesh_closest_query_contracted_cuda):
-    _wrapper.launches = 0
+# each wrapper's count of its kernel launches in ``utils.profiling.COUNTERS``
+LAUNCHES = {mesh_closest_query_cuda: "kernel.closest_point_sweep",
+            mesh_closest_query_nowind_cuda: "kernel.closest_point_sweep_nowind",
+            mesh_closest_query_mma_cuda: "kernel.closest_point_sweep_mma",
+            mesh_closest_query_contracted_cuda: "kernel.closest_point_sweep_contracted"}

@@ -7,10 +7,10 @@ union) and ``sdf._union_values_eval`` (values only).  For CUDA tensors it
 launches the kernel on PyTorch's current stream (the library is built from
 ``csrc/`` at first use), or raises; for CPU tensors it runs the plain
 version.  One call launches the union kernel once, counted in
-``.launches``; with more than three children it also runs a ``cumsum`` of
-the per-tile middle flags and the kernel's poison pass, which put NaN in
-the middle tiles beyond the residual lane's capacity.  Neither waits for
-the device.
+``utils.profiling.COUNTERS["kernel.coherent_union_tile"]``; with more than
+three children it also runs a ``cumsum`` of the per-tile middle flags and
+the kernel's poison pass, which put NaN in the middle tiles beyond the
+residual lane's capacity.  Neither waits for the device.
 
 The wrapper reaches the kernel through the registered custom op
 ``pvt::coherent_union_tile`` (CUDA: the kernel; CPU: the plain version,
@@ -32,6 +32,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from pytorch_volumetric_tpu_torch.ops import cuda_build
+from pytorch_volumetric_tpu_torch.utils import profiling
 
 KERNEL = "coherent_union"
 _TILE, _POISON = "pvt_coherent_union_tile", "pvt_coherent_union_poison"
@@ -159,7 +160,7 @@ def _coherent_union_tile_op_cuda(
                         g_obj.data_ptr(), win.data_ptr(), g_link.data_ptr(),
                         middle.data_ptr(), mask.data_ptr(), stream)
             cuda_build.check_launch(lib, code, _TILE)
-            coherent_union_tile.launches += 1
+            profiling.count("kernel.coherent_union_tile")
             if lane:
                 rank = torch.cumsum(middle, 0, dtype=torch.int32)
                 code = poison(middle.data_ptr(), rank.data_ptr(), seg, N, capacity,
@@ -211,5 +212,3 @@ def coherent_union_tile(tables: Sequence, pts_c: torch.Tensor, Rb: torch.Tensor 
                                  bool(values_only))
     return out[0] if values_only else out
 
-
-coherent_union_tile.launches = 0

@@ -5,7 +5,7 @@ first use) and :func:`fma_probe` on CPU tensors: every element runs 8
 independent chains ``acc = acc * a + b``, 32 multiply-adds per iteration,
 and returns the chains' sum.  Its rate, 2 operations per multiply-add, is
 the FP32 ceiling of the sweep's roofline (``bench/sweep_roofline.py``).
-``fma_probe_cuda.launches`` counts kernel launches.
+``utils.profiling.COUNTERS["kernel.fma_probe"]`` counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import ctypes
 import torch
 
 from pytorch_volumetric_tpu_torch.ops import cuda_build
+from pytorch_volumetric_tpu_torch.utils import profiling
 
 KERNEL = "fma_probe"
 CHAINS = 8
@@ -67,8 +68,6 @@ def fma_probe_cuda(x: torch.Tensor, y: torch.Tensor, iters: int) -> torch.Tensor
             code = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), iters,
                       stream)
         cuda_build.check_launch(lib, code, "fma_probe")
-        fma_probe_cuda.launches += 1
+        profiling.count("kernel.fma_probe")
     return out
 
-
-fma_probe_cuda.launches = 0

@@ -5,7 +5,8 @@ equivalent of the plain version ``ops.narrow_band._query_impl``.  For a
 CUDA tensor it launches the kernel on PyTorch's current stream (the library
 is built from ``csrc/`` at first use), or raises; for a CPU tensor it runs
 the plain version.  One call launches one device kernel on the current
-stream, without a host sync, and counts one in ``.launches``.
+stream, without a host sync, and counts one in
+``utils.profiling.COUNTERS["kernel.narrow_band_query"]``.
 
 The wrapper reaches the kernel through the registered custom op
 ``pvt::narrow_band_query`` (CPU: the plain version; CUDA: the kernel; a
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from pytorch_volumetric_tpu_torch.ops import cuda_build
+from pytorch_volumetric_tpu_torch.utils import profiling
 from pytorch_volumetric_tpu_torch.ops.narrow_band import (
     NarrowBandBig, NarrowBandSmalls, _query_impl)
 
@@ -121,7 +123,7 @@ def _narrow_band_query_op_cuda(points, meta, cand, pseudo, grid_f, grid_i,
                       val.data_ptr(), grad.data_ptr(),
                       slot.data_ptr() if with_slots else None, stream)
         cuda_build.check_launch(lib, code, _SYMBOL)
-        narrow_band_query_cuda.launches += 1
+        profiling.count("kernel.narrow_band_query")
     return val, grad, slot
 
 
@@ -150,5 +152,3 @@ def narrow_band_query_cuda(smalls: NarrowBandSmalls, big: NarrowBandBig,
                                            grid_i, float(surface_normal_eps), bool(with_slots))
     return val, grad, slot if with_slots else None
 
-
-narrow_band_query_cuda.launches = 0

@@ -19,6 +19,7 @@ grad [.., N, 3])``, with concrete primitive, ``MeshSDF``,
 from __future__ import annotations
 
 import abc
+import contextlib
 import enum
 import logging
 import math
@@ -38,6 +39,7 @@ from pytorch_volumetric_tpu_torch.ops.straight_through import (
     straight_through, tile_winner_straight_through, winner_straight_through)
 from pytorch_volumetric_tpu_torch.utils.batching import (
     as_float_tensor, float_keys, resolve_device)
+from pytorch_volumetric_tpu_torch.utils import profiling
 from pytorch_volumetric_tpu_torch.utils.cache import get_store
 from pytorch_volumetric_tpu_torch.voxel import (
     GridView, VoxelGrid, get_coherent_tile_points, get_coordinates_and_points_in_grid,
@@ -543,26 +545,27 @@ def compose_query(child_raw_queries: Tuple[Callable, ...],
     ``b`` alone.  Returns ``(val [B, F], grad [B, F, d])``; ties keep the
     earlier child (strict ``<``).
     """
-    S = len(child_raw_queries)
-    F = points.shape[-2]
-    pts_all = tfm.transform_points(obj_to_link.reshape(S, batch, 4, 4), points)
-    R_back = link_to_obj.reshape(S, batch, 4, 4)[..., :3, :3]
+    with profiling.span("pvt.lookup"):
+        S = len(child_raw_queries)
+        F = points.shape[-2]
+        pts_all = tfm.transform_points(obj_to_link.reshape(S, batch, 4, 4), points)
+        R_back = link_to_obj.reshape(S, batch, 4, 4)[..., :3, :3]
 
-    best_v = None
-    best_g = None
-    for i, raw in enumerate(child_raw_queries):
-        v, g = raw(pts_all[i].reshape(batch * F, 3))
-        v = v.reshape(batch, F)
-        g = g.reshape(batch, F, 3)
-        # rotate gradients back into the object frame (rigid: R == inv-transpose)
-        g = tfm.rotate_vectors(R_back[i], g)
-        if best_v is None:
-            best_v, best_g = v, g
-        else:
-            better = v < best_v
-            best_v = torch.where(better, v, best_v)
-            best_g = torch.where(better[..., None], g, best_g)
-    return best_v, best_g
+        best_v = None
+        best_g = None
+        for i, raw in enumerate(child_raw_queries):
+            v, g = raw(pts_all[i].reshape(batch * F, 3))
+            v = v.reshape(batch, F)
+            g = g.reshape(batch, F, 3)
+            # rotate gradients back into the object frame (rigid: R == inv-transpose)
+            g = tfm.rotate_vectors(R_back[i], g)
+            if best_v is None:
+                best_v, best_g = v, g
+            else:
+                better = v < best_v
+                best_v = torch.where(better, v, best_v)
+                best_g = torch.where(better[..., None], g, best_g)
+        return best_v, best_g
 
 
 # ---------------------------------------------------------------------------
@@ -1205,13 +1208,17 @@ def compose_query_coherent(children: Sequence[ObjectFrameSDF],
     ``residual_frac``: capacity of the per-tile union's residual lane as a
     fraction of all (configuration, tile) pairs; middle tiles beyond it get
     NaN gradients.  ``values_only=True`` returns just ``val [B, F]``,
-    detached.  Otherwise returns ``(val [B, F], grad [B, F, 3])``."""
-    if values_only:
-        with torch.no_grad():
-            return _compose_coherent(children, obj_to_link, link_to_obj, batch, points,
-                                     fast_tables, True, generic_aux, seg, residual_frac)
-    return _compose_coherent(children, obj_to_link, link_to_obj, batch, points,
-                             fast_tables, False, generic_aux, seg, residual_frac)
+    detached.  Otherwise returns ``(val [B, F], grad [B, F, 3])``.
+
+    Counts the branches it takes in ``utils.profiling.COUNTERS``:
+    ``path.coherent_trilinear`` (the lone trilinear cache or the trilinear
+    union), ``path.coherent_single``, ``path.coherent_tile_union`` (the
+    values-only union too), ``path.coherent_point_union`` and
+    ``path.coherent_generic``, one each per call that takes it."""
+    grad_mode = torch.no_grad() if values_only else contextlib.nullcontext()
+    with profiling.span("pvt.lookup"), grad_mode:
+        return _compose_coherent(children, obj_to_link, link_to_obj, batch, points,
+                                 fast_tables, values_only, generic_aux, seg, residual_frac)
 
 
 def _compose_coherent(children, obj_to_link, link_to_obj, batch, points, fast_tables,
@@ -1231,6 +1238,7 @@ def _compose_coherent(children, obj_to_link, link_to_obj, batch, points, fast_ta
 
     tri_child = _coherent_single_trilinear_child(children)
     if tri_child is not None:
+        profiling.count("path.coherent_trilinear")
         t = (fast_tables[0] if fast_tables is not None and len(fast_tables) == 1
              and fast_tables[0].bricks5 is not None
              else tri_child._coherent_tables(with_tri_bricks=True, with_value_bricks=False))
@@ -1270,6 +1278,7 @@ def _compose_coherent(children, obj_to_link, link_to_obj, batch, points, fast_ta
 
     best_v = best_g = best_i = None
     if tri_u:
+        profiling.count("path.coherent_trilinear")
         tables = tables_for(tri_u, lambda s: s._coherent_tables(
             with_value_bricks=False, with_tri_value_bricks=True,
             with_tri_gradonly_bricks=True))
@@ -1284,22 +1293,28 @@ def _compose_coherent(children, obj_to_link, link_to_obj, batch, points, fast_ta
             with_grad_bricks=len(fast) == 1, with_gradonly_bricks=len(fast) > 1))
         pts_fast = of(pts_all, fast)
         if values_only:
+            profiling.count("path.coherent_tile_union")
             best_v = _coherent_union_values(tables, pts_fast)
         elif len(fast) == 1 and tables[0].bricks4 is not None:
             # one cached child: no union to win, value and gradient from one
             # brick row per tile
+            profiling.count("path.coherent_single")
             best_v, g_link = _coherent_single_lookup(tables[0], pts_fast[0])
             best_g = tfm.rotate_vectors(R_back[fast[0]][:, None], g_link)
             best_i = torch.full(best_v.shape, fast[0], dtype=torch.int64,
                                 device=best_v.device)
         elif all(t.gbricks is not None for t in tables):
+            profiling.count("path.coherent_tile_union")
             best_v, best_g, win = _coherent_union_lookup_tile(
                 tables, pts_fast, of(R_back, fast), residual_frac=residual_frac)
             best_i = child_index(win, fast)
         else:
+            profiling.count("path.coherent_point_union")
             best_v, g_link, win = _coherent_union_lookup(tables, pts_fast)
             best_g = _rotate_winners(of(R_back, fast), win, g_link)
             best_i = child_index(win, fast)
+    if generic:
+        profiling.count("path.coherent_generic")
     for k, i in enumerate(generic):
         v, g = generic_query(k, i)
         v = v.reshape(batch, FS, seg)

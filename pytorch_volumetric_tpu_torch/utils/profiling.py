@@ -4,7 +4,10 @@
   ``reps`` calls after a warm-up (``time.perf_counter`` for CPU tensors).
 - :func:`kernel_time`: the card's kernel time per call (no launch gaps)
   and the device kernels per call, from a ``torch.profiler`` trace.
-- :func:`span`: a named wall-clock span that also shows in profiler traces.
+- :func:`span`: a named span that shows in profiler traces and costs one
+  check when no profiler runs; with a ``sink``, also its wall-clock seconds.
+- :data:`COUNTERS`, :func:`count`: the process's counts of kernel launches
+  (``kernel.<op>``) and of the branches the query paths took (``path.*``).
 - :func:`trace`: a ``torch.profiler`` trace of the CPU and the card.
 - :func:`annotated_profile`, :func:`device_kernels`, :func:`kernel_owners`:
   a trace with the port's functions labelled (:func:`port_annotations`),
@@ -93,19 +96,39 @@ def kernel_time(fn: Callable, *args, reps: int = 10, warmup: int = 1, by_name: b
     return out
 
 
-@contextlib.contextmanager
+_OFF = contextlib.nullcontext()
+
+# launches of each hand-written kernel (``kernel.<op>``) and the branch each
+# query took (``path.*``), counted in the process since it started
+COUNTERS: collections.Counter = collections.Counter()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to ``COUNTERS[name]``."""
+    COUNTERS[name] += n
+
+
 def span(name: str, sink: Optional[Dict[str, float]] = None):
-    """Named wall-clock span, also a ``torch.profiler.record_function`` so
-    it shows inside profiler traces.  Adds the seconds to ``sink[name]``.
-    The span does not synchronise the card: wrap work that ends in a
-    synchronise to time the device."""
-    t0 = time.perf_counter()
-    with torch.profiler.record_function(name):
-        yield
-    dt = time.perf_counter() - t0
+    """A context manager naming a span of work in profiler traces.
+
+    While a profiler runs it is ``torch.profiler.record_function(name)``, so
+    the span shares the profiler's clock with the device timeline; otherwise
+    a shared no-op, at the cost of one check.  With ``sink`` it also adds its
+    wall-clock seconds to ``sink[name]`` (it does not synchronise the card:
+    wrap work that ends in a synchronise to time the device)."""
     if sink is not None:
-        sink[name] = sink.get(name, 0.0) + dt
-    logger.info("%s: %.3f ms", name, dt * 1e3)
+        return _timed(name, sink)
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def _timed(name: str, sink: Dict[str, float]):
+    t0 = time.perf_counter()
+    with span(name):
+        yield
+    sink[name] = sink.get(name, 0.0) + time.perf_counter() - t0
 
 
 @contextlib.contextmanager

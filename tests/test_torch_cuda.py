@@ -20,6 +20,7 @@ from pytorch_volumetric_tpu_torch.ops.fma_probe import fma_probe, fma_probe_cuda
 from pytorch_volumetric_tpu_torch.bench import bigmesh
 from pytorch_volumetric_tpu_torch.ops import narrow_band as tnb
 from pytorch_volumetric_tpu_torch.ops.narrow_band_cuda import narrow_band_query_cuda
+from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
 
 
 @pytest.fixture
@@ -98,10 +99,10 @@ def test_kernel_matches_plain_on_card(card, case, P):
     rounding where the kernel writes 0 outside a closed mesh's box."""
     pts, tri, box = _case(case, P, card)
     assert (box is None) == (case == "open")
-    before = mesh_closest_query_cuda.launches
+    before = COUNTERS["kernel.closest_point_sweep"]
     d1, c1, f1, w1 = mesh_closest_query_cuda(pts, tri, exterior_box=box)
     torch.cuda.synchronize()
-    assert mesh_closest_query_cuda.launches == before + 1
+    assert COUNTERS["kernel.closest_point_sweep"] == before + 1
     d0, c0, f0, w0 = tpt.mesh_closest_query(pts, tri)
     assert torch.equal(d0, d1) and torch.equal(c0, c1) and torch.equal(f0, f1)
     assert (w0.abs() - w1.abs()).abs().max().item() <= 1e-4
@@ -152,10 +153,10 @@ def test_nowind_kernel_matches_plain_on_card(card, case, P):
     """The no-winding sweep shares K1's arithmetic and build: distances,
     closest points and face ids bit for bit; the winding is all zeros."""
     pts, tri, _ = _case(case, P, card)
-    before = mesh_closest_query_nowind_cuda.launches
+    before = COUNTERS["kernel.closest_point_sweep_nowind"]
     d1, c1, f1, w1 = mesh_closest_query_nowind_cuda(pts, tri)
     torch.cuda.synchronize()
-    assert mesh_closest_query_nowind_cuda.launches == before + 1
+    assert COUNTERS["kernel.closest_point_sweep_nowind"] == before + 1
     d0, c0, f0, _ = tpt.mesh_closest_query(pts, tri, winding=False)
     assert torch.equal(d0, d1) and torch.equal(c0, c1) and torch.equal(f0, f1)
     assert not w1.any()
@@ -212,10 +213,10 @@ def test_mma_kernel_matches_plain_on_card(card, case):
         if case == "ragged":  # F = 13: a tile tail and a group tail
             tri = tri[:13].contiguous()
         pts = _points(7, 3001, card)
-    before = mesh_closest_query_mma_cuda.launches
+    before = COUNTERS["kernel.closest_point_sweep_mma"]
     out = mesh_closest_query_mma_cuda(pts, tri, exterior_box=box)
     torch.cuda.synchronize()
-    assert mesh_closest_query_mma_cuda.launches == before + 1
+    assert COUNTERS["kernel.closest_point_sweep_mma"] == before + 1
     err = sr.sweep_errors(out, tpt.mesh_closest_query_expanded(pts, tri), pts, tri)
     assert max(err["dist"], err["closest"], err["face"]) <= 1e-5, err
     assert err["winding"] <= 1e-3, err
@@ -266,10 +267,10 @@ def test_fma_probe_matches_plain_on_card(card):
     inputs = [(x, y, 1), (x, y, 2), (x, y, 100),
               (torch.ones_like(x), torch.full_like(y, 2.0 ** -10), 100)]
     for a, b, iters in inputs:
-        before = fma_probe_cuda.launches
+        before = COUNTERS["kernel.fma_probe"]
         out = fma_probe_cuda(a, b, iters)
         torch.cuda.synchronize()
-        assert fma_probe_cuda.launches == before + 1
+        assert COUNTERS["kernel.fma_probe"] == before + 1
         ref = fma_probe(a, b, iters)
         assert ((out - ref).abs() / ref.abs()).max().item() <= 1e-5, iters
 
@@ -284,9 +285,9 @@ def test_narrow_band_kernel_matches_plain_on_card(card):
     faces): the same keys, cascade, winner and sums,
     rounded the same way (``-fmad=false``), NaN at the same places."""
     for name, smalls, big, pts in bigmesh.kernel_cases(card):
-        before = narrow_band_query_cuda.launches
+        before = COUNTERS["kernel.narrow_band_query"]
         c = bigmesh.compare(smalls, big, pts)
-        assert narrow_band_query_cuda.launches == before + 1, name
+        assert COUNTERS["kernel.narrow_band_query"] == before + 1, name
         assert c["ok"], (name, c.get("first_difference"))
 
 
@@ -403,10 +404,10 @@ def test_served_exact_query_launches_k1(card, tmp_path):
     pts = _points(5, 500, card, -0.3, 0.6)
     query(q, pts)
     torch.cuda.synchronize()
-    before = mesh_closest_query_cuda.launches
+    before = COUNTERS["kernel.closest_point_sweep"]
     query(q, pts)
     torch.cuda.synchronize()
-    assert mesh_closest_query_cuda.launches == before + len(robot.sdf.sdfs)
+    assert COUNTERS["kernel.closest_point_sweep"] == before + len(robot.sdf.sdfs)
     outs = []
     for fn in (query, robot.query):
         qq = q.clone().requires_grad_(True)
@@ -468,11 +469,11 @@ def test_coherent_union_kernel_matches_plain_on_card(card, tmp_path, C, seg):
     tables, pts_c, Rb = _union_case(card, C, seg, tmp_path)
     for frac in (tsdf.RESIDUAL_FRAC, 1e-9):
         cap = tsdf.residual_capacity(pts_c.shape[1] * pts_c.shape[2], frac)
-        before = coherent_union_tile.launches
+        before = COUNTERS["kernel.coherent_union_tile"]
         out = coherent_union_tile(tables, pts_c, Rb, cap)
         vo = coherent_union_tile(tables, pts_c, values_only=True)
         torch.cuda.synchronize()
-        assert coherent_union_tile.launches == before + 2
+        assert COUNTERS["kernel.coherent_union_tile"] == before + 2
         ref = tsdf._union_tile_eval(tables, cap, pts_c, Rb)
         for name, a, b in zip(("val", "g_obj", "win", "g_link"), out, ref):
             assert _same_bits(a, b), (name, frac)

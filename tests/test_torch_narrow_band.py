@@ -23,6 +23,7 @@ from pytorch_volumetric_tpu_torch import native as tnative
 from pytorch_volumetric_tpu_torch import state
 from pytorch_volumetric_tpu_torch.ops import narrow_band as tnb
 from pytorch_volumetric_tpu_torch.ops.narrow_band_cuda import narrow_band_query_cuda
+from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
 from torch_cpu_guard import warm_sqrt
 
 warm_sqrt()
@@ -372,9 +373,9 @@ def test_wrapper_runs_the_plain_version_on_cpu(torus_sdfs, rng, monkeypatch):
     _, on_jax, *_ = torus_sdfs
     smalls, big = on_jax.tables.smalls, on_jax.tables.big
     pts = torch.as_tensor(rng.uniform(-0.5, 0.5, (500, 3)).astype(np.float32))
-    before = narrow_band_query_cuda.launches
+    before = COUNTERS["kernel.narrow_band_query"]
     v, g, s = narrow_band_query_cuda(smalls, big, pts, with_slots=True)
-    assert narrow_band_query_cuda.launches == before
+    assert COUNTERS["kernel.narrow_band_query"] == before
     monkeypatch.setattr(tnb, "PAIRS_PER_CHUNK", 777)
     ref = tnb._query_impl(smalls, big, pts, 1e-3)
     for a, b in zip((v, g, s), ref):
@@ -388,9 +389,9 @@ def test_sdf_backend_selects_the_plain_version(torus_sdfs, rng):
     to the wrapper's on the CPU, no launch); an unknown backend raises."""
     _, on_jax, _, ft = torus_sdfs
     pts = torch.as_tensor(rng.uniform(-0.5, 0.5, (500, 3)).astype(np.float32))
-    before = narrow_band_query_cuda.launches
+    before = COUNTERS["kernel.narrow_band_query"]
     v, g = pt.NarrowBandMeshSDF(ft, tables=on_jax.tables, backend="torch")(pts)
-    assert narrow_band_query_cuda.launches == before
+    assert COUNTERS["kernel.narrow_band_query"] == before
     vr, gr = on_jax(pts)
     assert torch.equal(v, vr) and torch.equal(g, gr)
     with pytest.raises(ValueError, match="unknown backend"):

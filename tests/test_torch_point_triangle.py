@@ -15,6 +15,7 @@ from pytorch_volumetric_tpu_torch import mesh as tm
 from pytorch_volumetric_tpu_torch.ops import point_triangle as tpt
 from pytorch_volumetric_tpu_torch.ops.closest_point import mesh_closest_query_cuda
 from pytorch_volumetric_tpu_torch.state import scene_from_numpy
+from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
 from torch_cpu_guard import warm_sqrt
 
 warm_sqrt()
@@ -151,12 +152,12 @@ def test_wrapper_runs_plain_version_on_cpu(scenes):
     no launch."""
     _, ts = scenes
     pts = torch.as_tensor(_points(6, 50))
-    before = mesh_closest_query_cuda.launches
+    before = COUNTERS["kernel.closest_point_sweep"]
     out = mesh_closest_query_cuda(pts, ts.tri)
     ref = tpt.mesh_closest_query(pts, ts.tri)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
-    assert mesh_closest_query_cuda.launches == before
+    assert COUNTERS["kernel.closest_point_sweep"] == before
 
 
 def test_state_scene_roundtrip(scenes):

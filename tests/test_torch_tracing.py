@@ -1,0 +1,235 @@
+"""The port's spans and counters (``utils/profiling``) on the CPU: the
+``pvt.*`` spans at the robot query's layer boundaries and how they nest,
+their cost with no profiler running, the path and kernel counters, and the
+benchmark's reading of the spans (``portbench/program_trace.py``): host
+self times, the backward's layers, and an export that holds no span."""
+
+import logging
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+import pytorch_volumetric_tpu_torch as pt
+from portbench import program_trace
+from portbench.trace import BACKWARD, CALL, WINDOW
+from pytorch_volumetric_tpu_torch.utils import profiling
+from pytorch_volumetric_tpu_torch.utils.robots import make_serial_arm
+from torch_cpu_guard import warm_sqrt
+
+warm_sqrt()
+
+CPU = torch.device("cpu")
+GRID = np.array([[-0.4, 0.2], [0.0, 0.0], [-0.1, 0.5]])
+# the links cache at 0.04: a grid at 0.02 takes the coherent path, one at
+# 0.03 (coarser than half the cache) the generic query
+COHERENT, FALLBACK = 0.02, 0.03
+
+
+@pytest.fixture(scope="module")
+def arm(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("arm"))
+    urdf, end = make_serial_arm(d, num_joints=3, segments=8, rings=2)
+    robot = pt.RobotSDF(pt.build_serial_chain_from_urdf(open(urdf).read(), end, device=CPU),
+                        path_prefix=d, link_sdf_cls=pt.cache_link_sdf_factory(
+                            resolution=0.04, padding=0.3,
+                            cache_path=str(tmp_path_factory.mktemp("cache") / "c.npz")))
+    q = torch.as_tensor(np.random.default_rng(0).uniform(-1, 1, (3, 3)).astype(np.float32))
+    return robot, q
+
+
+CALLS = {
+    "query": lambda robot, q: robot.query(
+        q, torch.as_tensor(np.random.default_rng(1).uniform(-0.4, 0.4, (50, 3)),
+                           dtype=torch.float32)),
+    "query_grid": lambda robot, q: robot.query_grid(q, GRID, COHERENT),
+    "query_grid_fallback": lambda robot, q: robot.query_grid(q, GRID, FALLBACK),
+}
+# the spans each call opens, each with its enclosing program span
+NESTING = {
+    "query": {("pvt.query", None), ("pvt.fk", "pvt.query"), ("pvt.lookup", "pvt.query")},
+    "query_grid": {("pvt.query_grid", None), ("pvt.fk", "pvt.query_grid"),
+                   ("pvt.lookup", "pvt.query_grid")},
+    "query_grid_fallback": {("pvt.query_grid", None), ("pvt.query", "pvt.query_grid"),
+                            ("pvt.fk", "pvt.query"), ("pvt.lookup", "pvt.query")},
+}
+
+
+def _traced(fn, wrt=None):
+    """A CPU trace of ``fn()`` inside the benchmark's window and call spans
+    (and, given ``wrt``, d(v.sum() + g.sum())/d wrt in its span)."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function(WINDOW), record_function(CALL):
+            out = fn()
+            if wrt is not None:
+                with record_function(BACKWARD):
+                    torch.autograd.grad(out[0].sum() + out[1].sum(), wrt)
+    return prof
+
+
+def _parent_span(e):
+    p = e.cpu_parent
+    while p is not None and not p.name.startswith("pvt."):
+        p = p.cpu_parent
+    return None if p is None else p.name
+
+
+@pytest.mark.parametrize("call", sorted(CALLS))
+def test_spans_nest_at_the_layer_boundaries(arm, call):
+    robot, q = arm
+    prof = _traced(lambda: CALLS[call](robot, q))
+    found = {(e.name, _parent_span(e)) for e in prof.events() if e.name.startswith("pvt.")}
+    assert found == NESTING[call]
+
+
+def test_spans_cost_one_check_without_a_profiler(arm, monkeypatch):
+    """With no profiler running, no span enters ``record_function``, and
+    every span is the one shared no-op."""
+    robot, q = arm
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered with no profiler running")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    for call in CALLS.values():
+        call(robot, q)
+    assert profiling.span("pvt.fk") is profiling.span("pvt.lookup")
+    with pytest.raises(AssertionError):
+        with profile(activities=[ProfilerActivity.CPU]):
+            profiling.span("pvt.fk")
+
+
+@pytest.mark.parametrize("resolution,path,branch", [
+    (COHERENT, "path.grid_coherent", "path.coherent_tile_union"),
+    (FALLBACK, "path.grid_fallback", None)])
+def test_query_grid_counts_its_path(arm, resolution, path, branch):
+    robot, q = arm
+    before = profiling.COUNTERS.copy()
+    for values_only in (False, True):
+        robot.query_grid(q, GRID, resolution, values_only=values_only)
+    counted = profiling.COUNTERS - before
+    want = {path: 2}
+    if branch:
+        want[branch] = 2
+    assert dict(counted) == want
+
+
+def test_the_fallback_logs_once_per_grid(arm, caplog):
+    robot, q = arm
+    grid = GRID + 0.01  # a grid no other test asked for
+    with caplog.at_level(logging.INFO, logger="pytorch_volumetric_tpu_torch.model_to_sdf"):
+        for _ in range(3):
+            robot.query_grid(q, grid, FALLBACK)
+    assert sum("generic query path" in r.getMessage() for r in caplog.records) == 1
+
+
+@pytest.fixture(scope="module")
+def balls(tmp_path_factory):
+    """Two cached spheres of each interpolation."""
+    d = tmp_path_factory.mktemp("balls")
+    return {(interp, i): pt.CachedSDF(f"{interp}{i}", 0.05, np.array([[-0.5, 0.5]] * 3),
+                                      pt.SphereSDF(0.3, device=CPU), interpolation=interp,
+                                      cache_path=str(d / f"{interp}{i}.npz"))
+            for interp in ("nearest", "trilinear") for i in range(2)}
+
+
+# the children of each composition by name, and the branches its coherent query counts
+BRANCHES = {
+    "single": ([("nearest", 0)], {"path.coherent_single": 1}),
+    "tile_union": ([("nearest", 0), ("nearest", 1)], {"path.coherent_tile_union": 1}),
+    "point_union": ([("nearest", 0), ("nearest", 1)], {"path.coherent_point_union": 1}),
+    "trilinear": ([("trilinear", 0)], {"path.coherent_trilinear": 1}),
+    "trilinear_union": ([("trilinear", 0), ("trilinear", 1)], {"path.coherent_trilinear": 1}),
+    "generic": (["sphere", "box"], {"path.coherent_generic": 1}),
+    "mixed": (["box", ("nearest", 0)], {"path.coherent_single": 1, "path.coherent_generic": 1}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BRANCHES))
+def test_the_coherent_query_counts_its_branches(balls, name):
+    from pytorch_volumetric_tpu_torch import sdf as tsdf
+    kinds, want = BRANCHES[name]
+    primitives = {"sphere": pt.SphereSDF(0.3, device=CPU),
+                  "box": pt.BoxSDF((0.2, 0.3, 0.4), device=CPU)}
+    children = tuple(primitives[k] if isinstance(k, str) else balls[k] for k in kinds)
+    m = torch.eye(4).repeat(len(children), 1, 1)
+    pts, _ = pt.get_coherent_grid_points(0.025, np.array([[-0.2, 0.2], [0.0, 0.0], [-0.2, 0.2]]),
+                                         device=CPU)
+    fast = None
+    if name == "point_union":  # tables without gradient bricks: per-point winner rows
+        fast = tuple(c._coherent_tables()._replace(gbricks=None, bricks4=None) for c in children)
+    before = profiling.COUNTERS.copy()
+    tsdf.compose_query_coherent(children, m, m, 1, pts, fast_tables=fast)
+    assert dict(profiling.COUNTERS - before) == want
+
+
+def test_counters_add_up():
+    before = profiling.COUNTERS["path.test_only"]
+    profiling.count("path.test_only")
+    profiling.count("path.test_only", 2)
+    assert profiling.COUNTERS["path.test_only"] == before + 3
+    del profiling.COUNTERS["path.test_only"]
+
+
+@pytest.mark.parametrize("call", sorted(CALLS))
+def test_host_self_times_sum_to_the_window(arm, call):
+    robot, q = arm
+    prof = _traced(lambda: CALLS[call](robot, q))
+    layers = program_trace.program_layers(prof)
+    self_s = layers["host_self_s"]
+    assert set(self_s) == {"entry", "fk", "lookup", "outside"}
+    assert all(s > 0 for s in self_s.values()), self_s
+    assert sum(self_s.values()) == pytest.approx(layers["window_s"], rel=0.01)
+    assert layers["calls"] == 1
+
+
+@pytest.mark.parametrize("call", ["query", "query_grid"])
+def test_backward_steps_take_their_forward_layer(arm, call):
+    """The un-tiling gather's ``IndexBackward0`` belongs to the entry, FK's
+    ``CosBackward0`` to FK and the benchmark's own ``SumBackward0`` to no
+    layer; on the generic path there is no un-tiling gather."""
+    robot, q = arm
+    qq = q.clone().requires_grad_(True)
+    prof = _traced(lambda: CALLS[call](robot, qq), wrt=qq)
+    host = prof.events()
+    forward = program_trace.forward_ops(host)
+    found = {}
+    for e in host:
+        if e.name in ("IndexBackward0", "CosBackward0", "SumBackward0"):
+            linked = program_trace.linked_forward(e.cpu_parent, forward)
+            found.setdefault(e.name, set()).add(
+                (linked.name,) + program_trace.op_layer(e, forward))
+    want = {"CosBackward0": {("aten::cos", "backward", "fk")},
+            "SumBackward0": {("aten::sum", "backward", "outside")}}
+    if call == "query_grid":
+        want["IndexBackward0"] = {("aten::index", "backward", "entry")}
+    assert found == want
+
+
+def test_a_renamed_span_is_a_layer_of_its_own(arm, monkeypatch):
+    """A span renamed in the program reads as a new layer: FK's time leaves
+    ``fk`` and does not move into the layer around it."""
+    robot, q = arm
+    span = profiling.span
+    monkeypatch.setattr(profiling, "span", lambda name, sink=None: span(
+        "pvt.forward_kinematics" if name == "pvt.fk" else name, sink))
+    layers = program_trace.program_layers(_traced(lambda: CALLS["query_grid"](robot, q)))
+    self_s = layers["host_self_s"]
+    assert "fk" not in self_s and self_s["pvt.forward_kinematics"] > 0
+    assert sum(self_s.values()) == pytest.approx(layers["window_s"], rel=0.01)
+
+
+def test_an_export_holds_no_span(arm):
+    """``torch.export`` of the fused query (as ``utils.serving`` exports
+    it) traces with no profiler running: no profiler operator in the graph."""
+    from pytorch_volumetric_tpu_torch.utils import serving
+    robot, _ = arm
+    fn, leaves = robot.fused_query_fn()
+    inputs = (torch.zeros((2, len(robot.joint_names))), torch.zeros((16, 3)))
+    with torch.enable_grad():
+        program = torch.export.export(serving._Program(fn), inputs + tuple(leaves))
+    targets = {str(n.target) for m in program.graph_module.modules()
+               if isinstance(m, torch.fx.GraphModule) for n in m.graph.nodes}
+    assert any("pvt." in t for t in targets)  # the exported query's own ops
+    assert not [t for t in targets if "profiler" in t or "record_function" in t]
