@@ -142,7 +142,15 @@ Phases, each fatal on failure:
     and no NaN in any line, K1 in the tight arm's and the torus's builds
     and in no query; the union kernel launched, and held bit for bit to its
     plain version on the headline and tight arms' inputs;
-16. one JSON line with every kernel's launches and times, then the result
+16. the FK kernels (``csrc/fk.cu``, ``pvt::fk_link_transforms`` and its
+    d/dq): on the headline arm at 25 and 200 configurations both
+    transforms within 2e-6 of the plain chain walk on the card and d/dq
+    (random cotangents on both outputs) within 2e-5 of its largest, one
+    launch each way, then their times beside the plain walk's and their
+    latency bound; the FK counters of phases 3, 4, 8 and 14 (every
+    ``_link_transforms`` call took the kernel; one forward and one d/dq
+    launch a differentiated query);
+17. one JSON line with every kernel's launches and times, then the result
     line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
@@ -171,7 +179,8 @@ for phase 15, with ``CACHE_RES`` set to 0.1 in ``bench.headline`` and
 ``bench.headline.REPS`` to 1: ``phase_harnesses(cpu, tmp, card, tmp,
 n_configs=4, roofline=dict(chunk=2, points_side=8, reps=1),
 trilinear=dict(points_side=8, reps=1))`` (~15 s; it builds
-``tmp/sdf_cache.npz`` when phase 4 has not).
+``tmp/sdf_cache.npz`` when phase 4 has not); for phase 16:
+``phase_fk(cpu, arm_dir, card, reps=2)`` (both sides the plain walk there).
 """
 
 import json
@@ -428,9 +437,11 @@ def phase_exact_robot(device, arm_dir, card, n_configs=N_CONFIGS, query_res=QUER
     COUNTERS["kernel.closest_point_sweep"] = 0
     robot = pt.RobotSDF(pt.build_serial_chain_from_urdf(text, "link7", device=device),
                         path_prefix=arm_dir)
+    fk_reset()
     v, g, dq = query_objective_grad(robot, q, pts)
     sync(device)
     launches = COUNTERS["kernel.closest_point_sweep"]
+    fk_counts(device, "exact robot query", 1, 1)
     check(v.shape == (n_configs, pts.shape[0]) and g.shape == v.shape + (3,),
           "exact robot: output shape")
     check(bool(torch.isfinite(v).all() and torch.isfinite(g).all()
@@ -477,9 +488,11 @@ def phase_cached_robot(device, arm_dir, cache_dir, card, n_configs=N_CONFIGS,
                             resolution=resolution, padding=1.0, cache_path=cache_path))
     sync(device)
     build_s = time.perf_counter() - t0
+    fk_reset()
     v, g, dq = query_objective_grad(robot, q, pts)
     sync(device)
     launches = COUNTERS["kernel.closest_point_sweep"]
+    fk_counts(device, "cached robot query", 1, 1)
     grids = [tuple(s.voxels.shape) for s in robot.sdf.sdfs]
     log(f"  cache build {build_s:.3f} s for {len(grids)} links, grids {sorted(set(grids))}")
     check(v.shape == (n_configs, pts.shape[0]) and g.shape == v.shape + (3,),
@@ -901,7 +914,9 @@ def phase_coherent(device, arm_dir, tmp, card, generic_ms, n_configs=N_CONFIGS,
                             cache_path=os.path.join(tmp, "coherent_cache.npz")))
     sync(device)
     build_launches = COUNTERS["kernel.closest_point_sweep"]
+    fk_reset()
     v, g, dq = objective_grad(lambda qq: robot.query_grid(qq, QUERY_RANGE, query_res))
+    fk_counts(device, "query_grid", 1, 1)
     sync(device)
     launches = COUNTERS["kernel.closest_point_sweep"]
     union_launches = COUNTERS["kernel.coherent_union_tile"]
@@ -2231,10 +2246,12 @@ def phase_northstar(device, tmp, card, n_configs=N_CONFIGS, points_side=100, chu
         # kernel on the nearest rows: the arm's forward, and values only)
         COUNTERS["kernel.closest_point_sweep"] = 0
         COUNTERS["kernel.coherent_union_tile"] = 0
+        fk_reset()
         row, (robot, ft, q, pts, seg) = ns.northstar(
             kind, interp, device, os.path.join(tmp, f"northstar_{kind}_{interp}"), n_configs,
             points_side, chunk, variants, row_reps, warmup, build, log)
         sync(device)
+        fk_counts(device, f"northstar {name}")
         launches = COUNTERS["kernel.closest_point_sweep"]
         out["union_launches"][name] = COUNTERS["kernel.coherent_union_tile"]
         check(COUNTERS["kernel.coherent_union_tile"] > 0 or interp != "nearest"
@@ -2380,6 +2397,195 @@ def phase_harnesses(device, tmp, card, out_dir, n_configs=N_CONFIGS, roofline=No
     harness_line("trilinear", line, out_dir)
     log(f"  trilinear: {time.perf_counter() - t0:.1f} s [{card}]")
     return builds, union
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the FK kernels (and their counters on the paths of phases 3-14)
+# ---------------------------------------------------------------------------
+
+FK_COUNTERS = ("kernel.fk_link_transforms", "kernel.fk_link_transforms_backward",
+               "path.fk_fused", "path.fk_plain")
+FP32_LATENCY_CYCLES = 4  # a dependent FP32 add or multiply on Hopper
+# (forward, d/dq) FK launches on each path :func:`fk_counts` read, by name
+FK_LAUNCHES = {}
+SM_CLOCK_HZ = 1.98e9  # one H100 SXM's largest SM clock (NVIDIA's data sheet)
+
+
+def fk_reset():
+    """Set the FK kernels' launch counts and FK's path counts to 0."""
+    from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
+    for k in FK_COUNTERS:
+        COUNTERS[k] = 0
+
+
+def fk_counts(device, name, forward=None, backward=None):
+    """The FK counters since :func:`fk_reset`: ``(forward launches, d/dq
+    launches)``.  On the card every ``_link_transforms`` call must have
+    taken the kernel (``path.fk_fused`` == forward launches, no
+    ``path.fk_plain``), with ``forward`` / ``backward`` launches when
+    given; on the CPU every call takes the plain walk and nothing launches.
+    Also kept in ``FK_LAUNCHES[name]``."""
+    from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
+    sync(device)
+    c = {k: COUNTERS[k] for k in FK_COUNTERS}
+    fwd, bwd = c["kernel.fk_link_transforms"], c["kernel.fk_link_transforms_backward"]
+    if device.type == "cuda":
+        check(c["path.fk_plain"] == 0 and fwd == c["path.fk_fused"] > 0,
+              f"{name}: FK did not take the kernel on every call ({c})")
+        check(forward is None or fwd == forward, f"{name}: {fwd} FK launches, want {forward}")
+        check(backward is None or bwd == backward,
+              f"{name}: {bwd} FK d/dq launches, want {backward}")
+    else:
+        check(fwd == bwd == c["path.fk_fused"] == 0, f"{name}: FK launched on the CPU")
+    FK_LAUNCHES[name] = (fwd, bwd)
+    return fwd, bwd
+
+
+def fk_chain_ops(desc):
+    """``(forward, d/dq)``: the longest chain of dependent float32
+    operations in the kernels' design for the robot ``desc`` describes
+    (``csrc/fk.cu``, built with ``-fmad=false``): a 4x4 product is 4 deep
+    (a multiply, then three adds), and only the world matrix's chain is
+    counted (a joint's motion is computed beside it).  Forward: each frame
+    with a joint applies its origin (4), an actuated one its motion (4
+    more); a link then takes ``invert_tf`` (4), the product with its offset
+    (4) and ``invert_tf`` again (4).  d/dq: the tangent takes the origin
+    (4), the motion (a product and an add, 5); a link then takes
+    ``invert_tf``'s tangent (5), the product (4), the tangent again (5) and
+    the contraction with the cotangents (a multiply and 16 adds, then 2
+    more adds into the sum)."""
+    from pytorch_volumetric_tpu_torch.ops import fk as fk_ops
+    fwd, bwd = [], []
+    for parent, kind, _, flags in desc.frames.tolist():
+        f0, b0 = (0, 0) if parent < 0 else (fwd[parent], bwd[parent])
+        if not flags & fk_ops.NO_JOINT:
+            actuated = kind != fk_ops.FIXED
+            f0, b0 = f0 + 4 + 4 * actuated, b0 + 4 + 5 * actuated
+        fwd.append(f0)
+        bwd.append(b0)
+    links = desc.link_frames.tolist()
+    return (max(fwd[f] for f in links) + 12,
+            max(bwd[f] for f in links) + 5 + 4 + 5 + 17 + 2)
+
+
+def fk_bound(desc, A, M):
+    """The kernels' bounds at ``A`` configurations of ``M`` joints:
+    ``{"forward": {...}, "backward": {...}}``, each ``bound_ms`` the larger
+    of the bytes a call must move at HBM rate (``q`` in and both
+    ``[L*A, 4, 4]`` outputs out; d/dq: ``q`` and both cotangents in, ``dq``
+    out) and its longest dependent chain (:func:`fk_chain_ops`) at
+    ``FP32_LATENCY_CYCLES`` a step and ``SM_CLOCK_HZ``.  At the arm's shapes
+    the chain is the larger: FK is latency bound, no roofline share."""
+    L = desc.link_frames.shape[0]
+    out_bytes = 2 * L * A * 64
+    chain = fk_chain_ops(desc)
+    res = {}
+    for (name, nbytes), ops in zip((("forward", A * M * 4 + out_bytes),
+                                    ("backward", 2 * A * M * 4 + out_bytes)), chain):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        chain_ms = ops * FP32_LATENCY_CYCLES / SM_CLOCK_HZ * 1e3
+        res[name] = {"bound_ms": max(bytes_ms, chain_ms),
+                     "bound_by": "latency" if chain_ms >= bytes_ms else "bytes",
+                     "bound_bytes": nbytes, "bound_chain_ops": ops}
+    return res
+
+
+def host_us(fn, device, reps):
+    """Host microseconds a call: ``reps`` calls enqueued, then one
+    synchronise, over the calls."""
+    fn()
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync(device)
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def phase_fk(device, arm_dir, card, configs=(25, 200), reps=100):
+    """The FK kernels (``csrc/fk.cu`` behind ``pvt::fk_link_transforms``)
+    on the headline arm against their plain version on the card
+    (``ops.fk.link_transforms_plain`` and its autograd): at each batch in
+    ``configs`` (the north-star chunk and the headline batch) both outputs
+    within 2e-6 and d/dq from random cotangents on both within 2e-5 of its
+    largest |d/dq| (at least 2e-5), one launch each way; then each
+    kernel's times beside its plain version's and its bound
+    (:func:`fk_bound`).  Returns ``{A: row}``."""
+    import pytorch_volumetric_tpu_torch as pt
+    from pytorch_volumetric_tpu_torch.bench.headline import joint_configs
+    from pytorch_volumetric_tpu_torch.ops import fk as fk_ops
+    from pytorch_volumetric_tpu_torch.utils.profiling import device_time, kernel_time
+
+    text = open(os.path.join(arm_dir, "arm.urdf")).read()
+    robot = pt.RobotSDF(pt.build_serial_chain_from_urdf(text, "link7", device=device),
+                        path_prefix=arm_dir)
+    desc = robot._fk_desc
+    L, M = len(robot.sdf_to_link_name), len(robot.joint_names)
+    out = {}
+    for A in configs:
+        q = joint_configs(A, device)
+        rng = np.random.default_rng(A)
+        g_m, g_minv = (torch.as_tensor(g, device=device) for g in
+                       rng.standard_normal((2, L * A, 4, 4)).astype(np.float32))
+
+        def with_dq(fn):
+            qq = q.detach().clone().requires_grad_(True)
+            m, m_inv = fn(qq)
+            (dq,) = torch.autograd.grad((m, m_inv), qq, (g_m, g_minv))
+            return m.detach(), m_inv.detach(), dq
+
+        fk_reset()
+        m, m_inv, dq = with_dq(robot._link_transforms)
+        launches = fk_counts(device, f"FK at A = {A}", 1, 1)
+        pm, pm_inv, pdq = with_dq(lambda x: fk_ops.link_transforms_plain(x, *desc))
+        err = max(float((m - pm).abs().max()), float((m_inv - pm_inv).abs().max()))
+        scale = max(1.0, float(pdq.abs().max()))
+        dq_err = float((dq - pdq).abs().max()) / scale
+        log(f"  FK at A = {A} ({L} links, {M} joints): |m|, |m^-1| err {err:.3g} (gate 2e-6), "
+            f"d/dq err {dq_err:.3g} of max(1, max |d/dq|) = {scale:.4g} (gate 2e-5); "
+            f"launches forward, d/dq {launches}")
+        check(err <= 2e-6, f"FK at A = {A}: transforms beyond 2e-6 of the plain walk")
+        check(dq_err <= 2e-5, f"FK at A = {A}: d/dq beyond 2e-5 of the plain walk's largest")
+
+        def fwd(x):
+            return fk_ops.fk_link_transforms(x, desc)
+
+        def bwd(x):
+            return fk_ops.fk_link_transforms_backward_op(g_m, g_minv, x, *desc)
+
+        def plain_fwd(x):
+            return fk_ops.link_transforms_plain(x, *desc)
+
+        def plain_fwd_bwd(x):
+            x = x.detach().requires_grad_(True)
+            return torch.autograd.grad(plain_fwd(x), x, (g_m, g_minv))
+
+        bound = fk_bound(desc, A, M)
+        row = {"configs": A, "links": L, "max_abs_err": err, "dq_err_of_max": dq_err}
+        for name, kern, kname in (("forward", fwd, "fk_forward"), ("backward", bwd, "fk_backward")):
+            r = {"ms": device_time(kern, q, reps=reps) * 1e3,
+                 "host_us": host_us(lambda: kern(q), device, reps), "kernel_ms": None}
+            if device.type == "cuda":
+                _, _, by_name = kernel_time(kern, q, reps=reps, by_name=True)
+                r["kernel_ms"] = sum(s for k, s in by_name.items() if kname in k) * 1e3
+            row[name] = {**r, **bound[name]}
+        plain_ms = device_time(plain_fwd, q, reps=10) * 1e3
+        row["forward"]["plain_ms"] = plain_ms
+        row["backward"]["plain_ms"] = device_time(plain_fwd_bwd, q, reps=10) * 1e3 - plain_ms
+        row["forward"]["plain_host_us"] = host_us(lambda: plain_fwd(q), device, 10)
+        if device.type == "cuda":
+            row["forward"]["plain_kernels"] = kernel_time(plain_fwd, q, reps=5)[1]
+            row["backward"]["plain_kernels"] = (kernel_time(plain_fwd_bwd, q, reps=5)[1]
+                                                - row["forward"]["plain_kernels"])
+        for name in ("forward", "backward"):
+            r = row[name]
+            log(f"  FK {name} at A = {A}: {r['ms']:.4f} ms a call (kernel {r['kernel_ms']} "
+                f"device ms; host {r['host_us']:.1f} us), plain {r['plain_ms']:.4f} ms "
+                f"({r.get('plain_kernels')} kernels), bound {r['bound_ms']:.5f} ms "
+                f"({r['bound_by']}: {r['bound_chain_ops']} dependent ops, "
+                f"{r['bound_bytes']} bytes) [{card}]")
+        out[A] = row
+    return out
 
 
 def free_port():
@@ -2588,8 +2794,11 @@ def main():
             f"{builds}, their queries {harness_launches - sum(builds.values())}; "
             f"coherent_union_tile launches {harness_union}")
         log(f"  phase 15: {time.perf_counter() - t0:.1f} s")
+        log("== phase 16: the FK kernels")
+        fk = phase_fk(device, arm_dir, card)
+        log(f"  FK launches (forward, d/dq) on the paths driven: {FK_LAUNCHES}")
 
-    log("== phase 16: kernels")
+    log("== phase 17: kernels")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     grid = probe["grid"]
 
@@ -2666,6 +2875,28 @@ def main():
                                        "values_only": {**small(h["times"]["values_only"]),
                                                        "bound_ms": h["values_bound_ms"]}}}
 
+    def fk_row():
+        """The FK kernels at the headline batch (200 configurations of the
+        arm, 8 links), the north-star chunk (25) beside it; launches on
+        phase 4's query (forward and d/dq) and on the other paths driven."""
+        keys = ("ms", "kernel_ms", "host_us", "plain_ms", "plain_kernels", "plain_host_us",
+                "bound_ms", "bound_by", "bound_bytes", "bound_chain_ops")
+        main_r, chunk_r = fk[200], fk[25]
+        return {"name": "fk_link_transforms", "route": "cuda", "source": csrc + "fk.cu",
+                "replaces": "pytorch_volumetric_tpu/kinematics.py:217",
+                "replaces_note": "jnp chain walk (Chain.fk_matrices, then "
+                                 "model_to_sdf.py RobotSDF._link_transforms), no Pallas kernel",
+                "launches": FK_LAUNCHES["cached robot query"][0],
+                "launches_backward": FK_LAUNCHES["cached robot query"][1],
+                "launches_paths": FK_LAUNCHES,
+                "max_abs_err": max(r["max_abs_err"] for r in fk.values()),
+                "dq_err_of_max": max(r["dq_err_of_max"] for r in fk.values()),
+                **{k: main_r["forward"].get(k) for k in keys}, "library_ms": None,
+                "shape": "arm, 8 links x 200 configurations",
+                "backward": {k: main_r["backward"].get(k) for k in keys},
+                "configs_25": {d: {k: chunk_r[d].get(k) for k in keys}
+                               for d in ("forward", "backward")}}
+
     log(json.dumps({"kernels": [
         {"name": "closest_point_sweep", "route": "cuda", "source": csrc + "closest_point.cu",
          "replaces": "pytorch_volumetric_tpu/ops/pallas/closest_point.py:62",
@@ -2691,6 +2922,7 @@ def main():
                   "fma_probe_cuda", probe["fma"], probe["fma"]["max_abs_err"]),
         narrow_band_row(nb),
         union_row(),
+        fk_row(),
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,7 @@ import torch
 from pytorch_volumetric_tpu_torch import sdf
 from pytorch_volumetric_tpu_torch import transforms as tfm
 from pytorch_volumetric_tpu_torch.kinematics import Chain
+from pytorch_volumetric_tpu_torch.ops import fk as fk_ops
 from pytorch_volumetric_tpu_torch.sdf import compose_query
 from pytorch_volumetric_tpu_torch.utils import profiling
 from pytorch_volumetric_tpu_torch.utils.batching import (
@@ -78,19 +79,30 @@ class RobotSDF(sdf.ObjectFrameSDF):
         # [L, 4, 4] visual offsets (mesh frame -> link frame) and inverses
         self.offset_transforms = torch.as_tensor(np.stack(offsets), device=self.device)
         self._offset_inv = tfm.invert_tf(self.offset_transforms)
+        # the chain and the links as device tensors for the FK kernels, built
+        # once here (never inside a call, where it would copy from the host)
+        self._fk_desc = fk_ops.fk_descriptor(self.chain, self.sdf_to_link_name,
+                                             self._offset_inv)
         self.sdf = sdf.ComposedSDF(sdfs, None)
         self.set_joint_configuration(default_joint_config)
 
     # -- transforms from configurations --------------------------------------
     def _link_transforms(self, q_flat: torch.Tensor):
         """``q [A, M]`` -> link-major ``(obj->link [L*A,4,4],
-        link->obj [L*A,4,4])`` with object->link = offset^-1 o FK(link)^-1."""
+        link->obj [L*A,4,4])`` with object->link = offset^-1 o FK(link)^-1.
+        A float32 CUDA ``q`` takes the FK kernels (``ops.fk``: one launch
+        forward, one for d/dq), any other the plain chain walk over the same
+        descriptor, called directly so that autograd keeps its second
+        derivatives."""
+        if q_flat.shape[-1] != len(self.joint_names):
+            raise ValueError(f"expected {len(self.joint_names)} joint values "
+                             f"({self.joint_names}), got shape {tuple(q_flat.shape)}")
         with profiling.span("pvt.fk"):
-            fk = self.chain.fk_matrices(q_flat)
-            mats = [tfm.mm(self._offset_inv[i], tfm.invert_tf(fk[link_name]))
-                    for i, link_name in enumerate(self.sdf_to_link_name)]
-            m = torch.cat(mats, dim=0)
-            return m, tfm.invert_tf(m)
+            if q_flat.is_cuda and q_flat.dtype == torch.float32:
+                profiling.count("path.fk_fused")
+                return fk_ops.fk_link_transforms(q_flat, self._fk_desc)
+            profiling.count("path.fk_plain")
+            return fk_ops.link_transforms_plain(q_flat, *self._fk_desc)
 
     def _flat_configs(self, joint_config):
         q = as_float_tensor(joint_config, self.device)

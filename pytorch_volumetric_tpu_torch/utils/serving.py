@@ -4,7 +4,8 @@
 min-union query (``RobotSDF.fused_query_fn``) as a ``torch.export``
 program that a serving process loads and runs without the robot: no URDF,
 no mesh, no cache build.  The kernels stay in the program as registered
-custom ops (``pvt::closest_point_sweep``, ``pvt::narrow_band_query``, and
+custom ops (``pvt::closest_point_sweep``, ``pvt::narrow_band_query``,
+``pvt::fk_link_transforms`` in an export made on the card, and
 ``pvt::coherent_union_tile`` in a grid export), so a
 program loaded on the card runs the hand-written kernels, and the
 straight-through lookups keep their analytic backward
@@ -45,6 +46,7 @@ TABLES_SUFFIX = ".tables.npz"
 # registers the ops a loaded program dispatches to (``sdf`` registers
 # ``pvt::coherent_union_tile``'s CPU kernel beside the op module's CUDA one)
 _OP_MODULES = ("pytorch_volumetric_tpu_torch.ops.closest_point",
+               "pytorch_volumetric_tpu_torch.ops.fk",
                "pytorch_volumetric_tpu_torch.sdf",
                "pytorch_volumetric_tpu_torch.ops.narrow_band_cuda",
                "pytorch_volumetric_tpu_torch.ops.straight_through")
