@@ -41,6 +41,11 @@ from pytorch_volumetric_tpu_torch.ops.point_triangle import (
 # points them at its variants)
 KERNEL = "closest_point"
 MMA_KERNEL = "closest_point_mma"
+# each wrapper's count of its launches in ``utils.profiling.COUNTERS``
+SWEEP = "kernel.closest_point_sweep"
+SWEEP_NOWIND = "kernel.closest_point_sweep_nowind"
+SWEEP_MMA = "kernel.closest_point_sweep_mma"
+SWEEP_CONTRACTED = "kernel.closest_point_sweep_contracted"
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (pointers, counts, options, the stream)
@@ -94,11 +99,13 @@ def _sweep_options(points: torch.Tensor, exterior_box, counters, winding: bool):
     return args, box
 
 
-def _launch(wrapper, library: str, symbol: str, points: torch.Tensor,
+def _launch(counter: str, library: str, symbol: str, points: torch.Tensor,
             tri: torch.Tensor, winding: bool = True, options=None):
-    """Run one sweep kernel on CUDA tensors; returns the wrapper's outputs
-    (winding zeros when the kernel computes none).  ``options``: the sweep
-    kernel's trailing arguments (:func:`_sweep_options`)."""
+    """Run one sweep kernel on CUDA tensors and count it under ``counter``
+    (the wrapper's key in :data:`LAUNCHES`: a key, not the function, so a
+    wrapper that a profiler's labels replace still counts); returns the
+    wrapper's outputs (winding zeros when the kernel computes none).
+    ``options``: the sweep kernel's trailing arguments (:func:`_sweep_options`)."""
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
     _check_inputs(points, tri)
@@ -118,7 +125,7 @@ def _launch(wrapper, library: str, symbol: str, points: torch.Tensor,
             code = fn(points.data_ptr(), P, tri.data_ptr(), F, *outs, *(options or ()),
                       stream)
         cuda_build.check_launch(lib, code, symbol)
-        profiling.count(LAUNCHES[wrapper])
+        profiling.count(counter)
     return torch.sqrt(d2), closest, fid, wind / _FOUR_PI
 
 
@@ -136,8 +143,7 @@ def closest_point_sweep(points: torch.Tensor, tri: torch.Tensor,
 @closest_point_sweep.register_kernel("cuda")
 def _closest_point_sweep_cuda(points, tri, exterior_box, point_chunk, tri_chunk):
     options, _box = _sweep_options(points, exterior_box, None, winding=True)
-    return _launch(mesh_closest_query_cuda, KERNEL, "pvt_closest_point_sweep",
-                   points, tri, options=options)
+    return _launch(SWEEP, KERNEL, "pvt_closest_point_sweep", points, tri, options=options)
 
 
 @closest_point_sweep.register_fake
@@ -172,8 +178,8 @@ def mesh_closest_query_cuda(points: torch.Tensor, tri: torch.Tensor,
         raise ValueError(f"unsupported device {points.device}")
     if counters is not None and points.device.type == "cuda":
         options, _box = _sweep_options(points, exterior_box, counters, winding=True)
-        return _launch(mesh_closest_query_cuda, KERNEL, "pvt_closest_point_sweep",
-                       points, tri, options=options)
+        return _launch(SWEEP, KERNEL, "pvt_closest_point_sweep", points, tri,
+                       options=options)
     box = (None if exterior_box is None
            else np.asarray(exterior_box, dtype=np.float32).reshape(-1).tolist())
     return closest_point_sweep(points, tri, box, point_chunk, tri_chunk)
@@ -187,7 +193,7 @@ def mesh_closest_query_nowind_cuda(points: torch.Tensor, tri: torch.Tensor,
     if points.device.type == "cpu":
         return mesh_closest_query(points, tri, winding=False, **plain_kwargs)
     options, _ = _sweep_options(points, None, counters, winding=False)
-    return _launch(mesh_closest_query_nowind_cuda, KERNEL,
+    return _launch(SWEEP_NOWIND, KERNEL,
                    "pvt_closest_point_sweep_nowind", points, tri, winding=False,
                    options=options)
 
@@ -203,7 +209,7 @@ def mesh_closest_query_mma_cuda(points: torch.Tensor, tri: torch.Tensor,
     if points.device.type == "cpu":
         return mesh_closest_query_expanded(points, tri, **plain_kwargs)
     options, _box = _sweep_options(points, exterior_box, counters, winding=True)
-    return _launch(mesh_closest_query_mma_cuda, MMA_KERNEL, "pvt_closest_point_sweep_mma",
+    return _launch(SWEEP_MMA, MMA_KERNEL, "pvt_closest_point_sweep_mma",
                    points, tri, options=options)
 
 
@@ -216,12 +222,11 @@ def mesh_closest_query_contracted_cuda(points: torch.Tensor, tri: torch.Tensor,
     if points.device.type == "cpu":
         return mesh_closest_query(points, tri, **plain_kwargs)
     options, _box = _sweep_options(points, exterior_box, None, winding=True)
-    return _launch(mesh_closest_query_contracted_cuda, "closest_point_fmad",
+    return _launch(SWEEP_CONTRACTED, "closest_point_fmad",
                    "pvt_closest_point_sweep", points, tri, options=options)
 
 
-# each wrapper's count of its kernel launches in ``utils.profiling.COUNTERS``
-LAUNCHES = {mesh_closest_query_cuda: "kernel.closest_point_sweep",
-            mesh_closest_query_nowind_cuda: "kernel.closest_point_sweep_nowind",
-            mesh_closest_query_mma_cuda: "kernel.closest_point_sweep_mma",
-            mesh_closest_query_contracted_cuda: "kernel.closest_point_sweep_contracted"}
+# each wrapper's key in ``utils.profiling.COUNTERS``
+LAUNCHES = {mesh_closest_query_cuda: SWEEP, mesh_closest_query_nowind_cuda: SWEEP_NOWIND,
+            mesh_closest_query_mma_cuda: SWEEP_MMA,
+            mesh_closest_query_contracted_cuda: SWEEP_CONTRACTED}

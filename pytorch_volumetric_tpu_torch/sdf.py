@@ -425,7 +425,10 @@ def _straight_through_sdf(raw_fn: Callable) -> Callable:
 
 class MeshSDF(ObjectFrameSDF):
     """Exact SDF from the triangle sweep.  ``backend="torch"`` forces the
-    plain sweep on the card too (the kernel's reference)."""
+    plain sweep on the card too (the kernel's reference).
+
+    Each raw query (the sweep, its sign and gradient) opens the span
+    ``pvt.exact`` and counts ``path.link_exact`` once."""
 
     def __init__(self, obj_factory: ObjectFactory, vis=None, backend: str = "auto"):
         self.obj_factory = obj_factory
@@ -447,13 +450,15 @@ class MeshSDF(ObjectFrameSDF):
         self._raw = _straight_through_sdf(raw)
 
     def raw_query(self, points):
-        return self._raw(*self._tables, points)
+        return self.raw_query_with(self._tables, points)
 
     def raw_query_aux(self):
         return self._tables
 
     def raw_query_with(self, aux, points):
-        return self._raw(*aux, points)
+        profiling.count("path.link_exact")
+        with profiling.span("pvt.exact"):
+            return self._raw(*aux, points)
 
     def surface_bounding_box(self, padding=0.0, padding_ratio=0.0):
         return torch.as_tensor(self.obj_factory.bounding_box(padding, padding_ratio),

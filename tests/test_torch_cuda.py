@@ -418,6 +418,34 @@ def test_served_exact_query_launches_k1(card, tmp_path):
         assert torch.equal(a, b)
 
 
+@pytest.mark.cuda
+def test_a_labelled_sweep_still_counts(card, tmp_path, monkeypatch):
+    """An exact-link arm queried with K1's wrapper replaced by a labelled one,
+    as a profiler's labels replace it: one launch a link counted under its
+    key, and one ``path.link_exact`` a link."""
+    import functools
+    from pytorch_volumetric_tpu_torch.ops import closest_point
+    from pytorch_volumetric_tpu_torch.utils import robots
+    original = closest_point.mesh_closest_query_cuda
+
+    @functools.wraps(original)
+    def labelled(*args, **kwargs):
+        with torch.profiler.record_function("ops.closest_point.mesh_closest_query_cuda"):
+            return original(*args, **kwargs)
+
+    monkeypatch.setattr(closest_point, "mesh_closest_query_cuda", labelled)
+    urdf, end = robots.make_serial_arm(str(tmp_path), num_joints=3, segments=8, rings=3)
+    robot = pt.RobotSDF(pt.build_serial_chain_from_urdf(open(urdf).read(), end, device=card),
+                        path_prefix=str(tmp_path))
+    q = torch.zeros((2, 3), device=card)
+    before = COUNTERS.copy()
+    robot.query(q, _points(6, 500, card, -0.3, 0.6))
+    torch.cuda.synchronize()
+    counted = COUNTERS - before
+    L = len(robot.sdf.sdfs)
+    assert counted["kernel.closest_point_sweep"] == counted["path.link_exact"] == L
+
+
 def _union_case(device, C, seg, tmp_path, n_configs=3, n_tiles=64):
     """The per-tile union's inputs: ``C`` cached spheres (radius 0.02,
     0.04 voxels) centred on a circle of 0.012, tiles within 0.05 of its

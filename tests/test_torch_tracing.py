@@ -164,6 +164,38 @@ def test_the_coherent_query_counts_its_branches(balls, name):
     assert dict(profiling.COUNTERS - before) == want
 
 
+@pytest.fixture(scope="module")
+def exact_arm(tmp_path_factory):
+    """An arm of 8 links with RobotSDF's default link SDFs: exact meshes."""
+    d = str(tmp_path_factory.mktemp("exact_arm"))
+    urdf, end = make_serial_arm(d, num_joints=7, segments=8, rings=2)
+    robot = pt.RobotSDF(pt.build_serial_chain_from_urdf(open(urdf).read(), end, device=CPU),
+                        path_prefix=d, device=CPU)
+    q = torch.as_tensor(np.random.default_rng(2).uniform(-1, 1, (2, 7)).astype(np.float32))
+    return robot, q
+
+
+def test_exact_links_open_their_span_once_a_link(exact_arm):
+    """Each exact link's query opens ``pvt.exact`` inside ``pvt.lookup``, and
+    the benchmark's reader keeps it as a layer of its own."""
+    robot, q = exact_arm
+    prof = _traced(lambda: CALLS["query"](robot, q))
+    spans = [(e.name, _parent_span(e)) for e in prof.events() if e.name.startswith("pvt.")]
+    assert set(spans) == NESTING["query"] | {("pvt.exact", "pvt.lookup")}
+    assert spans.count(("pvt.exact", "pvt.lookup")) == 8
+    layers = program_trace.program_layers(prof)
+    assert set(layers["host_self_s"]) == {"entry", "fk", "lookup", "pvt.exact", "outside"}
+    assert sum(layers["host_self_s"].values()) == pytest.approx(layers["window_s"], rel=0.01)
+
+
+@pytest.mark.parametrize("links,want", [("exact_arm", 8), ("arm", 0)])
+def test_link_exact_counts_each_exact_link_a_call(request, links, want):
+    robot, q = request.getfixturevalue(links)
+    before = profiling.COUNTERS.copy()
+    CALLS["query"](robot, q)
+    assert (profiling.COUNTERS - before)["path.link_exact"] == want
+
+
 def test_counters_add_up():
     before = profiling.COUNTERS["path.test_only"]
     profiling.count("path.test_only")
