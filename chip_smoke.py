@@ -121,7 +121,12 @@ Phases, each fatal on failure:
     d/dq within 2e-4 of each configuration's largest, values only equal;
     the union kernel's launches per row (none missing on a nearest row) and
     the kernel held bit for bit to its plain version on the arm's first
-    chunk, timed beside it and its bytes bound; and K1 on the torus's own
+    chunk, timed beside it and its bytes bound; the union's backward
+    kernels (``tile_union_cotangents``) on that chunk's winners against the
+    plain version in float64 (within 2e-5 of the terms' absolute sum, NaN
+    where it has NaN, two calls equal bit for bit), timed beside the plain
+    version and their bytes bound, and their launches on each row (one a
+    differentiated chunk: the arm's warm-up and 3 timed runs x 8 chunks); and K1 on the torus's own
     cache-build grid (114 x 114 x 104 points
     against its 16,384 faces) held to the plain version as in phase 2;
 15. the JAX side's last benchmark harnesses: ``bench/headline.py``
@@ -184,6 +189,7 @@ trilinear=dict(points_side=8, reps=1))`` (~15 s; it builds
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -740,6 +746,71 @@ def compare_union(name, tables, pts_c, Rb, residual_frac=None, timed=False):
             f"({res['bound_bytes'] / 1e9:.3f} GB); values only {t['values_only']['ms']:.4f} ms "
             f"(kernel {t['values_only']['kernel_ms']} device ms), plain "
             f"{t['values_only']['plain_ms']:.4f} ms, bound {res['values_bound_ms']:.4f} ms")
+    return res
+
+
+def union_backward_bound(C, B, N):
+    """``(bound_ms, bytes)`` of the union's backward at ``C`` children,
+    ``B`` configurations and ``N`` points: read win (8 B), g_link (12),
+    ct_val (4) and ct_g (12) a (configuration, point) and the points (12 B
+    each) once, write d_T and d_Rb (25 floats a child and configuration);
+    over 3.35 TB/s."""
+    nbytes = B * N * 36 + N * 12 + C * B * 25 * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def compare_union_backward(name, tables, pts_c, Rb, points, reps=5):
+    """The union's backward (``ops.coherent_union.tile_union_cotangents``:
+    the kernels on the card) on the winners and link-frame gradients of the
+    union kernel over ``pts_c`` (``T @ points``), cotangents of ones (the
+    north star's ``v.sum() + g.sum()``), against the plain version in
+    float64: NaN where it has NaN, else within 2e-5 of the terms' absolute
+    sum (float32 sums: ~120 additions a term, 120 * 2^-24 = 7.2e-6); two
+    calls equal bit for bit.  Returns ``{max_rel_err, ms, kernel_ms,
+    plain_ms, bound_ms, bound_bytes}``: ``ms`` by CUDA events around
+    ``reps`` calls, ``kernel_ms`` the backward kernels' device time (a
+    profiler trace), ``plain_ms`` the plain version in float32."""
+    from pytorch_volumetric_tpu_torch import sdf as tsdf
+    from pytorch_volumetric_tpu_torch.ops import coherent_union as cu
+    from pytorch_volumetric_tpu_torch.utils.profiling import device_time, kernel_time
+    C, B, FS, seg = pts_c.shape[:4]
+    N = FS * seg
+    cap = tsdf.residual_capacity(B * FS)
+    with torch.no_grad():
+        _, _, win, g_link = cu.coherent_union_tile(tables, pts_c, Rb, cap)
+        ct_val = torch.ones((B, FS, seg), device=pts_c.device)
+        ct_g = torch.ones((B, FS, seg, 3), device=pts_c.device)
+        args = (win, g_link, ct_val, ct_g, points)
+        out = cu.tile_union_cotangents(*args, C)
+        again = cu.tile_union_cotangents(*args, C)
+        sync(pts_c.device)
+        f64 = [t.double() for t in args[1:]]
+        ref = cu.tile_union_cotangents_plain(win, *f64, C)
+        mag = cu.tile_union_cotangents_plain(win, *(t.abs() for t in f64), C)
+    rel, same_nan = 0.0, True
+    for a, r, m in zip(out, ref, mag):
+        nan = torch.isnan(r)
+        same_nan &= torch.equal(torch.isnan(a), nan)
+        rel = max(rel, float(((a.double() - r).abs() / m.clamp(min=1e-30))[~nan].max()))
+    repeat = all(same_bits(a, b) for a, b in zip(out, again))
+    res = {"max_rel_err": rel}
+    res["ms"] = device_time(lambda *a: cu.tile_union_cotangents(*a, C), *args, reps=reps) * 1e3
+    res["plain_ms"] = device_time(lambda *a: cu.tile_union_cotangents_plain(*a, C), *args,
+                                  reps=2) * 1e3
+    res["kernel_ms"], res["calls_ms"] = None, {}
+    if pts_c.device.type == "cuda":
+        _, _, by_name = kernel_time(lambda *a: cu.tile_union_cotangents(*a, C), *args,
+                                    reps=reps, by_name=True)
+        res["kernel_ms"] = sum(v for k, v in by_name.items() if "union_backward" in k) * 1e3
+        res["calls_ms"] = {k[:60]: v * 1e3 for k, v in by_name.items()}
+    res["bound_ms"], res["bound_bytes"] = union_backward_bound(C, B, N)
+    log(f"    {name}: C={C} B={B} N={N}: NaN where the float64 plain version has NaN "
+        f"{same_nan} ({int(torch.isnan(ref[0]).sum())} in d_T), largest error over the terms' "
+        f"absolute sum {rel:.3g}, two calls bit for bit {repeat}; {res['ms']:.4f} ms (kernels "
+        f"{res['kernel_ms']} device ms; calls {res['calls_ms']}), plain {res['plain_ms']:.4f} "
+        f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_bytes'] / 1e9:.3f} GB)")
+    check(same_nan and rel <= 2e-5 and repeat,
+          f"{name}: the union's backward differs from its plain version")
     return res
 
 
@@ -2238,7 +2309,8 @@ def phase_northstar(device, tmp, card, n_configs=N_CONFIGS, points_side=100, chu
     ``northstar.build_robot`` (smaller robots to rehearse on the CPU)."""
     from pytorch_volumetric_tpu_torch.bench import northstar as ns
     from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
-    out = {"rows": {}, "build_launches": {}, "query_launches": {}, "union_launches": {}}
+    out = {"rows": {}, "build_launches": {}, "query_launches": {}, "union_launches": {},
+           "union_backward_launches": {}}
     exact = True
     for kind, interp, variants, row_reps, warmup in rows:
         name = ns.metric_name(kind, interp)
@@ -2246,6 +2318,7 @@ def phase_northstar(device, tmp, card, n_configs=N_CONFIGS, points_side=100, chu
         # kernel on the nearest rows: the arm's forward, and values only)
         COUNTERS["kernel.closest_point_sweep"] = 0
         COUNTERS["kernel.coherent_union_tile"] = 0
+        COUNTERS["kernel.tile_union_backward"] = 0
         fk_reset()
         row, (robot, ft, q, pts, seg) = ns.northstar(
             kind, interp, device, os.path.join(tmp, f"northstar_{kind}_{interp}"), n_configs,
@@ -2254,9 +2327,19 @@ def phase_northstar(device, tmp, card, n_configs=N_CONFIGS, points_side=100, chu
         fk_counts(device, f"northstar {name}")
         launches = COUNTERS["kernel.closest_point_sweep"]
         out["union_launches"][name] = COUNTERS["kernel.coherent_union_tile"]
+        out["union_backward_launches"][name] = COUNTERS["kernel.tile_union_backward"]
         check(COUNTERS["kernel.coherent_union_tile"] > 0 or interp != "nearest"
               or device.type != "cuda",
               f"{name}: no coherent_union_tile launch")
+        # one backward launch a differentiated chunk on the card: the
+        # forward_backward variant's warm-up and timed runs over every chunk
+        # (more if an out-of-memory retry ran a larger chunk first)
+        bwd_launches = COUNTERS["kernel.tile_union_backward"]
+        bwd_want = 0
+        if "forward_backward" in variants and device.type == "cuda":
+            bwd_want = (warmup + row_reps) * math.ceil(n_configs / row["chunk"])
+        check(bwd_launches == bwd_want or (row["chunk"] != chunk and bwd_launches > bwd_want),
+              f"{name}: {bwd_launches} tile_union_backward launches, want {bwd_want}")
         if points_side == 100:
             check(seg == 27 and row["padded_points"] == 1_061_208 and row["points"] == 10 ** 6,
                   f"{name}: expected 1,061,208 padded points in 27-point tiles")
@@ -2279,6 +2362,10 @@ def phase_northstar(device, tmp, card, n_configs=N_CONFIGS, points_side=100, chu
                                          *union_inputs(robot, ft, q[:row["chunk"]], pts, seg),
                                          timed=True)
             out["union"]["launches"] = out["union_launches"][name]
+            out["union_backward"] = compare_union_backward(
+                f"{name}: the union's backward, chunk of {row['chunk']}",
+                *union_inputs(robot, ft, q[:row["chunk"]], pts, seg), pts)
+            out["union_backward"]["launches"] = out["union_backward_launches"][name]
             if device.type == "cuda":
                 torch.cuda.empty_cache()
         out["rows"][name] = row
@@ -2294,7 +2381,8 @@ def phase_northstar(device, tmp, card, n_configs=N_CONFIGS, points_side=100, chu
                 f"{', '.join(f'{t:.3f}' for t in v['ms_runs'])}), {rate / 1e6:.2f} M/s, peak "
                 f"{(v['peak_bytes'] or float('nan')) / 1e9:.2f} GB, chunk {r['chunk']} [{card}]")
     log(f"  bit-identical to compose_query everywhere gated: {exact}; coherent_union_tile "
-        f"launches per row {out['union_launches']}")
+        f"launches per row {out['union_launches']}; tile_union_backward launches per row "
+        f"{out['union_backward_launches']}")
     return out
 
 
@@ -2875,6 +2963,24 @@ def main():
                                        "values_only": {**small(h["times"]["values_only"]),
                                                        "bound_ms": h["values_bound_ms"]}}}
 
+    def union_backward_row():
+        """The union's backward kernels at the north-star chunk (8 links x
+        25 configurations x 1,061,208 points: the arm's first chunk's
+        winners, cotangents of ones), launches on phase 14's arm row."""
+        u = north["union_backward"]
+        return {"name": "tile_union_backward", "route": "cuda",
+                "source": csrc + "coherent_union.cu",
+                "replaces": "pytorch_volumetric_tpu/sdf.py:1228",
+                "replaces_note": "XLA program (bwd of _coherent_union_lookup_tile's "
+                                 "custom VJP), no Pallas kernel",
+                "launches": u["launches"],
+                "launches_northstar_rows": north["union_backward_launches"],
+                "max_rel_err": u["max_rel_err"],
+                **{k: u[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms",
+                                     "bound_bytes")},
+                "bound_by": "bytes", "library_ms": None,
+                "shape": "north-star chunk: 8 links x 25 x 1,061,208 points"}
+
     def fk_row():
         """The FK kernels at the headline batch (200 configurations of the
         arm, 8 links), the north-star chunk (25) beside it; launches on
@@ -2922,6 +3028,7 @@ def main():
                   "fma_probe_cuda", probe["fma"], probe["fma"]["max_abs_err"]),
         narrow_band_row(nb),
         union_row(),
+        union_backward_row(),
         fk_row(),
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -53,8 +53,34 @@
 //  - the rotation in transforms.rotate_vectors' term order;
 //  - torch.clamp keeps NaN, as clamp_nan below does.
 //
-// One call of each C entry launches one kernel on the caller's stream, with
-// no host synchronisation and no allocation.
+// The union's backward (pvt_tile_union_backward, below) goes from the saved
+// winners and link-frame gradients and the outputs' cotangents straight to
+// the cotangents of the children's obj_to_link rows T and rotations Rb.  Its
+// plain version is ops/coherent_union.py :: tile_union_cotangents_plain;
+// the dense formula it replaces wrote a [C, B, N, 3] point cotangent and a
+// [C, B, N, 3, 3] outer product, and reduced them through
+// transforms.transform_points' backward.  Per (configuration b, point p)
+// with winner c it adds 21 terms into (b, c):
+//   dT[c, b][o, j] += (ct_val * g_link[o]) * points[p, j]   (j < 3)
+//   dT[c, b][o, 3] += ct_val * g_link[o]
+//   dRb[c, b][o, i] += ct_g[o] * g_link[i]
+// What bounds it: bytes, 36 a (b, p) (win int64, g_link, ct_val, ct_g) and
+// 12 a point, against 42 operations.  A block owns one b and 512 points,
+// keeps them in registers, and for each child that wins one of them sums the
+// terms in registers, then across the warp (a reduce-scatter of shuffles)
+// and the block (shared memory), in a fixed order; a second pass sums the
+// blocks' partials in a fixed order.  No float atomics: a call repeats its
+// bits.  (Blocks of 64 to 256 threads and 2 to 4 points a thread time within
+// ~20% of one another on the north-star chunk; 8 points a thread, at 156
+// registers, is 40% slower.)
+// The dense formula multiplied every child's terms by its 0/1 mask, so a
+// non-finite ct_val * g_link[o], ct_g[o], g_link[i] or points[p, j] made the
+// terms of every child other than the winner NaN (0 * inf): each point's
+// 21-bit mask of such terms is OR-ed (integer atomics, exact) into every other
+// child's mask, and a masked sum is NaN.
+//
+// One call of each C entry launches one kernel on the caller's stream (the
+// backward's two), with no host synchronisation and no allocation.
 
 #include <climits>
 
@@ -446,6 +472,165 @@ __global__ void poison(const int* __restrict__ middle, const int* __restrict__ r
   }
 }
 
+constexpr int kBwdThreads = 128;
+constexpr int kBwdPer = 4;  // points a thread
+constexpr int kBwdPoints = kBwdThreads * kBwdPer;  // points a block
+constexpr int kBwdTerms = 21;  // dT's 3 x 4, then dRb's 3 x 3
+constexpr int kBwdGroups = 12;  // the second pass: 12 x 21 threads a (b, c)
+
+struct BwdArgs {
+  const long long* win;  // [B, N]
+  const float* g_link;   // [B, N, 3]
+  const float* ct_val;   // [B, N]
+  const float* ct_g;     // [B, N, 3]
+  const float* points;   // [N, 3]
+  int C, B;
+  long long N, X;        // points, blocks over them
+  float* partial;        // [B, C, X, kBwdTerms]
+  float* d_T;            // [C, B, 4, 4]
+  float* d_Rb;           // [C, B, 3, 3]
+};
+
+// One step of a warp's reduce-scatter of v[0, 2S): a lane keeps the half
+// of its values that its bit S selects, moved to v[0, S), and adds its
+// partner's copy of that half.  (S a template argument, so v stays in
+// registers.)
+template <int S>
+__device__ __forceinline__ void scatter_step(float (&v)[kWarp], int lane) {
+  const bool upper = lane & S;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const float send = upper ? v[k] : v[k + S];
+    const float keep = upper ? v[k + S] : v[k];
+    v[k] = __fadd_rn(keep, __shfl_xor_sync(kFull, send, S));
+  }
+}
+
+// One block: configuration b = blockIdx.x % B, points x * kBwdPoints on
+// (x = blockIdx.x / B, so the B blocks that read one tile of points run
+// together).  Writes partial[b, c, x, :] for every child c.
+__global__ void __launch_bounds__(kBwdThreads) union_backward_partial(BwdArgs a) {
+  extern __shared__ unsigned masks[];  // [C] NaN terms, then [C] present
+  __shared__ float warp_sums[2][kBwdThreads / kWarp][kBwdTerms];
+  unsigned* nan_terms = masks;
+  unsigned* present = masks + a.C;
+  const int b = static_cast<int>(blockIdx.x % a.B);
+  const long long x = blockIdx.x / a.B;
+  for (int c = threadIdx.x; c < 2 * a.C; c += blockDim.x) masks[c] = 0u;
+  __syncthreads();
+
+  int w[kBwdPer];
+  float q[kBwdPer][3], g[kBwdPer][3], cg[kBwdPer][3], p[kBwdPer][3];
+#pragma unroll
+  for (int r = 0; r < kBwdPer; ++r) {
+    const long long i = x * kBwdPoints + r * kBwdThreads + threadIdx.x;
+    w[r] = -1;
+    if (i >= a.N) continue;
+    const long long bi = static_cast<long long>(b) * a.N + i;
+    const long long wl = __ldg(a.win + bi);
+    w[r] = (wl >= 0 && wl < a.C) ? static_cast<int>(wl) : a.C;  // a.C: no child's
+    const float cv = __ldg(a.ct_val + bi);
+    unsigned bad = 0u;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      g[r][d] = __ldg(a.g_link + 3 * bi + d);
+      cg[r][d] = __ldg(a.ct_g + 3 * bi + d);
+      p[r][d] = __ldg(a.points + 3 * i + d);
+      q[r][d] = __fmul_rn(cv, g[r][d]);
+    }
+#pragma unroll
+    for (int o = 0; o < 3; ++o) {
+      if (!isfinite(q[r][o])) bad |= 0xfu << (4 * o);
+      if (!isfinite(cg[r][o])) bad |= 0x7u << (12 + 3 * o);
+      if (!isfinite(p[r][o])) bad |= 0x111u << o;          // column o of dT
+      if (!isfinite(g[r][o])) bad |= 0x49u << (12 + o);    // column o of dRb
+    }
+    if (bad) {
+      for (int c = 0; c < a.C; ++c)
+        if (c != w[r]) atomicOr(nan_terms + c, bad);
+    }
+    if (w[r] < a.C) present[w[r]] = 1u;
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
+  int n_present = 0;
+  for (int c = 0; c < a.C; ++c) {
+    float* out = a.partial + ((static_cast<long long>(b) * a.C + c) * a.X + x) * kBwdTerms;
+    const unsigned nan_c = nan_terms[c];
+    if (!present[c]) {  // the same branch in every thread
+      if (threadIdx.x < kBwdTerms)
+        out[threadIdx.x] = (nan_c >> threadIdx.x) & 1u ? __int_as_float(0x7fffffff) : 0.f;
+      continue;
+    }
+    // the terms, padded to a warp's 32 for the reduction below
+    float v[kWarp];
+#pragma unroll
+    for (int k = 0; k < kWarp; ++k) v[k] = 0.f;
+    bool mine = false;
+#pragma unroll
+    for (int r = 0; r < kBwdPer; ++r) {
+      if (w[r] != c) continue;
+      mine = true;
+#pragma unroll
+      for (int o = 0; o < 3; ++o) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          v[4 * o + j] = __fadd_rn(v[4 * o + j], __fmul_rn(q[r][o], p[r][j]));
+          v[12 + 3 * o + j] = __fadd_rn(v[12 + 3 * o + j], __fmul_rn(cg[r][o], g[r][j]));
+        }
+        v[4 * o + 3] = __fadd_rn(v[4 * o + 3], q[r][o]);
+      }
+    }
+    if (__any_sync(kFull, mine)) {
+      // reduce-scatter across the warp: lane k ends with the warp's sum of
+      // term k in v[0] (31 shuffles, not 21 x 5)
+      scatter_step<16>(v, lane);
+      scatter_step<8>(v, lane);
+      scatter_step<4>(v, lane);
+      scatter_step<2>(v, lane);
+      scatter_step<1>(v, lane);
+    }
+    float* sums = warp_sums[n_present & 1][warp];
+    if (lane < kBwdTerms) sums[lane] = v[0];
+    __syncthreads();  // double-buffered: the next child writes the other buffer
+    if (threadIdx.x < kBwdTerms) {
+      float t = 0.f;
+      for (int u = 0; u < kBwdThreads / kWarp; ++u)
+        t = __fadd_rn(t, warp_sums[n_present & 1][u][threadIdx.x]);
+      out[threadIdx.x] = (nan_c >> threadIdx.x) & 1u ? __int_as_float(0x7fffffff) : t;
+    }
+    ++n_present;
+  }
+}
+
+// One block a (b, c) = blockIdx.x / C, % C: thread (group, k) sums the
+// partials x = group, group + kBwdGroups, ... of term k (consecutive threads
+// on consecutive floats), then thread k sums the groups in order and writes
+// d_T[c, b] (its last row 0) and d_Rb[c, b].
+__global__ void __launch_bounds__(kBwdGroups * kBwdTerms) union_backward_finish(BwdArgs a) {
+  __shared__ float sums[kBwdGroups][kBwdTerms];
+  const int b = static_cast<int>(blockIdx.x / a.C), c = static_cast<int>(blockIdx.x % a.C);
+  const int group = threadIdx.x / kBwdTerms, k = threadIdx.x % kBwdTerms;
+  const float* in = a.partial + (static_cast<long long>(b) * a.C + c) * a.X * kBwdTerms;
+  float s = 0.f;
+  for (long long x = group; x < a.X; x += kBwdGroups)
+    s = __fadd_rn(s, __ldg(in + x * kBwdTerms + k));
+  sums[group][k] = s;
+  __syncthreads();
+  const long long cb = static_cast<long long>(c) * a.B + b;
+  if (threadIdx.x < kBwdTerms) {
+    float t = 0.f;
+    for (int v = 0; v < kBwdGroups; ++v) t = __fadd_rn(t, sums[v][threadIdx.x]);
+    if (threadIdx.x < 12)
+      a.d_T[cb * 16 + threadIdx.x] = t;  // rows 0-2 of [4, 4]
+    else
+      a.d_Rb[cb * 9 + threadIdx.x - 12] = t;
+  } else if (threadIdx.x < kBwdTerms + 4) {
+    a.d_T[cb * 16 + 12 + threadIdx.x - kBwdTerms] = 0.f;
+  }
+}
+
 template <typename Kernel>
 int launch(Kernel kernel, long long blocks, int threads, size_t smem, cudaStream_t stream,
            const Args& a) {
@@ -500,6 +685,36 @@ extern "C" int pvt_coherent_union_poison(const int* middle, const int* rank, int
   const long long blocks = (N + kThreads - 1) / kThreads;
   poison<<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
       middle, rank, seg, N, cap, mask, g_obj, g_link);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The floats of the backward's scratch buffer for C children, B
+// configurations and N points a configuration.
+extern "C" long long pvt_tile_union_backward_scratch(int C, int B, long long N) {
+  return static_cast<long long>(C) * B * ((N + kBwdPoints - 1) / kBwdPoints) * kBwdTerms;
+}
+
+// win [B, N] int64, g_link [B, N, 3], ct_val [B, N], ct_g [B, N, 3] and
+// points [N, 3] float32, contiguous on the device; scratch of
+// pvt_tile_union_backward_scratch(C, B, N) floats.  Writes d_T [C, B, 4, 4]
+// and d_Rb [C, B, 3, 3] (float32, every element).  Launches two kernels on
+// `stream` and returns the first CUDA error code (0 on success).
+extern "C" int pvt_tile_union_backward(const long long* win, const float* g_link,
+                                       const float* ct_val, const float* ct_g,
+                                       const float* points, int C, int B, long long N,
+                                       float* scratch, float* d_T, float* d_Rb,
+                                       void* stream_ptr) {
+  if (C <= 0 || B <= 0) return 0;
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  BwdArgs a{win, g_link, ct_val, ct_g, points, C, B, N, (N + kBwdPoints - 1) / kBwdPoints,
+            scratch, d_T, d_Rb};
+  if (a.X > 0) {
+    union_backward_partial<<<static_cast<unsigned>(a.X * B), kBwdThreads,
+                             2 * C * sizeof(unsigned), stream>>>(a);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  union_backward_finish<<<static_cast<unsigned>(C * B), kBwdGroups * kBwdTerms, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,11 +21,19 @@ that a loaded program dispatches to the kernel on the card.  The kernel
 reads the tables in place through a device array of their pointers, built
 once for each set of tables (cached by the pointers themselves, so an
 entry never holds other content than its key says).
+
+:func:`tile_union_cotangents` is the union's backward: from the winners,
+the winners' link-frame gradients and the outputs' cotangents straight to
+the cotangents of the children's ``obj_to_link`` rows and rotations.  On
+float32 CUDA tensors it launches the backward kernels of the same library
+(counted in ``COUNTERS["kernel.tile_union_backward"]``, one a call), else
+it runs the plain version :func:`tile_union_cotangents_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from collections import OrderedDict
 from typing import List, Sequence, Tuple
 
@@ -36,6 +44,7 @@ from pytorch_volumetric_tpu_torch.utils import profiling
 
 KERNEL = "coherent_union"
 _TILE, _POISON = "pvt_coherent_union_tile", "pvt_coherent_union_poison"
+_BACKWARD = "pvt_tile_union_backward"
 _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the per-child fields the kernel reads, in the order of its pointer array
 FIELDS = ("lo", "inv_res", "n", "strides", "bstrides", "bb", "bricks", "gbricks", "vg")
@@ -54,6 +63,11 @@ def _entry():
         tile.restype = ctypes.c_int
         poison.argtypes = [_p, _p, _i, _ll, _i, _p, _p, _p, _p]
         poison.restype = ctypes.c_int
+        backward, scratch = getattr(lib, _BACKWARD), lib.pvt_tile_union_backward_scratch
+        backward.argtypes = [_p, _p, _p, _p, _p, _i, _i, _ll, _p, _p, _p, _p]
+        backward.restype = ctypes.c_int
+        scratch.argtypes = [_i, _i, _ll]
+        scratch.restype = ctypes.c_longlong
     return lib, tile, poison
 
 
@@ -212,3 +226,117 @@ def coherent_union_tile(tables: Sequence, pts_c: torch.Tensor, Rb: torch.Tensor 
                                  bool(values_only))
     return out[0] if values_only else out
 
+
+def tile_union_cotangents_plain(win: torch.Tensor, g_link: torch.Tensor, ct_val: torch.Tensor,
+                                ct_g: torch.Tensor, points: torch.Tensor, n_children: int
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`tile_union_cotangents`: each point's 21
+    terms summed into its winner's ``(b, c)`` with ``index_add_``; a term
+    that the dense formula's 0/1 mask made NaN for the other children (a
+    non-finite ``ct_val * g_link[o]``, ``ct_g[o]``, ``g_link[i]`` or
+    ``points[p, j]``) makes their sum NaN."""
+    C, B = n_children, win.shape[0]
+    w = win.reshape(B, -1)
+    N = w.shape[1]
+    g, cg = g_link.reshape(B, N, 3), ct_g.reshape(B, N, 3)
+    q = ct_val.reshape(B, N, 1) * g
+    p = points.reshape(1, N, 3).expand(B, N, 3)
+    terms = torch.cat([torch.cat([q[..., :, None] * p[..., None, :], q[..., :, None]], -1)
+                       .reshape(B, N, 12), (cg[..., :, None] * g[..., None, :]).reshape(B, N, 9)],
+                      -1)
+    bad_q, bad_p = ~torch.isfinite(q), ~torch.isfinite(p)
+    bad_g, bad_cg = ~torch.isfinite(g), ~torch.isfinite(cg)
+    bad_T = bad_q[..., :, None] | torch.cat([bad_p, torch.zeros_like(bad_p[..., :1])],
+                                            -1)[..., None, :]
+    bad = torch.cat([bad_T.reshape(B, N, 12),
+                     (bad_cg[..., :, None] | bad_g[..., None, :]).reshape(B, N, 9)], -1)
+    # each point's (b, winner) row; a winner outside [0, C) is no child's
+    valid = (w >= 0) & (w < C)
+    slot = torch.where(valid, torch.arange(B, device=w.device)[:, None] * C + w, B * C).reshape(-1)
+    sums = terms.new_zeros((B * C + 1, 21)).index_add_(0, slot, terms.reshape(-1, 21))
+    own_bad = torch.zeros((B * C + 1, 21), dtype=torch.int64, device=w.device).index_add_(
+        0, slot, bad.reshape(-1, 21).to(torch.int64))
+    others_bad = bad.sum(1, dtype=torch.int64)[:, None, :] - own_bad[:-1].view(B, C, 21)
+    sums = torch.where(others_bad > 0, float("nan"), sums[:-1].view(B, C, 21))
+    d_T = torch.cat([sums[..., :12].reshape(B, C, 3, 4), sums.new_zeros((B, C, 1, 4))], -2)
+    return (d_T.transpose(0, 1).contiguous(),
+            sums[..., 12:].reshape(B, C, 3, 3).transpose(0, 1).contiguous())
+
+
+def tile_union_point_cotangents(win: torch.Tensor, g_link: torch.Tensor, ct_val: torch.Tensor,
+                                R: torch.Tensor) -> torch.Tensor:
+    """The world points' cotangent ``[FS * seg, 3]`` of the per-tile union
+    whose children's link-frame points are ``R[c, b] @ points + t[c, b]``
+    (``R [C, B, 3, 3]``): the sum over configurations of ``R[win]^T
+    (ct_val * g_link)``, each point's winner's rotation gathered.  The
+    other children's terms are 0, or NaN where the dense formula's 0/1 mask
+    met a non-finite factor: a non-finite ``ct_val * g_link[o]`` makes all
+    three entries NaN, a non-finite ``R[c, b][o, j]`` of another child
+    entry ``j``."""
+    C, B = R.shape[:2]
+    w = win.reshape(B, -1)
+    q = ct_val.reshape(w.shape + (1,)) * g_link.reshape(w.shape + (3,))
+    valid = (w >= 0) & (w < C)
+    rows = torch.arange(B, device=w.device)[:, None]
+    Rw = R.transpose(0, 1)[rows, w.clamp(0, C - 1)]                   # [B, N, 3, 3]
+    d = torch.where(valid[..., None], (q[..., :, None] * Rw).sum(-2), 0)
+    bad_R = (~torch.isfinite(R)).any(-2).transpose(0, 1).to(torch.int64)  # [B, C, 3]
+    others_R = bad_R.sum(1)[:, None, :] - torch.where(valid[..., None], bad_R[rows, w.clamp(
+        0, C - 1)], 0)
+    others = C - valid.to(torch.int64)
+    bad = ((others > 0) & (~torch.isfinite(q)).any(-1))[..., None] | (others_R > 0)
+    return torch.where(bad, float("nan"), d).sum(0)
+
+
+def _tile_union_cotangents_cuda(win, g_link, ct_val, ct_g, points, n_children):
+    """:func:`tile_union_cotangents` by the backward kernels."""
+    B = win.shape[0]
+    N = win.numel() // B if B else 0
+    named = {"g_link": (g_link, (B, N, 3)), "ct_val": (ct_val, (B, N)),
+             "ct_g": (ct_g, (B, N, 3)), "points": (points, (N, 3))}
+    if win.dtype != torch.int64:
+        raise TypeError(f"win must be int64, got {win.dtype}")
+    for name, (t, shape) in named.items():
+        if t.numel() != math.prod(shape):
+            raise ValueError(f"{name} must hold {shape} elements, got {tuple(t.shape)}")
+        if t.device != win.device:
+            raise ValueError(f"{name} lies on {t.device}, win on {win.device}")
+    if max(B, n_children) >= 2 ** 31:
+        raise ValueError("B and the number of children must each fit 32 bits")
+    lib, _, _ = _entry()
+    dev = win.device
+    d_T = torch.empty((n_children, B, 4, 4), dtype=torch.float32, device=dev)
+    d_Rb = torch.empty((n_children, B, 3, 3), dtype=torch.float32, device=dev)
+    if n_children and B:
+        scratch = torch.empty(lib.pvt_tile_union_backward_scratch(n_children, B, N),
+                              dtype=torch.float32, device=dev)
+        args = [t.contiguous() for t in (win, g_link, ct_val, ct_g, points)]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            code = getattr(lib, _BACKWARD)(*(t.data_ptr() for t in args), n_children, B, N,
+                                           scratch.data_ptr(), d_T.data_ptr(),
+                                           d_Rb.data_ptr(), stream)
+            cuda_build.check_launch(lib, code, _BACKWARD)
+        profiling.count("kernel.tile_union_backward")
+    return d_T, d_Rb
+
+
+def tile_union_cotangents(win: torch.Tensor, g_link: torch.Tensor, ct_val: torch.Tensor,
+                          ct_g: torch.Tensor, points: torch.Tensor, n_children: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-tile union's backward: ``(d_T [C, B, 4, 4], d_Rb [C, B, 3,
+    3])``, the cotangents of the children's ``obj_to_link`` rows ``T`` and
+    link -> object rotations ``Rb``, from the winners ``win [B, FS, seg]``
+    (in ``[0, C)``), their link-frame gradients ``g_link [B, FS, seg, 3]``,
+    the cotangents ``ct_val [B, FS, seg]`` of the values and ``ct_g [B, FS,
+    seg, 3]`` of the object-frame gradients, and the world points ``points
+    [FS * seg, 3]``.  Each point adds into its winner's ``(b, c)``: ``d_T[o,
+    j] += ct_val * g_link[o] * points[j]`` (j < 3), ``d_T[o, 3] += ct_val *
+    g_link[o]``, ``d_Rb[o, i] += ct_g[o] * g_link[i]``; the other children's
+    terms are 0, or NaN where a factor is not finite (the dense formula's
+    0/1 mask times inf).  The kernels for float32 CUDA tensors, else the
+    plain version; the two sum in different orders."""
+    if win.device.type == "cuda" and all(t.dtype == torch.float32
+                                         for t in (g_link, ct_val, ct_g, points)):
+        return _tile_union_cotangents_cuda(win, g_link, ct_val, ct_g, points, n_children)
+    return tile_union_cotangents_plain(win, g_link, ct_val, ct_g, points, n_children)

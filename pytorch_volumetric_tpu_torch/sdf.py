@@ -1042,25 +1042,30 @@ def _coherent_union_tile_op_cpu(pts_c, Rb, lo, inv_res, n, strides, bstrides, bb
     return _union_tile_eval(tables, capacity, pts_c, Rb)
 
 
-def _tile_winner_lookup(pts_c: torch.Tensor, Rb: torch.Tensor, evaluate):
+def _tile_winner_lookup(pts_c: torch.Tensor, Rb: torch.Tensor, points: torch.Tensor,
+                        T: torch.Tensor, evaluate):
     """``evaluate(pts_c, Rb) -> (val, g_obj, win, g_link)`` of a per-tile
     winner union on the detached inputs, then its straight-through
     derivatives attached (:func:`ops.straight_through.tile_winner_straight_through`):
     d val / d pts_c[ci] = (win == ci) * the winner's link-frame gradient,
-    and the gradient output's w.r.t. ``Rb``.  Returns ``(val, g_obj,
-    win)``."""
+    taken back to the world ``points [F, 3]`` and the children's
+    obj_to_link rows ``T [C, B, 4, 4]`` (``pts_c`` is ``T @ points``), and
+    the gradient output's w.r.t. ``Rb``.  Returns ``(val, g_obj, win)``."""
     val, g_obj, win, g_link = evaluate(pts_c.detach(), Rb.detach())
     if torch.is_grad_enabled():
-        val, g_obj = tile_winner_straight_through(val, g_obj, win, g_link, pts_c, Rb)
+        val, g_obj = tile_winner_straight_through(val, g_obj, win, g_link, points, T, Rb)
     return val, g_obj, win
 
 
 def _coherent_union_lookup_tile(tables: Sequence[_CoherentTables], pts_c: torch.Tensor,
-                                Rb: torch.Tensor, residual_frac: float = RESIDUAL_FRAC):
+                                Rb: torch.Tensor, points: torch.Tensor, T: torch.Tensor,
+                                residual_frac: float = RESIDUAL_FRAC):
     """Nearest brick union with per-TILE winner gradients: ``pts_c [C, B,
-    FS, seg, 3]``, ``Rb [C, B, 3, 3]`` (link -> object rotations) -> ``(val
-    [B, FS, seg], g_obj [B, FS, seg, 3], win [B, FS, seg])`` with ``g_obj``
-    in the OBJECT frame.
+    FS, seg, 3]`` (``T @ points``: ``T [C, B, 4, 4]`` the children's
+    obj_to_link rows, ``points [FS * seg, 3]``, which take the derivative),
+    ``Rb [C, B, 3, 3]`` (link -> object rotations) -> ``(val [B, FS, seg],
+    g_obj [B, FS, seg, 3], win [B, FS, seg])`` with ``g_obj`` in the OBJECT
+    frame.
 
     Values come from the value bricks.  Gradients: three candidate children
     per tile (its first and last distinct in-bounds winners, then the
@@ -1074,7 +1079,8 @@ def _coherent_union_lookup_tile(tables: Sequence[_CoherentTables], pts_c: torch.
     on the card, :func:`_union_tile_eval` on the CPU)."""
     tables = tuple(tables)
     cap = residual_capacity(pts_c.shape[1] * pts_c.shape[2], residual_frac)
-    return _tile_winner_lookup(pts_c, Rb, lambda p, R: coherent_union_tile(tables, p, R, cap))
+    return _tile_winner_lookup(pts_c, Rb, points, T,
+                               lambda p, R: coherent_union_tile(tables, p, R, cap))
 
 
 def _trilinear_union_values(tables: Sequence[_CoherentTables], pts_c: torch.Tensor):
@@ -1127,6 +1133,8 @@ def _union_tile_tri_eval(tables, residual_frac, pts_c, Rb=None):
 
 def _coherent_union_lookup_tile_tri(tables: Sequence[_CoherentTables], pts_c: torch.Tensor,
                                     Rb: Optional[torch.Tensor] = None,
+                                    points: Optional[torch.Tensor] = None,
+                                    T: Optional[torch.Tensor] = None,
                                     residual_frac: float = RESIDUAL_FRAC):
     """Multi-child TRILINEAR union on the per-tile winner design of
     :func:`_coherent_union_lookup_tile`: values lerp the 8 corners of each
@@ -1135,12 +1143,13 @@ def _coherent_union_lookup_tile_tri(tables: Sequence[_CoherentTables], pts_c: to
     candidate lerps its winner's gradient brick in the link frame, then
     rotates it with the winner's rotation; middle tiles take a
     residual lane of exact 8-corner winner rows, NaN beyond its capacity.
+    ``points`` and ``T`` as for :func:`_coherent_union_lookup_tile`.
     Without ``Rb``: just ``val [B, FS, seg]`` (no gradient; callers
     detach)."""
     evaluate = partial(_union_tile_tri_eval, tuple(tables), residual_frac)
     if Rb is None:
         return evaluate(pts_c)
-    return _tile_winner_lookup(pts_c, Rb, evaluate)
+    return _tile_winner_lookup(pts_c, Rb, points, T, evaluate)
 
 
 def _single_brick_lookup(bricks4, p, t):
@@ -1235,6 +1244,7 @@ def _compose_coherent(children, obj_to_link, link_to_obj, batch, points, fast_ta
     FS = F // seg
     # tile layout [S, B, FS, seg, 3]: a view of compose_query's [S*B, F, 3]
     pts_all = tfm.transform_points(obj_to_link, points).reshape(S, batch, FS, seg, 3)
+    T_all = obj_to_link.reshape(S, batch, 4, 4)
     R_back = link_to_obj.reshape(S, batch, 4, 4)[..., :3, :3]
 
     def out(v, g=None):
@@ -1291,7 +1301,8 @@ def _compose_coherent(children, obj_to_link, link_to_obj, batch, points, fast_ta
             best_v = _coherent_union_lookup_tile_tri(tables, of(pts_all, tri_u))
         else:
             best_v, best_g, win = _coherent_union_lookup_tile_tri(
-                tables, of(pts_all, tri_u), of(R_back, tri_u), residual_frac=residual_frac)
+                tables, of(pts_all, tri_u), of(R_back, tri_u), points, of(T_all, tri_u),
+                residual_frac=residual_frac)
             best_i = child_index(win, tri_u)
     if fast:
         tables = tables_for(fast, lambda s: s._coherent_tables(
@@ -1311,7 +1322,8 @@ def _compose_coherent(children, obj_to_link, link_to_obj, batch, points, fast_ta
         elif all(t.gbricks is not None for t in tables):
             profiling.count("path.coherent_tile_union")
             best_v, best_g, win = _coherent_union_lookup_tile(
-                tables, pts_fast, of(R_back, fast), residual_frac=residual_frac)
+                tables, pts_fast, of(R_back, fast), points, of(T_all, fast),
+                residual_frac=residual_frac)
             best_i = child_index(win, fast)
         else:
             profiling.count("path.coherent_point_union")

@@ -533,3 +533,95 @@ def test_coherent_union_op_fake_shapes_match_card(card, tmp_path):
             (pts_c, Rb if not values_only else pts_c.new_empty(0),
              *cu.op_args(tables, values_only), 32, values_only),
             test_utils=("test_schema", "test_faketensor"))
+
+
+def _backward_case(device, B, N, C, seed, plant):
+    """The tile union backward's inputs at ``B`` configurations x ``N``
+    points of ``C`` children: winners in runs of ~1,000 points (as a
+    coherent grid's are), every tenth point's drawn at random, gradients,
+    cotangents and points N(0, 1), and NaN, +inf and -inf planted in each
+    of g_link, ct_val and ct_g at configuration 0 (``plant="b0"``), or in
+    the points (``"points"``: every configuration's)."""
+    rng = np.random.default_rng(seed)
+    win = (np.arange(N)[None] // 1000 + np.arange(B)[:, None]) % C
+    scatter = rng.random((B, N)) < 0.1
+    win[scatter] = rng.integers(0, C, int(scatter.sum()))
+    g_link, ct_g = (rng.normal(size=(B, N, 3)).astype(np.float32) for _ in range(2))
+    ct_val = rng.normal(size=(B, N)).astype(np.float32)
+    points = rng.normal(size=(N, 3)).astype(np.float32)
+    for a in ((g_link[0], ct_val[0], ct_g[0]) if plant == "b0" else (points,)):
+        flat = a.reshape(-1)
+        for k, x in zip(rng.choice(flat.size, 3, replace=False), (np.nan, np.inf, -np.inf)):
+            flat[k] = x
+    return tuple(torch.as_tensor(a, device=device) for a in (win, g_link, ct_val, ct_g, points))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plant", ["b0", "points"])
+@pytest.mark.parametrize("B, N", [(200, 15_504), (25, 1_061_208)])
+def test_tile_union_backward_kernel_matches_plain_on_card(card, B, N, plant):
+    """The tile union's backward kernels (``csrc/coherent_union.cu``) at
+    the headline (200 x 15,504) and north-star chunk (25 x 1,061,208)
+    shapes against the plain version in float64: NaN and +-inf where it
+    has them, else within 2e-5 of the terms' absolute sum (each term sees
+    at most ~120 float32 additions on its way, 120 * 2^-24 = 7.2e-6, plus
+    two roundings of its product); two calls equal bit for bit; one launch
+    counted a call."""
+    from pytorch_volumetric_tpu_torch.ops import coherent_union as cu
+    C = 8
+    win, g_link, ct_val, ct_g, points = _backward_case(card, B, N, C, B, plant)
+    before = COUNTERS["kernel.tile_union_backward"]
+    out = cu.tile_union_cotangents(win, g_link, ct_val, ct_g, points, C)
+    again = cu.tile_union_cotangents(win, g_link, ct_val, ct_g, points, C)
+    torch.cuda.synchronize()
+    assert COUNTERS["kernel.tile_union_backward"] == before + 2
+    f64 = [t.double() for t in (g_link, ct_val, ct_g, points)]
+    ref = cu.tile_union_cotangents_plain(win, *f64, C)
+    mag = cu.tile_union_cotangents_plain(win, *(t.abs() for t in f64), C)
+    for name, a, b, r, m in zip(("d_T", "d_Rb"), out, again, ref, mag):
+        assert _same_bits(a, b), name
+        a = a.double()
+        assert torch.equal(torch.isnan(a), torch.isnan(r)), name
+        inf = torch.isinf(r)
+        assert torch.equal(a[inf], r[inf]), name
+        ok = ~torch.isnan(r) & ~inf
+        assert ok.any(), name
+        assert ((a[ok] - r[ok]).abs() <= 2e-5 * m[ok]).all(), name
+    assert torch.isnan(ref[0]).any()
+
+
+@pytest.mark.cuda
+def test_tile_union_backward_one_launch_a_differentiated_call(card, tmp_path, monkeypatch):
+    """A differentiated coherent query over a union of four cached spheres
+    launches the backward kernels once, and its d/d obj_to_link equals the
+    plain version's within 2e-5 of the largest entry (float32 sums in
+    other orders)."""
+    from pytorch_volumetric_tpu_torch import sdf as tsdf
+    from pytorch_volumetric_tpu_torch import transforms as tfm
+    from pytorch_volumetric_tpu_torch.ops import coherent_union as cu
+    from pytorch_volumetric_tpu_torch.ops import straight_through as st
+    C, B = 4, 3
+    children = [pt.CachedSDF(f"u{i}", 0.04, np.array([[-0.5, 0.5]] * 3),
+                             pt.SphereSDF(0.02, device=card),
+                             cache_path=str(tmp_path / "union.npz")) for i in range(C)]
+    pts, _, seg = pt.get_coherent_tile_points(0.02, np.array([[-0.12, 0.12]] * 3),
+                                              cache_resolution=0.04, device=card)
+    rng = np.random.default_rng(3)
+    m = np.tile(np.eye(4, dtype=np.float32), (C * B, 1, 1))
+    ang = 2 * np.pi * np.repeat(np.arange(C), B) / C
+    m[:, 0, 3], m[:, 1, 3] = 0.03 * np.cos(ang), 0.03 * np.sin(ang)
+    m[:, :3, 3] += rng.normal(scale=0.005, size=(C * B, 3))
+    m = torch.as_tensor(m, device=card).requires_grad_()
+
+    def d_m():
+        v, g = tsdf.compose_query_coherent(children, m, tfm.invert_tf(m), B, pts, seg=seg)
+        return torch.autograd.grad(v.sum() + g.sum(), m)[0]
+
+    before = COUNTERS["kernel.tile_union_backward"]
+    got = d_m()
+    torch.cuda.synchronize()
+    assert COUNTERS["kernel.tile_union_backward"] == before + 1
+    monkeypatch.setattr(st, "tile_union_cotangents", cu.tile_union_cotangents_plain)
+    want = d_m()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 2e-5 * want.abs().max()

@@ -268,7 +268,7 @@ def test_straight_through_ops_pass_opcheck():
              (winner_straight_through, (t(2, 4, 5), t(2, 4, 5, 3), win,
                                         t(3, 2, 4, 5, 3, grad=True))),
              (tile_winner_straight_through, (t(2, 4, 5), t(2, 4, 5, 3), win, t(2, 4, 5, 3),
-                                             t(3, 2, 4, 5, 3, grad=True),
+                                             t(20, 3, grad=True), t(3, 2, 4, 4, grad=True),
                                              t(3, 2, 3, 3, grad=True)))]
     for op, args in cases:
         torch.library.opcheck(op, args, test_utils=("test_schema", "test_faketensor",
