@@ -609,7 +609,7 @@ def union_inputs(robot, ft, q, pts, seg):
     from pytorch_volumetric_tpu_torch import sdf as tsdf
     from pytorch_volumetric_tpu_torch import transforms as tfm
     children = tuple(robot.sdf.sdfs)
-    fast = tsdf._coherent_classify(children)[0]
+    fast = tsdf._coherent_plan(children).bricks
     S, B, F = len(children), q.shape[0], pts.shape[0]
     with torch.no_grad():
         m, m_inv = robot._link_transforms(q)
@@ -832,7 +832,7 @@ def union_cases(device, tmp, n_configs=3, n_tiles=96):
                                     cache_path=os.path.join(tmp, "union_cases.npz")))
     cases = []
     for C in (2, 4, 8):
-        tables = tuple(s._coherent_tables(with_gradonly_bricks=True) for s in spheres[:C])
+        tables = pt.sdf.coherent_fast_tables(spheres[:C])
         ang = 2 * np.pi * np.arange(C) / C + 0.3
         shift = np.stack([0.012 * np.cos(ang), 0.012 * np.sin(ang), np.zeros(C)], 1)
         for seg in UNION_SEGS:
@@ -996,8 +996,7 @@ def phase_coherent(device, arm_dir, tmp, card, generic_ms, n_configs=N_CONFIGS,
         f"coherent_union_tile {union_launches}")
 
     children = tuple(robot.sdf.sdfs)
-    fast, _, generic = tsdf._coherent_classify(children)
-    min_res = tsdf.coherent_min_cache_resolution(children)
+    _, fast, generic, min_res = tsdf._coherent_plan(children)
     pts, take, seg = pt.get_coherent_tile_points(query_res, QUERY_RANGE, cache_resolution=min_res,
                                                  device=device)
     tables = tsdf.coherent_fast_tables(children)

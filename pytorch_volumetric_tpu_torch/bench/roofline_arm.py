@@ -228,7 +228,8 @@ def run(device, directory: str, chunk: int = 25, points_side: int = 100, reps: i
                                   cache_path or os.path.join(directory, "sdf_cache.npz"),
                                   resolution=CACHE_RES)
     children = tuple(robot.sdf.sdfs)
-    if not all(tsdf._is_coherent_fast_child(c) for c in children) or len(children) < 4:
+    plan = tsdf._coherent_plan(children)
+    if plan.route != "tile_union" or plan.generic or len(children) < 4:
         raise ValueError("the roofline stages need a union of nearest cached links")
     pts, take_idx, seg = ns.northstar_points(points_side, CACHE_RES, device,
                                              res=CACHE_RES / 2)

@@ -29,6 +29,14 @@ from pytorch_volumetric_tpu_torch.voxel import (
 logger = logging.getLogger(__name__)
 
 
+class _GridLayout(typing.NamedTuple):
+    """A grid of :meth:`RobotSDF.query_grid` as it is queried."""
+    pts: torch.Tensor                   # [P, 3] the points queried
+    take: typing.Optional[torch.Tensor]  # [n1 * n2 * n3] un-tiling index; None: raster
+    seg: typing.Optional[int]           # points a tile
+    shape: typing.Tuple[int, ...]       # (n1, n2, n3)
+
+
 class RobotSDF(sdf.ObjectFrameSDF):
     """SDF of an articulated robot conditioned on a joint configuration."""
 
@@ -46,7 +54,7 @@ class RobotSDF(sdf.ObjectFrameSDF):
         self.sdf: typing.Optional[sdf.ComposedSDF] = None
         self.sdf_to_link_name = []
         self.configuration_batch = None
-        # query_grid's tiled points per grid (None: the generic path), see query_grid
+        # query_grid's points per grid, see _grid_layout
         self._grid_layouts = {}
 
         sdfs = []
@@ -193,52 +201,70 @@ class RobotSDF(sdf.ObjectFrameSDF):
             or ``val`` alone with ``values_only``
         """
         with profiling.span("pvt.query_grid"):
+            layout = self._grid_layout(query_range, resolution)
+            q, q_flat = self._flat_configs(joint_config)
+            out_shape = q.shape[:-1] + layout.shape
+            if layout.take is None:
+                profiling.count("path.grid_fallback")
+                out = self.query(joint_config, layout.pts)
+                if values_only:
+                    out = out[0].detach()
+            else:
+                profiling.count("path.grid_coherent")
+                children = tuple(self.sdf.sdfs)
+                # the tables are fetched on every call, so a table swap takes effect
+                out = self._grid_query_with(q_flat, layout, sdf.coherent_fast_tables(children),
+                                            sdf.coherent_generic_aux(children), values_only)
+            if values_only:
+                return out.reshape(out_shape)
+            vv, gg = out
+            return vv.reshape(out_shape), gg.reshape(out_shape + (3,))
+
+    def _grid_layout(self, query_range, resolution) -> _GridLayout:
+        """The points :meth:`query_grid` runs over ``query_range`` at
+        ``resolution``, built once per grid and kept on the device (a
+        host-to-device copy on every call would wait for the card): the
+        tiles of the brick path with their un-tiling index, or, when a
+        cached link is finer than twice the grid's resolution (no tile fits
+        its bricks), the grid's own points with ``take`` None."""
+        min_res = sdf.coherent_min_cache_resolution(tuple(self.sdf.sdfs))
+        key = (float(resolution), np.asarray(query_range, dtype=np.float64).tobytes(), min_res)
+        if key not in self._grid_layouts:
             coords, _ = get_coordinates_and_points_in_grid(resolution, query_range,
                                                            device="cpu", get_points=False)
-            grid_shape = tuple(len(c) for c in coords)
-            q, q_flat = self._flat_configs(joint_config)
-            out_shape = q.shape[:-1] + grid_shape
-            children = tuple(self.sdf.sdfs)
-            min_cache_res = sdf.coherent_min_cache_resolution(children)
-            key = (float(resolution), np.asarray(query_range, dtype=np.float64).tobytes(),
-                   min_cache_res)
-            if key not in self._grid_layouts:
-                if min_cache_res is not None and 2.0 * resolution > min_cache_res:
-                    logger.info(
-                        "query_grid: sweep resolution %.4g too coarse for cached "
-                        "link resolution %.4g (needs <= half); using the generic "
-                        "query path", resolution, min_cache_res)
-                    self._grid_layouts[key] = None
-                else:
-                    # built once per grid: the points and the un-tiling index
-                    # stay on the device (a host-to-device copy on every call
-                    # would wait for the card)
-                    pts, take_idx, seg = get_coherent_tile_points(
-                        resolution, query_range, cache_resolution=min_cache_res,
-                        device=self.device)
-                    self._grid_layouts[key] = (
-                        pts, torch.as_tensor(take_idx, device=self.device), seg)
-            layout = self._grid_layouts[key]
-            if layout is None:
-                profiling.count("path.grid_fallback")
-                _, pts_g = get_coordinates_and_points_in_grid(resolution, query_range,
-                                                              device=self.device)
-                vv, gg = self.query(joint_config, pts_g)
-                if values_only:
-                    return vv.detach().reshape(out_shape)
-                return vv.reshape(out_shape), gg.reshape(out_shape + (3,))
+            shape = tuple(len(c) for c in coords)
+            if min_res is not None and 2.0 * resolution > min_res:
+                logger.info(
+                    "query_grid: sweep resolution %.4g too coarse for cached link "
+                    "resolution %.4g (needs <= half); the grid takes the generic "
+                    "query path", resolution, min_res)
+                _, pts = get_coordinates_and_points_in_grid(resolution, query_range,
+                                                            device=self.device)
+                layout = _GridLayout(pts, None, None, shape)
+            else:
+                pts, take_idx, seg = get_coherent_tile_points(
+                    resolution, query_range, cache_resolution=min_res, device=self.device)
+                layout = _GridLayout(pts, torch.as_tensor(take_idx, device=self.device),
+                                     seg, shape)
+            self._grid_layouts[key] = layout
+        return self._grid_layouts[key]
 
-            profiling.count("path.grid_coherent")
-            pts, take, seg = layout
-            m, m_inv = self._link_transforms(q_flat)
-            out = sdf.compose_query_coherent(
-                children, m, m_inv, q_flat.shape[0], pts,
-                fast_tables=sdf.coherent_fast_tables(children), values_only=values_only,
-                generic_aux=sdf.coherent_generic_aux(children), seg=seg)
-            if values_only:
-                return out[:, take].reshape(out_shape)
-            vv, gg = out
-            return vv[:, take].reshape(out_shape), gg[:, take].reshape(out_shape + (3,))
+    def _grid_query_with(self, q_flat, layout: _GridLayout, fast_tables, generic_aux,
+                         values_only: bool):
+        """The brick path of :meth:`query_grid` on a tiled ``layout`` with
+        the given tables: ``q_flat [A, M]`` -> ``(val [A, n1, n2, n3], grad
+        [..., 3])``, or ``val`` alone with ``values_only``.
+        ``utils.serving`` exports it with the layout and tables as inputs."""
+        m, m_inv = self._link_transforms(q_flat)
+        out = sdf.compose_query_coherent(
+            tuple(self.sdf.sdfs), m, m_inv, q_flat.shape[0], layout.pts,
+            fast_tables=fast_tables, values_only=values_only, generic_aux=generic_aux,
+            seg=layout.seg)
+        shape = (q_flat.shape[0],) + layout.shape
+        if values_only:
+            return out[:, layout.take].reshape(shape)
+        vv, gg = out
+        return vv[:, layout.take].reshape(shape), gg[:, layout.take].reshape(shape + (3,))
 
     # -- geometry ----------------------------------------------------------------
     def surface_bounding_box(self, **kwargs):

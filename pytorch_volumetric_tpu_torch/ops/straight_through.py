@@ -12,12 +12,11 @@ copy keeps every bit of the value (``inf``, ``-0.0``), which an identity
 such as ``val + ((pts - pts.detach()) * grad).sum(-1)`` would not.
 
 - :func:`straight_through`: d val / d pts = grad (every child lookup);
-- :func:`winner_straight_through`: the per-point winner union of the
+- :func:`tile_winner_straight_through`: the per-tile winner unions of the
   coherent path, d val / d pts_c[ci] = (win == ci) * the winner's gradient;
-- :func:`tile_winner_straight_through`: the per-tile winner unions, which
-  also carry the object-frame gradient's derivative w.r.t. the rotations,
-  and take the link-frame points' derivative straight back to the world
-  points and the transforms that made them.
+  they also carry the object-frame gradient's derivative w.r.t. the
+  rotations, and take the link-frame points' derivative straight back to
+  the world points and the transforms that made them.
 """
 
 from __future__ import annotations
@@ -54,40 +53,6 @@ def _straight_through_backward(ctx, ct_val):
 
 straight_through.register_autograd(_straight_through_backward,
                                    setup_context=_straight_through_setup)
-
-
-@torch.library.custom_op("pvt::winner_straight_through", mutates_args=())
-def winner_straight_through(val: torch.Tensor, g_link: torch.Tensor, win: torch.Tensor,
-                            pts_c: torch.Tensor) -> torch.Tensor:
-    """A copy of ``val [B, FS, seg]`` with d val / d pts_c[ci] = (win ==
-    ci) * ``g_link``, for ``pts_c [C, B, FS, seg, 3]``."""
-    return val.clone()
-
-
-@winner_straight_through.register_fake
-def _winner_straight_through_fake(val, g_link, win, pts_c):
-    return torch.empty_like(val)
-
-
-def _winner_mask(win: torch.Tensor, n_children: int, dtype) -> torch.Tensor:
-    """``[C, B, FS, seg, 1]``: 1 where child ``ci`` is the point's winner."""
-    ci = torch.arange(n_children, device=win.device).view(-1, 1, 1, 1)
-    return (win[None] == ci).to(dtype)[..., None]
-
-
-def _winner_setup(ctx, inputs, output):
-    _, g_link, win, pts_c = inputs
-    ctx.n_children = pts_c.shape[0]
-    ctx.save_for_backward(g_link, win)
-
-
-def _winner_backward(ctx, ct_val):
-    g_link, win = ctx.saved_tensors
-    oh = _winner_mask(win, ctx.n_children, g_link.dtype)[..., 0]
-    return None, None, None, oh[..., None] * (ct_val[..., None] * g_link)[None]
-
-
-winner_straight_through.register_autograd(_winner_backward, setup_context=_winner_setup)
 
 
 @torch.library.custom_op("pvt::tile_winner_straight_through", mutates_args=())

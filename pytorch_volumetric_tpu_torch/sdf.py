@@ -36,7 +36,7 @@ from pytorch_volumetric_tpu_torch.ops.coherent_union import (
     FIELDS as _UNION_FIELDS, coherent_union_tile, coherent_union_tile_op)
 from pytorch_volumetric_tpu_torch.ops.point_triangle import signed_closest_query
 from pytorch_volumetric_tpu_torch.ops.straight_through import (
-    straight_through, tile_winner_straight_through, winner_straight_through)
+    straight_through, tile_winner_straight_through)
 from pytorch_volumetric_tpu_torch.utils.batching import (
     as_float_tensor, float_keys, resolve_device)
 from pytorch_volumetric_tpu_torch.utils import profiling
@@ -619,45 +619,53 @@ class _CoherentTables(NamedTuple):
     tgbricks: Optional[torch.Tensor] = None
 
 
-def _is_coherent_fast_child(s) -> bool:
-    """True iff the nearest brick path serves this union child."""
-    return (isinstance(s, CachedSDF)
-            and s.out_of_bounds_strategy == OutOfBoundsStrategy.BOUNDING_BOX
-            and s.interpolation == "nearest")
+class _CoherentPlan(NamedTuple):
+    """How :func:`compose_query_coherent` routes a composition."""
+    route: Optional[str]        # a key of _ROUTE_BRICKS; None: every child generic
+    bricks: Tuple[int, ...]     # the children on the brick route, in child order
+    generic: Tuple[int, ...]    # the children on the generic per-point sub-path
+    min_res: Optional[float]    # the smallest voxel resolution of the brick children
 
 
-def _is_coherent_trilinear_child(s) -> bool:
-    """True iff ``s`` is a trilinear BOUNDING_BOX ``CachedSDF``."""
-    return (isinstance(s, CachedSDF)
-            and s.out_of_bounds_strategy == OutOfBoundsStrategy.BOUNDING_BOX
-            and s.interpolation == "trilinear")
+# Each brick route's CachedSDF._coherent_tables flags, the brick kinds its
+# tables drop (built by an earlier composition on another route) and the
+# gradient bricks its lookup reads.  The only place that chooses brick kinds.
+_ROUTE_BRICKS = {
+    # one trilinear cache: 5x5x5 (value, gradient) bricks
+    "trilinear": (dict(with_tri_bricks=True, with_value_bricks=False), (), "bricks5"),
+    # two or more trilinear caches and no nearest one: the trilinear union
+    "trilinear_union": (dict(with_value_bricks=False, with_tri_value_bricks=True,
+                             with_tri_gradonly_bricks=True), (), "tgbricks"),
+    # one nearest cache: 4x4x4 (value, gradient) bricks
+    "single": (dict(with_grad_bricks=True), ("gbricks",), "bricks4"),
+    # two or more nearest caches: the per-tile winner union
+    "tile_union": (dict(with_gradonly_bricks=True), ("bricks4",), "gbricks"),
+}
 
 
-def _coherent_single_trilinear_child(children):
-    """The lone child iff the composition is one trilinear BOUNDING_BOX
-    ``CachedSDF`` (the 5x5x5 single-child path), else ``None``."""
-    if len(children) == 1 and _is_coherent_trilinear_child(children[0]):
-        return children[0]
-    return None
-
-
-def _coherent_classify(children) -> tuple:
-    """``(fast_idx, tri_idx, generic_idx)``: which children take which path
-    in :func:`compose_query_coherent`.
-
-    - ``fast_idx``: nearest BOUNDING_BOX caches (the 4x4x4 brick union);
-    - ``tri_idx``: trilinear BOUNDING_BOX caches, when there are at least
-      two of them and no nearest fast child (the trilinear union);
-    - ``generic_idx``: everything else (per-point ``raw_query``).
-
-    A composition whose only child is a trilinear cache is routed before
-    this classification (:func:`_coherent_single_trilinear_child`)."""
-    fast = [i for i, s in enumerate(children) if _is_coherent_fast_child(s)]
-    tri = [i for i, s in enumerate(children) if _is_coherent_trilinear_child(s)]
-    if fast or len(tri) < 2:
-        tri = []
-    generic = [i for i in range(len(children)) if i not in fast and i not in tri]
-    return fast, tri, generic
+def _coherent_plan(children: Sequence[ObjectFrameSDF]) -> _CoherentPlan:
+    """The route of :func:`compose_query_coherent` for ``children``.
+    Nearest BOUNDING_BOX caches take the nearest brick route; trilinear
+    ones take the trilinear route when the composition is one of them
+    alone, or two or more with no nearest cache; every other child takes
+    the generic per-point sub-path."""
+    kinds = [s.interpolation if isinstance(s, CachedSDF)
+             and s.out_of_bounds_strategy == OutOfBoundsStrategy.BOUNDING_BOX else None
+             for s in children]
+    bricks = tuple(i for i, k in enumerate(kinds) if k == "nearest")
+    if bricks:
+        route = "single" if len(bricks) == 1 else "tile_union"
+    else:
+        bricks = tuple(i for i, k in enumerate(kinds) if k == "trilinear")
+        if len(children) == 1 and bricks:
+            route = "trilinear"
+        elif len(bricks) >= 2:
+            route = "trilinear_union"
+        else:
+            route, bricks = None, ()
+    generic = tuple(i for i in range(len(children)) if i not in bricks)
+    min_res = min((float(children[i].resolution) for i in bricks), default=None)
+    return _CoherentPlan(route, bricks, generic, min_res)
 
 
 def coherent_fast_tables(children: Sequence[ObjectFrameSDF]):
@@ -667,42 +675,25 @@ def coherent_fast_tables(children: Sequence[ObjectFrameSDF]):
     ``gbricks`` and never ``bricks4`` (stripped if an earlier single-child
     composition built it); the single trilinear child carries ``bricks5``;
     the trilinear union ``tbricks`` and ``tgbricks``."""
-    tri = _coherent_single_trilinear_child(children)
-    if tri is not None:
-        return (tri._coherent_tables(with_tri_bricks=True, with_value_bricks=False),)
-    fast_idx, tri_idx, _ = _coherent_classify(children)
-    if tri_idx:
-        return tuple(children[i]._coherent_tables(
-            with_value_bricks=False, with_tri_value_bricks=True,
-            with_tri_gradonly_bricks=True) for i in tri_idx)
-    single = len(fast_idx) == 1
-    tables = tuple(children[i]._coherent_tables(with_grad_bricks=single,
-                                                with_gradonly_bricks=not single)
-                   for i in fast_idx)
-    if single:
-        return tuple(t._replace(gbricks=None) for t in tables)
-    return tuple(t._replace(bricks4=None) for t in tables)
+    plan = _coherent_plan(children)
+    if plan.route is None:
+        return ()
+    flags, drop, _ = _ROUTE_BRICKS[plan.route]
+    tables = tuple(children[i]._coherent_tables(**flags) for i in plan.bricks)
+    return tuple(t._replace(**dict.fromkeys(drop)) for t in tables) if drop else tables
 
 
 def coherent_min_cache_resolution(children) -> Optional[float]:
     """Smallest voxel resolution among the children that take a brick path
     (``None`` when none does): the ``cache_resolution`` that decides a safe
     tile in :func:`voxel.get_coherent_tile_points`."""
-    tri = _coherent_single_trilinear_child(children)
-    if tri is not None:
-        return float(tri.resolution)
-    fast_idx, tri_idx, _ = _coherent_classify(children)
-    vals = [float(children[i].resolution) for i in fast_idx + tri_idx]
-    return min(vals) if vals else None
+    return _coherent_plan(children).min_res
 
 
 def coherent_generic_aux(children: Sequence[ObjectFrameSDF]):
     """``raw_query_aux`` of the children that take the generic per-point
     sub-path of :func:`compose_query_coherent`, in that order."""
-    if _coherent_single_trilinear_child(children) is not None:
-        return ()
-    _, _, generic = _coherent_classify(children)
-    return tuple(children[i].raw_query_aux() for i in generic)
+    return tuple(children[i].raw_query_aux() for i in _coherent_plan(children).generic)
 
 
 def _coherent_row_bases(tables: Sequence[torch.Tensor]) -> np.ndarray:
@@ -853,27 +844,6 @@ def _coherent_union_values(tables: Sequence[_CoherentTables], pts_c: torch.Tenso
     return coherent_union_tile(tables, pts_c, values_only=True)
 
 
-def _winner_rows_eval(tables, pts_c):
-    v, valid, flat, _, _, g_oob = _nearest_union(tables, pts_c)
-    win, pick = _first_min(v)
-    g = torch.cat([t.vg for t in tables])[pick(flat)][..., 1:4]
-    return pick(v), torch.where(pick(valid)[..., None], g, pick(g_oob)), win
-
-
-def _coherent_union_lookup(tables: Sequence[_CoherentTables], pts_c: torch.Tensor):
-    """Nearest brick union with per-point winner rows: ``pts_c [C, B, FS,
-    seg, 3] -> (val [B, FS, seg], g_link [B, FS, seg, 3], win [B, FS,
-    seg])``.  Values come from the value bricks; the winner's gradient, in
-    its own link frame, from its packed (value, grad) row; ``win`` indexes
-    ``tables``.  Used when the tables carry no gradient bricks.  The
-    straight-through derivative: d val / d pts_c[ci] = (win == ci) * the
-    winner's link-frame gradient."""
-    val, g_link, win = _winner_rows_eval(tuple(tables), pts_c.detach())
-    if torch.is_grad_enabled():
-        val = winner_straight_through(val, g_link, win, pts_c)
-    return val, g_link, win
-
-
 def _tile_candidate_ids(best_i, best_valid, C: int):
     """The per-tile winner candidates: the first and the last distinct
     in-bounds winner of each tile, then the smallest one not yet covered.
@@ -943,25 +913,20 @@ def coherent_middle_tiles(children: Sequence[ObjectFrameSDF], obj_to_link: torch
     or ``None`` when no per-tile union with more than 3 children runs.
     Arguments as :func:`compose_query_coherent`'s; computed without
     gradients."""
-    if _coherent_single_trilinear_child(children) is not None:
-        return None
-    fast, tri_u, _ = _coherent_classify(children)
-    idx = tri_u or fast
-    if len(idx) <= 3:
+    plan = _coherent_plan(children)
+    if plan.route not in ("tile_union", "trilinear_union") or len(plan.bricks) <= 3:
         return None
     tables = fast_tables if fast_tables is not None else coherent_fast_tables(children)
-    if not tri_u and any(t.gbricks is None for t in tables):
-        return None  # the per-point winner rows: no tile candidates
     S, F = len(children), points.shape[0]
     with torch.no_grad():
         pts_all = tfm.transform_points(obj_to_link, points).reshape(S, batch, F // seg, seg, 3)
-        pts_c = torch.stack([pts_all[i] for i in idx])
-        if tri_u:
+        pts_c = torch.stack([pts_all[i] for i in plan.bricks])
+        if plan.route == "trilinear_union":
             v, (valid, *_) = _trilinear_union_values(tables, pts_c)
         else:
             v, valid = _nearest_union(tables, pts_c)[:2]
         win, pick = _first_min(v)
-        return _tile_candidate_ids(win, pick(valid), len(idx))[1]
+        return _tile_candidate_ids(win, pick(valid), len(plan.bricks))[1]
 
 
 def _scatter_residual(res: torch.Tensor, idx: torch.Tensor, B: int, FS: int):
@@ -1209,16 +1174,15 @@ def compose_query_coherent(children: Sequence[ObjectFrameSDF],
 
     Nearest BOUNDING_BOX caches take the brick union: one child reads
     (value, gradient) bricks (:func:`_coherent_single_lookup`), several take
-    the per-tile winner union (:func:`_coherent_union_lookup_tile`), or per-
-    point winner rows when ``fast_tables`` carry no gradient bricks
-    (:func:`_coherent_union_lookup`).  A lone trilinear BOUNDING_BOX cache
-    takes the 5x5x5 path, two or more with no nearest one the trilinear
-    union.  Other children (primitives, meshes, other caches) take the
-    generic per-point sub-path, merged last with ties broken on the
-    original child index, as in ``compose_query``.
+    the per-tile winner union (:func:`_coherent_union_lookup_tile`).  A
+    lone trilinear BOUNDING_BOX cache takes the 5x5x5 path, two or more
+    with no nearest one the trilinear union.  Other children (primitives,
+    meshes, other caches) take the generic per-point sub-path, merged last
+    with ties broken on the original child index, as in ``compose_query``.
 
     ``fast_tables``: :func:`coherent_fast_tables` of the children (built
-    when omitted); ``generic_aux``: :func:`coherent_generic_aux`.
+    when omitted); tables without their route's gradient bricks raise
+    ``ValueError``.  ``generic_aux``: :func:`coherent_generic_aux`.
     ``residual_frac``: capacity of the per-tile union's residual lane as a
     fraction of all (configuration, tile) pairs; middle tiles beyond it get
     NaN gradients.  ``values_only=True`` returns just ``val [B, F]``,
@@ -1227,8 +1191,8 @@ def compose_query_coherent(children: Sequence[ObjectFrameSDF],
     Counts the branches it takes in ``utils.profiling.COUNTERS``:
     ``path.coherent_trilinear`` (the lone trilinear cache or the trilinear
     union), ``path.coherent_single``, ``path.coherent_tile_union`` (the
-    values-only union too), ``path.coherent_point_union`` and
-    ``path.coherent_generic``, one each per call that takes it."""
+    values-only union too) and ``path.coherent_generic``, one each per call
+    that takes it."""
     grad_mode = torch.no_grad() if values_only else contextlib.nullcontext()
     with profiling.span("pvt.lookup"), grad_mode:
         return _compose_coherent(children, obj_to_link, link_to_obj, batch, points,
@@ -1237,32 +1201,24 @@ def compose_query_coherent(children: Sequence[ObjectFrameSDF],
 
 def _compose_coherent(children, obj_to_link, link_to_obj, batch, points, fast_tables,
                       values_only, generic_aux, seg, residual_frac):
+    route, idx, generic, _ = _coherent_plan(children)
     S = len(children)
     F = points.shape[0]
     if F % seg:
         raise ValueError(f"points count {F} must be a multiple of seg={seg}")
+    tables = coherent_fast_tables(children) if fast_tables is None else fast_tables
+    if len(tables) != len(idx):
+        raise ValueError(f"fast_tables holds {len(tables)} table sets but "
+                         f"{len(idx)} children take a brick path")
+    need = _ROUTE_BRICKS[route][2] if route is not None else None
+    if need is not None and any(getattr(t, need) is None for t in tables):
+        raise ValueError(f"fast_tables lack {need}, the gradient bricks of the {route} "
+                         "route; pass coherent_fast_tables(children)")
     FS = F // seg
     # tile layout [S, B, FS, seg, 3]: a view of compose_query's [S*B, F, 3]
     pts_all = tfm.transform_points(obj_to_link, points).reshape(S, batch, FS, seg, 3)
     T_all = obj_to_link.reshape(S, batch, 4, 4)
     R_back = link_to_obj.reshape(S, batch, 4, 4)[..., :3, :3]
-
-    def out(v, g=None):
-        v = v.reshape(batch, F)
-        return v if values_only else (v, g.reshape(batch, F, 3))
-
-    tri_child = _coherent_single_trilinear_child(children)
-    if tri_child is not None:
-        profiling.count("path.coherent_trilinear")
-        t = (fast_tables[0] if fast_tables is not None and len(fast_tables) == 1
-             and fast_tables[0].bricks5 is not None
-             else tri_child._coherent_tables(with_tri_bricks=True, with_value_bricks=False))
-        if values_only:
-            return out(_coherent_single_trilinear_lookup(t, pts_all[0], values_only=True))
-        val, g_link = _coherent_single_trilinear_lookup(t, pts_all[0])
-        return out(val, tfm.rotate_vectors(R_back[0][:, None], g_link))
-
-    fast, tri_u, generic = _coherent_classify(children)
     if generic_aux is None:
         generic_aux = tuple(children[i].raw_query_aux() for i in generic)
 
@@ -1272,64 +1228,50 @@ def _compose_coherent(children, obj_to_link, link_to_obj, batch, points, fast_ta
             return children[i].raw_query(pts_flat)
         return children[i].raw_query_with(generic_aux[k], pts_flat)
 
-    def of(x, idx):
-        # the children idx of a per-child tensor (every child: x itself)
+    def of(x):
+        # the brick children's rows of a per-child tensor (every child: x itself)
         return x if len(idx) == S else torch.stack([x[i] for i in idx])
 
-    def child_index(win, idx):
+    def child_index(win):
         # the winners' original child indices (no host-to-device copy)
         out = torch.zeros_like(win)
         for ci, i in enumerate(idx):
             out = torch.where(win == ci, i, out)
         return out
 
-    def tables_for(idx, build):
-        if fast_tables is None:
-            return [build(children[i]) for i in idx]
-        if len(fast_tables) != len(idx):
-            raise ValueError(f"fast_tables holds {len(fast_tables)} table sets but "
-                             f"{len(idx)} children take a brick path")
-        return list(fast_tables)
-
     best_v = best_g = best_i = None
-    if tri_u:
+    if route == "trilinear":
         profiling.count("path.coherent_trilinear")
-        tables = tables_for(tri_u, lambda s: s._coherent_tables(
-            with_value_bricks=False, with_tri_value_bricks=True,
-            with_tri_gradonly_bricks=True))
         if values_only:
-            best_v = _coherent_union_lookup_tile_tri(tables, of(pts_all, tri_u))
+            best_v = _coherent_single_trilinear_lookup(tables[0], pts_all[0], values_only=True)
+        else:
+            best_v, g_link = _coherent_single_trilinear_lookup(tables[0], pts_all[0])
+            best_g = tfm.rotate_vectors(R_back[0][:, None], g_link)
+    elif route == "trilinear_union":
+        profiling.count("path.coherent_trilinear")
+        if values_only:
+            best_v = _coherent_union_lookup_tile_tri(tables, of(pts_all))
         else:
             best_v, best_g, win = _coherent_union_lookup_tile_tri(
-                tables, of(pts_all, tri_u), of(R_back, tri_u), points, of(T_all, tri_u),
+                tables, of(pts_all), of(R_back), points, of(T_all),
                 residual_frac=residual_frac)
-            best_i = child_index(win, tri_u)
-    if fast:
-        tables = tables_for(fast, lambda s: s._coherent_tables(
-            with_grad_bricks=len(fast) == 1, with_gradonly_bricks=len(fast) > 1))
-        pts_fast = of(pts_all, fast)
-        if values_only:
-            profiling.count("path.coherent_tile_union")
-            best_v = _coherent_union_values(tables, pts_fast)
-        elif len(fast) == 1 and tables[0].bricks4 is not None:
-            # one cached child: no union to win, value and gradient from one
-            # brick row per tile
-            profiling.count("path.coherent_single")
-            best_v, g_link = _coherent_single_lookup(tables[0], pts_fast[0])
-            best_g = tfm.rotate_vectors(R_back[fast[0]][:, None], g_link)
-            best_i = torch.full(best_v.shape, fast[0], dtype=torch.int64,
-                                device=best_v.device)
-        elif all(t.gbricks is not None for t in tables):
-            profiling.count("path.coherent_tile_union")
-            best_v, best_g, win = _coherent_union_lookup_tile(
-                tables, pts_fast, of(R_back, fast), points, of(T_all, fast),
-                residual_frac=residual_frac)
-            best_i = child_index(win, fast)
-        else:
-            profiling.count("path.coherent_point_union")
-            best_v, g_link, win = _coherent_union_lookup(tables, pts_fast)
-            best_g = _rotate_winners(of(R_back, fast), win, g_link)
-            best_i = child_index(win, fast)
+            best_i = child_index(win)
+    elif values_only and route in ("single", "tile_union"):
+        # the nearest routes' values: one union, whatever its size
+        profiling.count("path.coherent_tile_union")
+        best_v = _coherent_union_values(tables, of(pts_all))
+    elif route == "single":
+        # one cached child: no union to win, value and gradient from one
+        # brick row per tile
+        profiling.count("path.coherent_single")
+        best_v, g_link = _coherent_single_lookup(tables[0], pts_all[idx[0]])
+        best_g = tfm.rotate_vectors(R_back[idx[0]][:, None], g_link)
+        best_i = torch.full(best_v.shape, idx[0], dtype=torch.int64, device=best_v.device)
+    elif route == "tile_union":
+        profiling.count("path.coherent_tile_union")
+        best_v, best_g, win = _coherent_union_lookup_tile(
+            tables, of(pts_all), of(R_back), points, of(T_all), residual_frac=residual_frac)
+        best_i = child_index(win)
     if generic:
         profiling.count("path.coherent_generic")
     for k, i in enumerate(generic):
@@ -1349,7 +1291,8 @@ def _compose_coherent(children, obj_to_link, link_to_obj, batch, points, fast_ta
             best_v = torch.where(better, v, best_v)
             best_g = torch.where(better[..., None], g, best_g)
             best_i = torch.where(better, i, best_i)
-    return out(best_v, best_g)
+    best_v = best_v.reshape(batch, F)
+    return best_v if values_only else (best_v, best_g.reshape(batch, F, 3))
 
 
 class ComposedSDF(ObjectFrameSDF):
@@ -1421,12 +1364,10 @@ class ComposedSDF(ObjectFrameSDF):
         with torch.no_grad():
             pts_all = tfm.transform_points(self.obj_frame_to_link_frame.get_matrix(), pts)
         pts_all = pts_all.cpu().numpy().reshape(S, B, F, 3)
-        tri = _coherent_single_trilinear_child(self.sdfs)
-        fast_idx, tri_idx, _ = _coherent_classify(self.sdfs)
-        for i, s in enumerate(self.sdfs):
-            is_tri = s is tri or i in tri_idx
-            if not (i in fast_idx or is_tri):
-                continue
+        plan = _coherent_plan(self.sdfs)
+        is_tri = plan.route in ("trilinear", "trilinear_union")
+        for i in plan.bricks:
+            s = self.sdfs[i]
             lo = np.asarray(s.voxels.lo, dtype=np.float32)
             res = np.asarray(s.voxels.res, dtype=np.float32)
             n = np.asarray(s.voxels.shape)

@@ -109,37 +109,21 @@ def export_robot_grid_query(robot_sdf, n_configs: int, query_range, resolution: 
     when a cached link is finer than twice the grid's resolution (no tile
     fits its bricks).  Returns the seconds each file took and its bytes."""
     from pytorch_volumetric_tpu_torch import sdf as sdf_mod
-    from pytorch_volumetric_tpu_torch.voxel import (
-        get_coherent_tile_points, get_coordinates_and_points_in_grid)
 
     children = tuple(robot_sdf.sdf.sdfs)
-    min_res = sdf_mod.coherent_min_cache_resolution(children)
-    if min_res is not None and 2.0 * resolution > min_res:
+    layout = robot_sdf._grid_layout(query_range, resolution)
+    if layout.take is None:
         raise ValueError(
             f"sweep resolution {resolution:g} too coarse for cached link resolution "
-            f"{min_res:g} (needs <= half); export_robot_query with explicit points instead")
-    dev = robot_sdf.device
-    coords, _ = get_coordinates_and_points_in_grid(resolution, query_range, device="cpu",
-                                                   get_points=False)
-    grid_shape = tuple(len(c) for c in coords)
-    pts, take_idx, seg = get_coherent_tile_points(resolution, query_range,
-                                                  cache_resolution=min_res, device=dev)
-    leaves, spec = flatten_tensors((pts, torch.as_tensor(take_idx, device=dev),
-                                    sdf_mod.coherent_fast_tables(children),
+            f"{sdf_mod.coherent_min_cache_resolution(children):g} (needs <= half); "
+            "export_robot_query with explicit points instead")
+    leaves, spec = flatten_tensors((layout, sdf_mod.coherent_fast_tables(children),
                                     sdf_mod.coherent_generic_aux(children)))
 
     def fn(q, *leaf_args):
-        p, take, fast_tables, generic_aux = unflatten_tensors(spec, leaf_args)
-        m, m_inv = robot_sdf._link_transforms(q)
-        out = sdf_mod.compose_query_coherent(
-            children, m, m_inv, q.shape[0], p, fast_tables=fast_tables,
-            values_only=values_only, generic_aux=generic_aux, seg=seg)
-        shape = (q.shape[0],) + grid_shape
-        if values_only:
-            return out[:, take].reshape(shape)
-        v, g = out
-        return v[:, take].reshape(shape), g[:, take].reshape(shape + (3,))
+        return robot_sdf._grid_query_with(q, *unflatten_tensors(spec, leaf_args), values_only)
 
+    dev = robot_sdf.device
     M = len(robot_sdf.joint_names)
     return _export(fn, (torch.zeros((n_configs, M), device=dev),), leaves, path)
 

@@ -261,24 +261,6 @@ def test_residual_overflow_poisons_jax_tiles(unions, name):
     np.testing.assert_array_equal(nan.numpy(), np.isnan(np.asarray(gj)).any(axis=-1))
 
 
-def test_union_winner_rows_route(unions):
-    """Tables without gradient bricks take per-point winner rows: the same
-    results, and d/dpoints equal the generic path's."""
-    _, ct = unions["junction"]
-    _, pp, _, seg = _layout(0.02, JUNCTION_RANGE, 0.04, "tile")
-    children = tuple(ct.sdfs)
-    ft = tuple(c._coherent_tables() for c in children)
-    ft = tuple(t._replace(gbricks=None, bricks4=None) for t in ft)
-    m, mi = ct.obj_frame_to_link_frame.get_matrix(), ct.link_frame_to_obj_frame
-    p1 = pp.clone().requires_grad_(True)
-    v, g = tsdf.compose_query_coherent(children, m, mi, 1, p1, fast_tables=ft, seg=seg)
-    (d1,) = torch.autograd.grad(v.sum(), p1)
-    p2 = pp.clone().requires_grad_(True)
-    vg, gg = tsdf.compose_query(tuple(c.raw_query for c in children), m, mi, 1, p2)
-    (d2,) = torch.autograd.grad(vg.sum(), p2)
-    assert torch.equal(v, vg) and torch.equal(g, gg) and torch.equal(d1, d2)
-
-
 @pytest.mark.parametrize("name", ["single_nearest", "single_trilinear"])
 @pytest.mark.parametrize("kind", ["line", "tile"])
 def test_single_child_routes(unions, name, kind):

@@ -21,7 +21,7 @@ from pytorch_volumetric_tpu_torch import state
 from pytorch_volumetric_tpu_torch.ops.closest_point import closest_point_sweep
 from pytorch_volumetric_tpu_torch.ops.narrow_band_cuda import grid_lists, narrow_band_query_op
 from pytorch_volumetric_tpu_torch.ops.straight_through import (
-    straight_through, tile_winner_straight_through, winner_straight_through)
+    straight_through, tile_winner_straight_through)
 from pytorch_volumetric_tpu_torch.utils import serving
 from torch_cpu_guard import warm_sqrt
 
@@ -265,8 +265,6 @@ def test_straight_through_ops_pass_opcheck():
 
     win = torch.as_tensor(rng.integers(0, 3, (2, 4, 5)))
     cases = [(straight_through, (t(7), t(7, 3), t(7, 3, grad=True))),
-             (winner_straight_through, (t(2, 4, 5), t(2, 4, 5, 3), win,
-                                        t(3, 2, 4, 5, 3, grad=True))),
              (tile_winner_straight_through, (t(2, 4, 5), t(2, 4, 5, 3), win, t(2, 4, 5, 3),
                                              t(20, 3, grad=True), t(3, 2, 4, 4, grad=True),
                                              t(3, 2, 3, 3, grad=True)))]

@@ -124,6 +124,25 @@ def test_the_fallback_logs_once_per_grid(arm, caplog):
     assert sum("generic query path" in r.getMessage() for r in caplog.records) == 1
 
 
+def test_the_fallback_builds_its_grid_once(arm, monkeypatch):
+    """The fallback keeps its grid's points: a second call builds none."""
+    from pytorch_volumetric_tpu_torch import model_to_sdf
+    robot, q = arm
+    grid = GRID + 0.02  # a grid no other test asked for
+    built = []
+    build = model_to_sdf.get_coordinates_and_points_in_grid
+
+    def counted(*args, **kwargs):
+        built.append(kwargs.get("get_points", True))
+        return build(*args, **kwargs)
+
+    monkeypatch.setattr(model_to_sdf, "get_coordinates_and_points_in_grid", counted)
+    first = robot.query_grid(q, grid, FALLBACK)
+    second = robot.query_grid(q, grid, FALLBACK)
+    assert built.count(True) == 1
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 @pytest.fixture(scope="module")
 def balls(tmp_path_factory):
     """Two cached spheres of each interpolation."""
@@ -138,30 +157,79 @@ def balls(tmp_path_factory):
 BRANCHES = {
     "single": ([("nearest", 0)], {"path.coherent_single": 1}),
     "tile_union": ([("nearest", 0), ("nearest", 1)], {"path.coherent_tile_union": 1}),
-    "point_union": ([("nearest", 0), ("nearest", 1)], {"path.coherent_point_union": 1}),
     "trilinear": ([("trilinear", 0)], {"path.coherent_trilinear": 1}),
     "trilinear_union": ([("trilinear", 0), ("trilinear", 1)], {"path.coherent_trilinear": 1}),
     "generic": (["sphere", "box"], {"path.coherent_generic": 1}),
     "mixed": (["box", ("nearest", 0)], {"path.coherent_single": 1, "path.coherent_generic": 1}),
+    # a trilinear cache beside a nearest one, or alone beside a primitive: generic
+    "mixed_interp": ([("trilinear", 0), ("nearest", 0)],
+                     {"path.coherent_single": 1, "path.coherent_generic": 1}),
+    "trilinear_and_box": ([("trilinear", 0), "box"], {"path.coherent_generic": 1}),
 }
+# the counter of each route of sdf._coherent_plan
+ROUTE_COUNTERS = {"single": "path.coherent_single", "tile_union": "path.coherent_tile_union",
+                  "trilinear": "path.coherent_trilinear",
+                  "trilinear_union": "path.coherent_trilinear"}
+
+
+def _branch_children(balls, name):
+    primitives = {"sphere": pt.SphereSDF(0.3, device=CPU),
+                  "box": pt.BoxSDF((0.2, 0.3, 0.4), device=CPU)}
+    return tuple(primitives[k] if isinstance(k, str) else balls[k] for k in BRANCHES[name][0])
 
 
 @pytest.mark.parametrize("name", sorted(BRANCHES))
 def test_the_coherent_query_counts_its_branches(balls, name):
     from pytorch_volumetric_tpu_torch import sdf as tsdf
-    kinds, want = BRANCHES[name]
-    primitives = {"sphere": pt.SphereSDF(0.3, device=CPU),
-                  "box": pt.BoxSDF((0.2, 0.3, 0.4), device=CPU)}
-    children = tuple(primitives[k] if isinstance(k, str) else balls[k] for k in kinds)
+    children = _branch_children(balls, name)
     m = torch.eye(4).repeat(len(children), 1, 1)
     pts, _ = pt.get_coherent_grid_points(0.025, np.array([[-0.2, 0.2], [0.0, 0.0], [-0.2, 0.2]]),
                                          device=CPU)
-    fast = None
-    if name == "point_union":  # tables without gradient bricks: per-point winner rows
-        fast = tuple(c._coherent_tables()._replace(gbricks=None, bricks4=None) for c in children)
     before = profiling.COUNTERS.copy()
-    tsdf.compose_query_coherent(children, m, m, 1, pts, fast_tables=fast)
-    assert dict(profiling.COUNTERS - before) == want
+    tsdf.compose_query_coherent(children, m, m, 1, pts)
+    assert dict(profiling.COUNTERS - before) == BRANCHES[name][1]
+
+
+@pytest.mark.parametrize("name", sorted(BRANCHES))
+def test_the_coherent_plan_routes_as_the_counters_say(balls, name):
+    """``sdf._coherent_plan`` picks the route whose counter the query
+    counts, puts every child on the brick route or the generic sub-path,
+    and the three public helpers read the same plan."""
+    from pytorch_volumetric_tpu_torch import sdf as tsdf
+    children = _branch_children(balls, name)
+    plan = tsdf._coherent_plan(children)
+    counted = {ROUTE_COUNTERS.get(plan.route), "path.coherent_generic" if plan.generic else None}
+    assert counted - {None} == set(BRANCHES[name][1])
+    assert sorted(plan.bricks + plan.generic) == list(range(len(children)))
+    assert all(isinstance(children[i], pt.CachedSDF) for i in plan.bricks)
+    tables = tsdf.coherent_fast_tables(children)
+    assert len(tables) == len(plan.bricks)
+    if plan.route is not None:
+        need = tsdf._ROUTE_BRICKS[plan.route][2]
+        assert all(getattr(t, need) is not None for t in tables)
+    assert tsdf.coherent_min_cache_resolution(children) == plan.min_res == (
+        0.05 if plan.bricks else None)
+    assert len(tsdf.coherent_generic_aux(children)) == len(plan.generic)
+
+
+def test_union_tables_without_gradient_bricks_are_refused(balls, monkeypatch):
+    """A nearest union's tables without ``gbricks`` are malformed: the
+    query raises before it transforms a point."""
+    from pytorch_volumetric_tpu_torch import sdf as tsdf
+    children = _branch_children(balls, "tile_union")
+    fast = tuple(t._replace(gbricks=None) for t in tsdf.coherent_fast_tables(children))
+    m = torch.eye(4).repeat(len(children), 1, 1)
+    pts, _ = pt.get_coherent_grid_points(0.025, np.array([[-0.2, 0.2], [0.0, 0.0], [-0.2, 0.2]]),
+                                         device=CPU)
+
+    def refuse(*args):
+        raise AssertionError("transformed points before refusing the tables")
+
+    monkeypatch.setattr(tsdf.tfm, "transform_points", refuse)
+    for values_only in (False, True):
+        with pytest.raises(ValueError, match="gbricks"):
+            tsdf.compose_query_coherent(children, m, m, 1, pts, fast_tables=fast,
+                                        values_only=values_only)
 
 
 @pytest.fixture(scope="module")
