@@ -604,20 +604,21 @@ def same_bits(a, b):
 
 
 def union_inputs(robot, ft, q, pts, seg):
-    """``(tables, pts_c, Rb)`` exactly as ``compose_query_coherent`` hands
-    them to the per-tile union for the configurations ``q``."""
+    """``(tables, points, T, Rb, seg)`` exactly as
+    ``compose_query_coherent`` hands them to the per-tile union for the
+    configurations ``q``: the world points and the union children's
+    obj_to_link rows and rotations."""
     from pytorch_volumetric_tpu_torch import sdf as tsdf
-    from pytorch_volumetric_tpu_torch import transforms as tfm
     children = tuple(robot.sdf.sdfs)
     fast = tsdf._coherent_plan(children).bricks
-    S, B, F = len(children), q.shape[0], pts.shape[0]
+    S, B = len(children), q.shape[0]
     with torch.no_grad():
         m, m_inv = robot._link_transforms(q)
-        pts_all = tfm.transform_points(m, pts).reshape(S, B, F // seg, seg, 3)
+        T_all = m.reshape(S, B, 4, 4)
         R_back = m_inv.reshape(S, B, 4, 4)[..., :3, :3]
-        pts_c = torch.stack([pts_all[i] for i in fast])
+        T = torch.stack([T_all[i] for i in fast])
         Rb = torch.stack([R_back[i] for i in fast])
-    return tuple(ft), pts_c, Rb
+    return tuple(ft), pts, T, Rb, seg
 
 
 def _distinct(keys, size):
@@ -628,35 +629,40 @@ def _distinct(keys, size):
     return int(seen.sum())
 
 
-def union_bound(tables, pts_c, cap=None):
+def union_bound(tables, points, T, seg, cap=None):
     """``(bound_ms, bytes)``: the bytes the union must move at least, over
     3.35 TB/s, each input byte counted once however often the call reads
-    it.  Read: the points (12 B a link-point); the rotations (36 B a link
-    and configuration); each distinct value cell that an in-grid point
-    reads (4 B; a (link, brick row, cell) counted once over all
-    configurations and tiles); each distinct cell of the winners'
-    gradient bricks (12 B: three channels; a (winner, brick row, cell)
-    counted once) that an in-grid point of a tile outside the residual
-    lane reads, and each distinct packed (value, grad) row (its 12 B of
-    gradient) that an in-grid point of a lane tile within the capacity
-    reads.  Written: val (4 B a point) and g_obj (12), win (8), g_link (12).
-    Values only (``cap`` None): the points, the value cells and val.  The
-    small per-link fields and the residual lane's tile flags are left
-    out."""
+    it.  Read: the world points (12 B each, once over every configuration
+    and link: the kernel forms the link-frame points in registers); the
+    obj_to_link rows (48 B a link and configuration) and the rotations (36
+    B); each distinct value cell that an in-grid point reads (4 B; a (link,
+    brick row, cell) counted once over all configurations and tiles); each
+    distinct cell of the winners' gradient bricks (12 B: three channels; a
+    (winner, brick row, cell) counted once) that an in-grid point of a tile
+    outside the residual lane reads, and each distinct packed (value, grad)
+    row (its 12 B of gradient) that an in-grid point of a lane tile within
+    the capacity reads.  Written: val (4 B a point) and g_obj (12), win
+    (8), g_link (12).  Values only (``cap`` None): the points, the
+    obj_to_link rows, the value cells and val.  The small per-link fields
+    and the residual lane's tile flags are left out.  The cells are found
+    from the link-frame points, which only this count writes."""
     from pytorch_volumetric_tpu_torch import sdf as tsdf
-    C, B, FS, seg = pts_c.shape[:4]
-    N = B * FS * seg
-    dev = pts_c.device
+    C, B = T.shape[:2]
+    F = points.shape[0]
+    FS, N = F // seg, B * F
+    dev = points.device
 
     def bases(name):
         b = tsdf._coherent_row_bases([getattr(t, name) for t in tables])
         return torch.as_tensor(b[:-1], device=dev).view(C, 1, 1), int(b[-1])
 
     with torch.no_grad():
+        pts_c = tsdf._link_points(T, points, seg)
         v, valid, flat, row, cell, _ = tsdf._nearest_union(tables, pts_c)
+        del pts_c
         vb, v_rows = bases("bricks")
         cells = _distinct((((row + vb) * 64)[..., None] + cell)[valid], v_rows * 64)
-        nbytes = C * N * 12 + cells * 4 + N * 4
+        nbytes = F * 12 + C * B * 48 + cells * 4 + N * 4
         if cap is None:
             return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
         win, pick = tsdf._first_min(v)
@@ -676,58 +682,65 @@ def union_bound(tables, pts_c, cap=None):
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
-def union_kernel_times(tables, pts_c, Rb, cap, reps=5):
+def union_kernel_times(tables, points, T, Rb, seg, cap, reps=5):
     """Times of one union call, forward and values only: ``ms`` (CUDA
     events around ``reps`` back-to-back calls of the op: the union kernel
     and, with more than three links, the cumsum and the poison pass),
     ``kernel_ms`` (the union kernel's own device time, from a profiler
-    trace), ``plain_ms`` (the plain version on the card)."""
+    trace), ``plain_ms`` (the plain version on the card: the link-frame
+    points by ``transforms.transform_points``, then the union)."""
     from pytorch_volumetric_tpu_torch import sdf as tsdf
     from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
     from pytorch_volumetric_tpu_torch.utils.profiling import device_time, kernel_time
+    link = lambda p: tsdf._link_points(T, p, seg)
     out = {}
     for name, kern, plain in (
-            ("forward", lambda p: coherent_union_tile(tables, p, Rb, cap),
-             lambda p: tsdf._union_tile_eval(tables, cap, p, Rb)),
-            ("values_only", lambda p: coherent_union_tile(tables, p, values_only=True),
-             lambda p: tsdf._union_values_eval(tables, p))):
-        r = {"ms": device_time(kern, pts_c, reps=reps) * 1e3,
-             "plain_ms": device_time(plain, pts_c, reps=2) * 1e3}
+            ("forward", lambda p: coherent_union_tile(tables, p, T, seg, Rb, cap),
+             lambda p: tsdf._union_tile_eval(tables, cap, link(p), Rb)),
+            ("values_only", lambda p: coherent_union_tile(tables, p, T, seg, values_only=True),
+             lambda p: tsdf._union_values_eval(tables, link(p)))):
+        r = {"ms": device_time(kern, points, reps=reps) * 1e3,
+             "plain_ms": device_time(plain, points, reps=2) * 1e3}
         r["kernel_ms"], r["calls_ms"] = None, {}
-        if pts_c.device.type == "cuda":
-            _, _, by_name = kernel_time(kern, pts_c, reps=reps, by_name=True)
+        if points.device.type == "cuda":
+            _, _, by_name = kernel_time(kern, points, reps=reps, by_name=True)
             r["kernel_ms"] = sum(s for k, s in by_name.items() if "union_" in k) * 1e3
             r["calls_ms"] = {k[:60]: s * 1e3 for k, s in by_name.items()}
         out[name] = r
     return out
 
 
-def compare_union(name, tables, pts_c, Rb, residual_frac=None, timed=False):
-    """The union kernel (``pvt::coherent_union_tile``) against its plain
-    version on the same inputs: forward (``val``, ``g_obj``, ``win``,
-    ``g_link``) and values only, every output bit for bit (:func:`same_bits`);
-    on CPU tensors both sides are the plain version.  ``residual_frac``:
-    the residual lane's fraction (``sdf.RESIDUAL_FRAC`` when None).  With
-    ``timed`` the times (:func:`union_kernel_times`) and the bound of this
-    run's inputs.  Returns ``{max_abs_err, ...}`` (0: the check fails on
-    any difference)."""
+def compare_union(name, tables, points, T, Rb, seg, residual_frac=None, timed=False):
+    """The union kernel (``pvt::coherent_union_tile``, which forms the
+    link-frame points ``T @ points`` in registers) against its plain
+    version (``sdf._union_tile_eval`` and ``_union_values_eval`` on
+    ``sdf._link_points``) on the same inputs: forward (``val``, ``g_obj``,
+    ``win``, ``g_link``) and values only, every output bit for bit
+    (:func:`same_bits`); on CPU tensors both sides are the plain version.
+    ``residual_frac``: the residual lane's fraction (``sdf.RESIDUAL_FRAC``
+    when None).  With ``timed`` the times (:func:`union_kernel_times`) and
+    the bound of this run's inputs.  Returns ``{max_abs_err, ...}`` (0: the
+    check fails on any difference)."""
     from pytorch_volumetric_tpu_torch import sdf as tsdf
     from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
     from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
-    device = pts_c.device
-    C, B, FS, seg = pts_c.shape[:4]
+    device = points.device
+    C, B = T.shape[:2]
+    FS = points.shape[0] // seg
     frac = tsdf.RESIDUAL_FRAC if residual_frac is None else residual_frac
     cap = tsdf.residual_capacity(B * FS, frac)
     before = COUNTERS["kernel.coherent_union_tile"]
     with torch.no_grad():
-        out = coherent_union_tile(tables, pts_c, Rb, cap)
-        vo = coherent_union_tile(tables, pts_c, values_only=True)
+        out = coherent_union_tile(tables, points, T, seg, Rb, cap)
+        vo = coherent_union_tile(tables, points, T, seg, values_only=True)
         sync(device)
         if device.type == "cuda":
             check(COUNTERS["kernel.coherent_union_tile"] == before + 2,
                   f"{name}: the kernel did not launch")
+        pts_c = tsdf._link_points(T, points, seg)
         ref = tsdf._union_tile_eval(tables, cap, pts_c, Rb)
         ref_vo = tsdf._union_values_eval(tables, pts_c)
+        del pts_c
     same = [same_bits(a, b) for a, b in zip(out, ref)] + [same_bits(vo, ref_vo)]
     n_nan = int(torch.isnan(ref[3]).any(dim=-1).sum())
     log(f"    {name}: C={C} B={B} FS={FS} seg={seg}, residual_frac {frac:g} (capacity {cap}): "
@@ -736,9 +749,9 @@ def compare_union(name, tables, pts_c, Rb, residual_frac=None, timed=False):
     res = {"max_abs_err": 0.0}
     del out, vo, ref, ref_vo
     if timed:
-        res["times"] = union_kernel_times(tables, pts_c, Rb, cap)
-        res["bound_ms"], res["bound_bytes"] = union_bound(tables, pts_c, cap)
-        res["values_bound_ms"], _ = union_bound(tables, pts_c)
+        res["times"] = union_kernel_times(tables, points, T, Rb, seg, cap)
+        res["bound_ms"], res["bound_bytes"] = union_bound(tables, points, T, seg, cap)
+        res["values_bound_ms"], _ = union_bound(tables, points, T, seg)
         t = res["times"]
         log(f"    {name}: forward {t['forward']['ms']:.4f} ms (kernel "
             f"{t['forward']['kernel_ms']} device ms; calls {t['forward']['calls_ms']}), "
@@ -759,10 +772,10 @@ def union_backward_bound(C, B, N):
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
-def compare_union_backward(name, tables, pts_c, Rb, points, reps=5):
+def compare_union_backward(name, tables, points, T, Rb, seg, reps=5):
     """The union's backward (``ops.coherent_union.tile_union_cotangents``:
     the kernels on the card) on the winners and link-frame gradients of the
-    union kernel over ``pts_c`` (``T @ points``), cotangents of ones (the
+    union kernel over ``T @ points``, cotangents of ones (the
     north star's ``v.sum() + g.sum()``), against the plain version in
     float64: NaN where it has NaN, else within 2e-5 of the terms' absolute
     sum (float32 sums: ~120 additions a term, 120 * 2^-24 = 7.2e-6); two
@@ -773,17 +786,18 @@ def compare_union_backward(name, tables, pts_c, Rb, points, reps=5):
     from pytorch_volumetric_tpu_torch import sdf as tsdf
     from pytorch_volumetric_tpu_torch.ops import coherent_union as cu
     from pytorch_volumetric_tpu_torch.utils.profiling import device_time, kernel_time
-    C, B, FS, seg = pts_c.shape[:4]
-    N = FS * seg
+    C, B = T.shape[:2]
+    N = points.shape[0]
+    FS = N // seg
     cap = tsdf.residual_capacity(B * FS)
     with torch.no_grad():
-        _, _, win, g_link = cu.coherent_union_tile(tables, pts_c, Rb, cap)
-        ct_val = torch.ones((B, FS, seg), device=pts_c.device)
-        ct_g = torch.ones((B, FS, seg, 3), device=pts_c.device)
+        _, _, win, g_link = cu.coherent_union_tile(tables, points, T, seg, Rb, cap)
+        ct_val = torch.ones((B, FS, seg), device=points.device)
+        ct_g = torch.ones((B, FS, seg, 3), device=points.device)
         args = (win, g_link, ct_val, ct_g, points)
         out = cu.tile_union_cotangents(*args, C)
         again = cu.tile_union_cotangents(*args, C)
-        sync(pts_c.device)
+        sync(points.device)
         f64 = [t.double() for t in args[1:]]
         ref = cu.tile_union_cotangents_plain(win, *f64, C)
         mag = cu.tile_union_cotangents_plain(win, *(t.abs() for t in f64), C)
@@ -798,7 +812,7 @@ def compare_union_backward(name, tables, pts_c, Rb, points, reps=5):
     res["plain_ms"] = device_time(lambda *a: cu.tile_union_cotangents_plain(*a, C), *args,
                                   reps=2) * 1e3
     res["kernel_ms"], res["calls_ms"] = None, {}
-    if pts_c.device.type == "cuda":
+    if points.device.type == "cuda":
         _, _, by_name = kernel_time(lambda *a: cu.tile_union_cotangents(*a, C), *args,
                                     reps=reps, by_name=True)
         res["kernel_ms"] = sum(v for k, v in by_name.items() if "union_backward" in k) * 1e3
@@ -815,14 +829,17 @@ def compare_union_backward(name, tables, pts_c, Rb, points, reps=5):
 
 
 def union_cases(device, tmp, n_configs=3, n_tiles=96):
-    """``(name, tables, pts_c, Rb)``: sphere caches (0.04 over [-0.5,
-    0.5]^3) of radius 0.02 centred on a circle of 0.012, 2, 4 and 8 of
-    them, so that tiles at the circle's centre see 4 or more winners; tiles
-    of every seg of :data:`UNION_SEGS` at random centres (most within 0.06
-    of the centre, some up to 0.8 away: out of the grid), their points
-    within 0.01 of the centre (inside a brick) or, in every ninth tile,
-    0.1 (a tile that breaks the contract: the offsets clamp to 3); some
-    points NaN or +-inf in one or all coordinates; random rotations."""
+    """``(name, tables, points, T, Rb, seg)``: sphere caches (0.04 over
+    [-0.5, 0.5]^3) of radius 0.02 centred on a circle of 0.012, 2, 4 and 8
+    of them, so that tiles at the circle's centre see 4 or more winners;
+    world points in tiles of every seg of :data:`UNION_SEGS` at random
+    centres (most within 0.06 of the centre, some up to 0.8 away: out of
+    the grid), their points within 0.01 of the centre (inside a brick) or,
+    in every ninth tile, 0.1 (a tile that breaks the contract: the offsets
+    clamp to 3); some points NaN or +-inf in one or all coordinates; ``T``
+    each sphere's frame after a random rotation about the centre, one a
+    configuration, jittered by up to 0.003 a link and configuration; random
+    rotations ``Rb``."""
     import pytorch_volumetric_tpu_torch as pt
     rng = np.random.default_rng(7)
     spheres = []
@@ -839,22 +856,23 @@ def union_cases(device, tmp, n_configs=3, n_tiles=96):
             far = rng.random(n_tiles) < 0.15
             centre = np.where(far[:, None], rng.uniform(-0.8, 0.8, (n_tiles, 3)),
                               rng.uniform(-0.06, 0.06, (n_tiles, 3)))
-            spread = np.where(np.arange(n_tiles) % 9 == 8, 0.1, 0.01)[:, None, None]
-            obj = (centre[None, :, None] + rng.uniform(-1, 1, (n_configs, n_tiles, seg, 3))
-                   * spread).astype(np.float32)
-            flat = obj.reshape(-1, 3)
-            bad = rng.choice(len(flat), size=max(1, len(flat) // 50), replace=False)
+            spread = np.where(np.arange(n_tiles) % 9 == 8, 0.1, 0.01)[:, None]
+            flat = (centre[:, None] + rng.uniform(-1, 1, (n_tiles, seg, 3))
+                    * spread[..., None]).reshape(-1, 3).astype(np.float32)
+            bad = rng.choice(len(flat), size=max(3, len(flat) // 50), replace=False)
             for j, k in enumerate(bad):
                 flat[k, j % 3] = (np.nan, np.inf, -np.inf)[j % 3]
                 if j % 7 == 0:
                     flat[k] = np.nan
-            # each link's frame: the point less its sphere's offset, jittered per configuration
-            pts_c = (obj[None] - shift[:, None, None, None]
-                     - rng.uniform(-0.003, 0.003, (C, n_configs, 1, 1, 3))).astype(np.float32)
+            # each link's frame: a rotation of the world a configuration, then
+            # the sphere's offset taken off, jittered per link and configuration
+            T = np.tile(np.eye(4), (C, n_configs, 1, 1))
+            T[..., :3, :3] = np.stack([_random_rotation(rng) for _ in range(n_configs)])
+            T[..., :3, 3] = rng.uniform(-0.003, 0.003, (C, n_configs, 3)) - shift[:, None]
             Rb = np.stack([[_random_rotation(rng) for _ in range(n_configs)] for _ in range(C)])
             cases.append((f"{C} spheres, seg {seg}", tables,
-                          torch.as_tensor(pts_c, device=device).contiguous(),
-                          torch.as_tensor(Rb.astype(np.float32), device=device).contiguous()))
+                          *(torch.as_tensor(x.astype(np.float32), device=device).contiguous()
+                            for x in (flat, T, Rb)), seg))
     return cases
 
 
@@ -888,13 +906,14 @@ def union_case_checks(device, tmp):
     overflows where a case has middle tiles)."""
     overflowed = False
     from pytorch_volumetric_tpu_torch import sdf as tsdf
-    for name, tables, pts_c, Rb in union_cases(device, tmp):
+    for name, tables, points, T, Rb, seg in union_cases(device, tmp):
         for frac in (tsdf.RESIDUAL_FRAC, 1e-9):
-            compare_union(name, tables, pts_c, Rb, frac)
+            compare_union(name, tables, points, T, Rb, seg, frac)
             if frac < 1e-6 and len(tables) > 3:
                 with torch.no_grad():
-                    cap = tsdf.residual_capacity(pts_c.shape[1] * pts_c.shape[2], frac)
-                    g = tsdf._union_tile_eval(tables, cap, pts_c, Rb)[3]
+                    cap = tsdf.residual_capacity(T.shape[1] * (points.shape[0] // seg), frac)
+                    g = tsdf._union_tile_eval(tables, cap, tsdf._link_points(T, points, seg),
+                                              Rb)[3]
                 overflowed |= bool(torch.isnan(g).any())
     check(overflowed, "no union case overflowed the residual lane at residual_frac 1e-9")
 
@@ -2363,7 +2382,7 @@ def phase_northstar(device, tmp, card, n_configs=N_CONFIGS, points_side=100, chu
             out["union"]["launches"] = out["union_launches"][name]
             out["union_backward"] = compare_union_backward(
                 f"{name}: the union's backward, chunk of {row['chunk']}",
-                *union_inputs(robot, ft, q[:row["chunk"]], pts, seg), pts)
+                *union_inputs(robot, ft, q[:row["chunk"]], pts, seg))
             out["union_backward"]["launches"] = out["union_backward_launches"][name]
             if device.type == "cuda":
                 torch.cuda.empty_cache()

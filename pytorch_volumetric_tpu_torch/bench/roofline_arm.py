@@ -11,20 +11,25 @@ configurations, the first ``B`` of its N(0, 0.3) draws from seed 0) x the
 (``cache_link_sdf_factory(CACHE_RES, 1.0)``, ``CACHE_RES`` = 0.02).  The
 chunk runs in stages, each a whole run from the joint angles; its delta is
 its time less that of the stage it builds on (``DELTA_BASE``).  The stages
-of the path the library runs, where the union is one kernel
-(``ops/coherent_union.py``, ``csrc/coherent_union.cu``; its plain version
-on the CPU):
+of the path the library runs, where the union is one kernel that forms the
+link-frame points in registers from the world points and the links'
+transforms (``ops/coherent_union.py``, ``csrc/coherent_union.cu``; its
+plain version on the CPU):
 
-  transform    ``RobotSDF._link_transforms`` + ``transforms.transform_points``
-               -> ``pts_c [C, B, FS, seg, 3]``
-  union        + the union kernel, values only (``sdf._coherent_union_values``)
-  full         ``compose_query_coherent``'s forward: the transform and the
-               union kernel with its gradients and winners
-               (``sdf._coherent_union_lookup_tile``), delta against transform
+  fk           ``RobotSDF._link_transforms``: the links' obj_to_link rows
+  union        + the union kernel, values only (``sdf._coherent_union_values``),
+               delta against fk
+  full         ``compose_query_coherent``'s forward: the union kernel with
+               its gradients and winners (``sdf._coherent_union_lookup_tile``),
+               delta against fk
   fwd_bwd      + ``d(v.sum() + g.sum()) / dq`` (delta against full)
 
-and, for comparison, the plain version's chain (``sdf._union_values_eval``'s
-steps, ``sdf._nearest_union``'s own functions), cumulative from transform:
+and, for comparison, the plain version's chain: the link-frame points it
+reads, then ``sdf._union_values_eval``'s steps (``sdf._nearest_union``'s own
+functions), cumulative from transform:
+
+  transform     + ``transforms.transform_points`` -> ``pts_c [C, B, FS, seg,
+                3]`` (delta against fk)
 
   plain_keys    + ``sdf._nearest_keys`` (the in-grid mask and the clamped keys)
   plain_anchor  + ``sdf._nearest_anchor``: each tile's brick row, each point's
@@ -46,7 +51,7 @@ TB/s.  Stage outputs are freed before the next stage runs; on
 next smaller divisor of the chunk (``northstar.with_oom_retry``).
 
 Gates, bit for bit: ``union``'s sum equals a direct ``values_only`` call
-of ``compose_query_coherent`` (the stages' transform and tile layout are
+of ``compose_query_coherent`` (the stages' transforms and tile layout are
 the library's), ``full``'s value sum equals ``union``'s (``full`` is
 ``compose_query_coherent``'s forward itself, so it is held to the
 values-only path: the per-tile winners' values against the ``amin``), and
@@ -76,17 +81,16 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from pytorch_volumetric_tpu_torch import sdf as tsdf
-from pytorch_volumetric_tpu_torch import transforms as tfm
 from pytorch_volumetric_tpu_torch.bench import headline as hl
 from pytorch_volumetric_tpu_torch.bench import northstar as ns
 
 METRIC = "northstar_arm_chunk_roofline"
 CACHE_RES = ns.CACHE_RES  # the links' cache resolution; the grid takes half of it
 PLAIN = ("plain_keys", "plain_anchor", "plain_cells", "plain_union")
-PIECEWISE = ("transform", "union") + PLAIN
-STAGES = ("transform", "union", "full", "fwd_bwd") + PLAIN
+PIECEWISE = ("fk", "union", "transform") + PLAIN
+STAGES = ("fk", "union", "full", "fwd_bwd", "transform") + PLAIN
 # the stage each delta is taken against
-DELTA_BASE = {"union": "transform", "full": "transform", "fwd_bwd": "full",
+DELTA_BASE = {"union": "fk", "full": "fk", "fwd_bwd": "full", "transform": "fk",
               "plain_keys": "transform", "plain_anchor": "plain_keys",
               "plain_cells": "plain_anchor", "plain_union": "plain_cells"}
 HBM_BYTES_PER_S = 3.35e12  # one H100 SXM's memory rate (NVIDIA's data sheet)
@@ -95,19 +99,23 @@ TOP_KERNELS = 5
 
 def stage_outputs(stage: str, robot, ft, q: torch.Tensor, pts: torch.Tensor, seg: int):
     """The tensors the chunk's nearest union hands on at the end of
-    ``stage`` (one of :data:`PIECEWISE`), computed without gradients:
-    ``union`` gives the kernel's values-only result ``[B, F]``
-    (``sdf._coherent_union_values``), the ``plain_*`` stages the plain
-    version's steps (``sdf._nearest_union``'s own), in its order,
+    ``stage`` (one of :data:`PIECEWISE`), computed without gradients: ``fk``
+    the links' obj_to_link rows ``[S * B, 4, 4]``, ``union`` the kernel's
+    values-only result ``[B, F]`` (``sdf._coherent_union_values``), the
+    ``transform`` and ``plain_*`` stages the plain version's link-frame
+    points and steps (``sdf._nearest_union``'s own), in its order,
     ``plain_union`` its values-only result."""
     S, B, F = len(ft), q.shape[0], pts.shape[0]
     with torch.no_grad():
         m, _ = robot._link_transforms(q)
-        pts_c = tfm.transform_points(m, pts).reshape(S, B, F // seg, seg, 3)
+        if stage == "fk":
+            return (m,)
+        T = m.reshape(S, B, 4, 4)
+        if stage == "union":
+            return (tsdf._coherent_union_values(ft, pts, T, seg).reshape(B, F),)
+        pts_c = tsdf._link_points(T, pts, seg)
         if stage == "transform":
             return (pts_c,)
-        if stage == "union":
-            return (tsdf._coherent_union_values(ft, pts_c).reshape(B, F),)
         valid, kc = tsdf._nearest_keys(ft, pts_c)
         if stage == "plain_keys":
             return valid, kc

@@ -12,15 +12,17 @@
 // north-star chunk, each writing its [C, B, FS, seg] intermediates to
 // device memory (~490 bytes a link-point).
 //
-// What bounds it on an H100: bytes.  Per point it must read its C link-frame
-// points (12 bytes each), one value cell of each child's brick row, the
-// winner's gradient (a gradient-brick cell, or its packed row in a middle
-// tile) and its rotation, and write val, g_obj, win (int64) and g_link:
-// 132 bytes a point at C = 8, plus the tables' cells, each counted once
-// however many points, tiles and configurations read it
-// (chip_smoke.union_bound counts each run's), against no arithmetic to
-// speak of.  The design keeps every
-// intermediate in registers:
+// What bounds it on an H100: bytes.  Per point it must read its world point
+// (12 bytes, once over every configuration and child), one value cell of
+// each child's brick row, the winner's gradient (a gradient-brick cell, or
+// its packed row in a middle tile) and its rotation, and write val, g_obj,
+// win (int64) and g_link: 36 bytes a (configuration, point), plus the
+// tables' cells, each counted once however many points, tiles and
+// configurations read it (chip_smoke.union_bound counts each run's),
+// against little arithmetic: each link-frame point is formed in registers
+// from the world point and the child's obj_to_link row T[c, b] (12 loads
+// that a warp broadcasts, 9 products, 9 sums) and never stored.  The
+// design keeps every intermediate in registers:
 //   One lane owns one point and loops over the children; the seg points of
 //   a tile are seg consecutive lanes of one warp (floor(32 / seg) tiles a
 //   warp), so each per-tile reduction (the brick anchor's min key, the
@@ -50,6 +52,8 @@
 //    least value);
 //  - values only as amin's CUDA reduction folds the children: four
 //    accumulators (child c into c % 4), then folded in order, NaN kept;
+//  - each link-frame point in transforms.transform_points' term order,
+//    ((T00 x + T01 y) + T02 z) + T03 for row 0, likewise rows 1 and 2;
 //  - the rotation in transforms.rotate_vectors' term order;
 //  - torch.clamp keeps NaN, as clamp_nan below does.
 //
@@ -295,25 +299,34 @@ __device__ __forceinline__ void finish_point(long long i, int b, int B, const fl
   }
 }
 
-__device__ __forceinline__ void load_point(const float* __restrict__ pts, long long c, long long N,
-                                           long long i, float p[3]) {
-  const float* q = pts + (c * N + i) * 3;
-  p[0] = __ldg(q); p[1] = __ldg(q + 1); p[2] = __ldg(q + 2);
-}
-
 struct Args {
-  const float* pts;   // [C, B, FS, seg, 3]
-  const float* Rb;    // [C, B, 3, 3]
+  const float* points;  // [F, 3] world points, shared by every configuration
+  const float* T;       // [C, B, 4, 4] obj_to_link rows
+  const float* Rb;      // [C, B, 3, 3]
   const long long* desc;
   int C, B, FS, seg;
-  long long T, N;     // tiles B * FS, points T * seg
+  long long F, NT, N;   // points a configuration FS * seg, tiles B * FS, points NT * seg
   float* val;         // [N]
   float* g_obj;       // [N, 3]
   long long* win;     // [N]
   float* g_link;      // [N, 3]
-  int* middle;        // [T] (C > 3)
+  int* middle;        // [NT] (C > 3)
   unsigned char* mask;  // [N]: in-grid points of middle tiles (C > 3)
 };
+
+// Point i (of [B, FS, seg]) of configuration b in child c's frame: its world
+// point through T[c, b], as transforms.transform_points rounds it.
+__device__ __forceinline__ void load_point(const Args& a, int c, int b, long long i, float p[3]) {
+  const float* w = a.points + (i - static_cast<long long>(b) * a.F) * 3;
+  const float x = __ldg(w), y = __ldg(w + 1), z = __ldg(w + 2);
+  const float* m = a.T + (static_cast<long long>(c) * a.B + b) * 16;
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    p[r] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(__ldg(m + 4 * r), x),
+                                         __fmul_rn(__ldg(m + 4 * r + 1), y)),
+                               __fmul_rn(__ldg(m + 4 * r + 2), z)),
+                     __ldg(m + 4 * r + 3));
+}
 
 // seg <= 32: floor(32 / seg) tiles a warp, one point a lane, the union
 // child by child with the running winner in registers.
@@ -327,7 +340,7 @@ __global__ void __launch_bounds__(kSmallThreads) union_small(Args a) {
   const int group = lane / a.seg;
   const long long warp = (static_cast<long long>(blockIdx.x) * kSmallThreads + threadIdx.x) / kWarp;
   const long long tile = warp * per_warp + group;
-  if (group >= per_warp || tile >= a.T) return;  // whole tiles leave together
+  if (group >= per_warp || tile >= a.NT) return;  // whole tiles leave together
   const unsigned mask = a.seg == kWarp ? kFull : ((1u << a.seg) - 1u) << (group * a.seg);
   const long long i = tile * a.seg + (lane - group * a.seg);
   const int b = static_cast<int>(tile / a.FS);
@@ -340,7 +353,7 @@ __global__ void __launch_bounds__(kSmallThreads) union_small(Args a) {
   for (int c = 0; c < a.C; ++c) {
     const Child& ch = sh[c];
     float p[3];
-    load_point(a.pts, c, a.N, i, p);
+    load_point(a, c, b, i, p);
     int kc[3], corner2[3];
     const bool valid = voxel_keys(p, ch, kc);
 #pragma unroll
@@ -383,7 +396,7 @@ __global__ void __launch_bounds__(kMultiThreads) union_multi(Args a) {
   __syncthreads();
   const int lane = threadIdx.x & (kWarp - 1);
   const long long tile = (static_cast<long long>(blockIdx.x) * kMultiThreads + threadIdx.x) / kWarp;
-  if (tile >= a.T) return;  // whole warps leave together
+  if (tile >= a.NT) return;  // whole warps leave together
   const long long i0 = tile * a.seg;
   const int b = static_cast<int>(tile / a.FS);
 
@@ -392,7 +405,7 @@ __global__ void __launch_bounds__(kMultiThreads) union_multi(Args a) {
     for (int j = lane; j < a.seg; j += kWarp) {
       float p[3];
       int kc[3];
-      load_point(a.pts, c, a.N, i0 + j, p);
+      load_point(a, c, b, i0 + j, p);
       voxel_keys(p, sh[c], kc);
 #pragma unroll
       for (int d = 0; d < 3; ++d) m[d] = min(m[d], kc[d]);
@@ -417,7 +430,7 @@ __global__ void __launch_bounds__(kMultiThreads) union_multi(Args a) {
     for (int c = 0; c < a.C; ++c) {
       float p[3];
       int kc[3];
-      load_point(a.pts, c, a.N, i, p);
+      load_point(a, c, b, i, p);
       const bool valid = voxel_keys(p, sh[c], kc);
       const Eval e = eval_child(p, sh[c], kc, valid, corners + 3 * c);
       if (kValuesOnly) {
@@ -443,7 +456,7 @@ __global__ void __launch_bounds__(kMultiThreads) union_multi(Args a) {
     const int w = static_cast<int>(a.win[i]);
     float p[3];
     int kc[3];
-    load_point(a.pts, w, a.N, i, p);
+    load_point(a, w, b, i, p);
     const bool valid = voxel_keys(p, sh[w], kc);
     const Eval e = eval_child(p, sh[w], kc, valid, corners + 3 * w);
     if (middle) a.mask[i] = valid;
@@ -645,31 +658,32 @@ int launch(Kernel kernel, long long blocks, int threads, size_t smem, cudaStream
 
 }  // namespace
 
-// C interface, loaded with ctypes.  pts [C, B, FS, seg, 3] and Rb [C, B, 3,
-// 3] float32, contiguous on the device (Rb unread with values_only); desc
-// [C, 9] int64 on the device: each child's pointers in the order of
-// kNumPtrs' note.  Outputs val [N] and, unless values_only, g_obj [N, 3],
-// win [N] int64, g_link [N, 3] and, for C > 3, middle [B * FS] int32 and
-// mask [N] uint8 (written in middle tiles only).  Launches on `stream` and
-// returns the launch's CUDA error code (0 on success).
-extern "C" int pvt_coherent_union_tile(const float* pts, const float* Rb, const long long* desc,
-                                       int C, int B, int FS, int seg, int values_only,
-                                       float* val, float* g_obj, long long* win, float* g_link,
-                                       int* middle, unsigned char* mask, void* stream_ptr) {
-  Args a{pts, Rb, desc, C, B, FS, seg, static_cast<long long>(B) * FS, 0,
-         val, g_obj, win, g_link, middle, mask};
-  a.N = a.T * seg;
+// C interface, loaded with ctypes.  points [FS * seg, 3], T [C, B, 4, 4]
+// and Rb [C, B, 3, 3] float32, contiguous on the device (Rb unread with
+// values_only); desc [C, 9] int64 on the device: each child's pointers in
+// the order of kNumPtrs' note.  Outputs val [N] and, unless values_only,
+// g_obj [N, 3], win [N] int64, g_link [N, 3] and, for C > 3, middle [B * FS]
+// int32 and mask [N] uint8 (written in middle tiles only).  Launches on
+// `stream` and returns the launch's CUDA error code (0 on success).
+extern "C" int pvt_coherent_union_tile(const float* points, const float* T, const float* Rb,
+                                       const long long* desc, int C, int B, int FS, int seg,
+                                       int values_only, float* val, float* g_obj,
+                                       long long* win, float* g_link, int* middle,
+                                       unsigned char* mask, void* stream_ptr) {
+  Args a{points, T, Rb, desc, C, B, FS, seg, static_cast<long long>(FS) * seg,
+         static_cast<long long>(B) * FS, 0, val, g_obj, win, g_link, middle, mask};
+  a.N = a.NT * seg;
   if (a.N <= 0 || C <= 0) return 0;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const size_t staged = sizeof(Child) * C;
   if (seg <= kWarp) {
     const long long per_block = (kSmallThreads / kWarp) * (kWarp / seg);
-    const long long blocks = (a.T + per_block - 1) / per_block;
+    const long long blocks = (a.NT + per_block - 1) / per_block;
     return values_only ? launch(union_small<true>, blocks, kSmallThreads, staged, stream, a)
                        : launch(union_small<false>, blocks, kSmallThreads, staged, stream, a);
   }
   const long long per_block = kMultiThreads / kWarp;
-  const long long blocks = (a.T + per_block - 1) / per_block;
+  const long long blocks = (a.NT + per_block - 1) / per_block;
   const size_t smem = staged + sizeof(int) * 3 * C * per_block;
   return values_only ? launch(union_multi<true>, blocks, kMultiThreads, smem, stream, a)
                      : launch(union_multi<false>, blocks, kMultiThreads, smem, stream, a);

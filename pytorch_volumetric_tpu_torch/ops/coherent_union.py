@@ -3,7 +3,10 @@
 :func:`coherent_union_tile` (``csrc/coherent_union.cu``) is the drop-in
 equivalent of the plain versions ``sdf._union_tile_eval`` (value, object-
 and link-frame gradients and winner of every point of a per-tile winner
-union) and ``sdf._union_values_eval`` (values only).  For CUDA tensors it
+union) and ``sdf._union_values_eval`` (values only), each after
+``transforms.transform_points`` of the world points by the children's
+``obj_to_link`` rows.  The kernel forms each link-frame point in registers
+and stores none.  For CUDA tensors it
 launches the kernel on PyTorch's current stream (the library is built from
 ``csrc/`` at first use), or raises; for CPU tensors it runs the plain
 version.  One call launches the union kernel once, counted in
@@ -59,7 +62,7 @@ def _entry():
     lib = cuda_build.load(KERNEL)
     tile, poison = getattr(lib, _TILE), getattr(lib, _POISON)
     if tile.argtypes is None:
-        tile.argtypes = [_p, _p, _p, _i, _i, _i, _i, _i, _p, _p, _p, _p, _p, _p, _p]
+        tile.argtypes = [_p, _p, _p, _p, _i, _i, _i, _i, _i, _p, _p, _p, _p, _p, _p, _p]
         tile.restype = ctypes.c_int
         poison.argtypes = [_p, _p, _i, _ll, _i, _p, _p, _p, _p]
         poison.restype = ctypes.c_int
@@ -71,12 +74,16 @@ def _entry():
     return lib, tile, poison
 
 
-def _check_inputs(pts_c: torch.Tensor, Rb: torch.Tensor, fields: dict,
-                  values_only: bool) -> None:
-    if pts_c.dim() != 5 or pts_c.shape[-1] != 3:
-        raise ValueError(f"pts_c must be [C, B, FS, seg, 3], got {tuple(pts_c.shape)}")
-    C, B = pts_c.shape[:2]
-    named = [("pts_c", pts_c)]
+def _check_inputs(points: torch.Tensor, T: torch.Tensor, seg: int, Rb: torch.Tensor,
+                  fields: dict, values_only: bool) -> None:
+    if points.dim() != 2 or points.shape[-1] != 3:
+        raise ValueError(f"points must be [F, 3], got {tuple(points.shape)}")
+    if seg < 1 or points.shape[0] % seg:
+        raise ValueError(f"points count {points.shape[0]} must be a multiple of seg={seg}")
+    if T.dim() != 4 or tuple(T.shape[2:]) != (4, 4):
+        raise ValueError(f"T must be [C, B, 4, 4], got {tuple(T.shape)}")
+    C, B = T.shape[:2]
+    named = [("points", points), ("T", T)]
     if not values_only:
         if tuple(Rb.shape) != (C, B, 3, 3):
             raise ValueError(f"Rb must be [C, B, 3, 3] = {(C, B, 3, 3)}, got {tuple(Rb.shape)}")
@@ -100,16 +107,16 @@ def _check_inputs(pts_c: torch.Tensor, Rb: torch.Tensor, fields: dict,
                 raise TypeError(f"{name}[{c}] must be {dtype}, got {t.dtype}")
             named.append((f"{name}[{c}]", t))
     for name, t in named:
-        if name in ("pts_c", "Rb") and t.dtype != torch.float32:
+        if name in ("points", "T", "Rb") and t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.device != pts_c.device:
-            raise ValueError(f"{name} lies on {t.device}, pts_c on {pts_c.device}")
-    if max(pts_c.shape[1:4]) >= 2 ** 31:
+        if t.device != points.device:
+            raise ValueError(f"{name} lies on {t.device}, points on {points.device}")
+    if max(B, points.shape[0] // seg, seg) >= 2 ** 31:
         raise ValueError("B, FS and seg must each fit 32 bits")
-    if pts_c.device.type != "cuda":
-        raise ValueError(f"the kernel takes CUDA tensors, got {pts_c.device}")
+    if points.device.type != "cuda":
+        raise ValueError(f"the kernel takes CUDA tensors, got {points.device}")
 
 
 def _descriptor(fields: dict, device: torch.device) -> torch.Tensor:
@@ -133,24 +140,27 @@ def _descriptor(fields: dict, device: torch.device) -> torch.Tensor:
 
 
 def _coherent_union_tile_op_cuda(
-        pts_c: torch.Tensor, Rb: torch.Tensor, lo: List[torch.Tensor],
+        points: torch.Tensor, T: torch.Tensor, Rb: torch.Tensor, lo: List[torch.Tensor],
         inv_res: List[torch.Tensor], n: List[torch.Tensor], strides: List[torch.Tensor],
         bstrides: List[torch.Tensor], bb: List[torch.Tensor], bricks: List[torch.Tensor],
-        gbricks: List[torch.Tensor], vg: List[torch.Tensor], capacity: int, values_only: bool
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        gbricks: List[torch.Tensor], vg: List[torch.Tensor], seg: int, capacity: int,
+        values_only: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(val [B, FS, seg], g_obj [B, FS, seg, 3], win [B, FS, seg] int64,
-    g_link [B, FS, seg, 3])`` of the per-tile nearest union of ``pts_c [C,
-    B, FS, seg, 3]`` with rotations ``Rb [C, B, 3, 3]``; with
-    ``values_only`` just ``val`` and three empty tensors (``Rb`` and
-    ``gbricks`` unread).  ``capacity``: the residual lane's capacity in
-    tiles; the middle tiles beyond it get NaN gradients.  The kernel."""
+    g_link [B, FS, seg, 3])`` of the per-tile nearest union of the world
+    ``points [FS * seg, 3]`` in the children's frames, ``T[c, b] @ points``
+    (``T [C, B, 4, 4]``, the children's obj_to_link rows), with rotations
+    ``Rb [C, B, 3, 3]``; with ``values_only`` just ``val`` and three empty
+    tensors (``Rb`` and ``gbricks`` unread).  ``capacity``: the residual
+    lane's capacity in tiles; the middle tiles beyond it get NaN gradients.
+    The kernel."""
     if capacity < 0:
         raise ValueError(f"capacity must be >= 0, got {capacity}")
     fields = dict(zip(FIELDS, (lo, inv_res, n, strides, bstrides, bb, bricks, gbricks, vg)))
-    _check_inputs(pts_c, Rb, fields, values_only)
+    _check_inputs(points, T, seg, Rb, fields, values_only)
     lib, tile, poison = _entry()
-    C, B, FS, seg = pts_c.shape[:4]
-    dev = pts_c.device
+    C, B = T.shape[:2]
+    FS = points.shape[0] // seg
+    dev = points.device
     N = B * FS * seg
     val = torch.empty((B, FS, seg), dtype=torch.float32, device=dev)
     if values_only:
@@ -169,7 +179,7 @@ def _coherent_union_tile_op_cuda(
         desc = _descriptor(fields, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
-            code = tile(pts_c.data_ptr(), None if values_only else Rb.data_ptr(),
+            code = tile(points.data_ptr(), T.data_ptr(), None if values_only else Rb.data_ptr(),
                         desc.data_ptr(), C, B, FS, seg, int(values_only), val.data_ptr(),
                         g_obj.data_ptr(), win.data_ptr(), g_link.data_ptr(),
                         middle.data_ptr(), mask.data_ptr(), stream)
@@ -191,14 +201,15 @@ coherent_union_tile_op = torch.library.custom_op(
 
 
 @coherent_union_tile_op.register_fake
-def _coherent_union_tile_op_fake(pts_c, Rb, lo, inv_res, n, strides, bstrides, bb, bricks,
-                                 gbricks, vg, capacity, values_only):
-    B, FS, seg = pts_c.shape[1:4]
+def _coherent_union_tile_op_fake(points, T, Rb, lo, inv_res, n, strides, bstrides, bb, bricks,
+                                 gbricks, vg, seg, capacity, values_only):
+    B, FS = T.shape[1], points.shape[0] // seg
     if values_only:
-        e = pts_c.new_empty(0)
-        return pts_c.new_empty((B, FS, seg)), e, e.to(torch.int64), e.clone()
-    return (pts_c.new_empty((B, FS, seg)), pts_c.new_empty((B, FS, seg, 3)),
-            pts_c.new_empty((B, FS, seg), dtype=torch.int64), pts_c.new_empty((B, FS, seg, 3)))
+        e = points.new_empty(0)
+        return points.new_empty((B, FS, seg)), e, e.to(torch.int64), e.clone()
+    return (points.new_empty((B, FS, seg)), points.new_empty((B, FS, seg, 3)),
+            points.new_empty((B, FS, seg), dtype=torch.int64),
+            points.new_empty((B, FS, seg, 3)))
 
 
 def op_args(tables: Sequence, values_only: bool = False) -> List[List[torch.Tensor]]:
@@ -208,21 +219,25 @@ def op_args(tables: Sequence, values_only: bool = False) -> List[List[torch.Tens
             else [getattr(t, name).contiguous() for t in tables] for name in FIELDS]
 
 
-def coherent_union_tile(tables: Sequence, pts_c: torch.Tensor, Rb: torch.Tensor = None,
-                        capacity: int = None, values_only: bool = False):
+def coherent_union_tile(tables: Sequence, points: torch.Tensor, T: torch.Tensor, seg: int,
+                        Rb: torch.Tensor = None, capacity: int = None,
+                        values_only: bool = False):
     """The per-tile nearest union of the children's ``sdf._CoherentTables``
-    over ``pts_c [C, B, FS, seg, 3]`` (detached): ``(val, g_obj, win,
-    g_link)`` with the rotations ``Rb [C, B, 3, 3]`` and the residual
-    lane's ``capacity`` in tiles (``sdf.residual_capacity`` of ``B * FS``),
-    or ``val [B, FS, seg]`` alone with ``values_only``."""
-    if pts_c.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {pts_c.device}")
+    over the world ``points [FS * seg, 3]`` in ``seg``-point tiles, each
+    child's points ``T[c] @ points`` (``T [C, B, 4, 4]``, its obj_to_link
+    rows; all detached): ``(val, g_obj, win, g_link)`` with the rotations
+    ``Rb [C, B, 3, 3]`` and the residual lane's ``capacity`` in tiles
+    (``sdf.residual_capacity`` of ``B * FS``), or ``val [B, FS, seg]``
+    alone with ``values_only``."""
+    if points.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {points.device}")
     if values_only:
-        Rb, capacity = pts_c.new_empty(0), 0
+        Rb, capacity = points.new_empty(0), 0
     elif Rb is None or capacity is None:
         raise ValueError("the forward takes the rotations Rb and the residual lane's capacity")
-    out = coherent_union_tile_op(pts_c.contiguous(), Rb.contiguous(),
-                                 *op_args(tables, values_only), int(capacity),
+    p = points.to(T.dtype)  # as transforms.transform_points takes them
+    out = coherent_union_tile_op(p.contiguous(), T.contiguous(), Rb.contiguous(),
+                                 *op_args(tables, values_only), int(seg), int(capacity),
                                  bool(values_only))
     return out[0] if values_only else out
 

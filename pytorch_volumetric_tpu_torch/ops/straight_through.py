@@ -13,10 +13,11 @@ such as ``val + ((pts - pts.detach()) * grad).sum(-1)`` would not.
 
 - :func:`straight_through`: d val / d pts = grad (every child lookup);
 - :func:`tile_winner_straight_through`: the per-tile winner unions of the
-  coherent path, d val / d pts_c[ci] = (win == ci) * the winner's gradient;
-  they also carry the object-frame gradient's derivative w.r.t. the
-  rotations, and take the link-frame points' derivative straight back to
-  the world points and the transforms that made them.
+  coherent path, d val / d (the point in child ci's frame) = (win == ci) *
+  the winner's gradient; they also carry the object-frame gradient's
+  derivative w.r.t. the rotations, and take the link-frame points'
+  derivative straight back to the world points and the transforms that
+  made them.
 """
 
 from __future__ import annotations

@@ -831,17 +831,28 @@ def _lerp5(table: torch.Tensor, row, base5, w) -> torch.Tensor:
     return acc
 
 
+def _link_points(T: torch.Tensor, points: torch.Tensor, seg: int) -> torch.Tensor:
+    """The world ``points [F, 3]`` in each frame of ``T [C, B, 4, 4]``, on
+    the tile layout ``[C, B, F // seg, seg, 3]``: ``compose_query``'s
+    link-frame points, ``transforms.transform_points``' bits."""
+    C, B = T.shape[:2]
+    return tfm.transform_points(T, points).reshape(C, B, points.shape[0] // seg, seg, 3)
+
+
 def _union_values_eval(tables: Sequence[_CoherentTables], pts_c: torch.Tensor):
-    """The plain version of :func:`_coherent_union_values`."""
+    """The plain version of :func:`_coherent_union_values` on the children's
+    link-frame points ``pts_c [C, B, FS, seg, 3]`` (:func:`_link_points`)."""
     return _nearest_union(tables, pts_c)[0].amin(dim=0)
 
 
-def _coherent_union_values(tables: Sequence[_CoherentTables], pts_c: torch.Tensor):
-    """Values only of the nearest brick union: ``pts_c [C, B, FS, seg, 3]
-    -> val [B, FS, seg]`` (no winner, no gradient; callers detach), through
+def _coherent_union_values(tables: Sequence[_CoherentTables], points: torch.Tensor,
+                           T: torch.Tensor, seg: int):
+    """Values only of the nearest brick union of the world ``points [FS *
+    seg, 3]`` in the children's frames ``T [C, B, 4, 4]`` -> ``val [B, FS,
+    seg]`` (no winner, no gradient; callers detach), through
     ``pvt::coherent_union_tile`` (:mod:`ops.coherent_union`: the kernel on
     the card, :func:`_union_values_eval` on the CPU)."""
-    return coherent_union_tile(tables, pts_c, values_only=True)
+    return coherent_union_tile(tables, points, T, seg, values_only=True)
 
 
 def _tile_candidate_ids(best_i, best_valid, C: int):
@@ -917,10 +928,9 @@ def coherent_middle_tiles(children: Sequence[ObjectFrameSDF], obj_to_link: torch
     if plan.route not in ("tile_union", "trilinear_union") or len(plan.bricks) <= 3:
         return None
     tables = fast_tables if fast_tables is not None else coherent_fast_tables(children)
-    S, F = len(children), points.shape[0]
+    T = obj_to_link.reshape(len(children), batch, 4, 4)[list(plan.bricks)]
     with torch.no_grad():
-        pts_all = tfm.transform_points(obj_to_link, points).reshape(S, batch, F // seg, seg, 3)
-        pts_c = torch.stack([pts_all[i] for i in plan.bricks])
+        pts_c = _link_points(T, points, seg)
         if plan.route == "trilinear_union":
             v, (valid, *_) = _trilinear_union_values(tables, pts_c)
         else:
@@ -967,9 +977,11 @@ def _rotate_winners(Rb: torch.Tensor, win: torch.Tensor, g_link: torch.Tensor):
 
 
 def _union_tile_eval(tables, cap, pts_c, Rb):
-    """The plain version of :func:`_coherent_union_lookup_tile`'s forward,
-    plus the winner's link-frame gradient for the backward: ``(val, g_obj,
-    win, g_link)``; ``cap``: the residual lane's capacity in tiles."""
+    """The plain version of :func:`_coherent_union_lookup_tile`'s forward on
+    the children's link-frame points ``pts_c [C, B, FS, seg, 3]``
+    (:func:`_link_points`), plus the winner's link-frame gradient for the
+    backward: ``(val, g_obj, win, g_link)``; ``cap``: the residual lane's
+    capacity in tiles."""
     C = len(tables)
     v, valid, flat, row, cell, g_oob = _nearest_union(tables, pts_c)
     win, pick = _first_min(v)
@@ -993,44 +1005,45 @@ def _union_tile_eval(tables, cap, pts_c, Rb):
 
 
 @coherent_union_tile_op.register_kernel("cpu")
-def _coherent_union_tile_op_cpu(pts_c, Rb, lo, inv_res, n, strides, bstrides, bb, bricks,
-                                gbricks, vg, capacity, values_only):
-    """``pvt::coherent_union_tile`` on the CPU: the plain version."""
+def _coherent_union_tile_op_cpu(points, T, Rb, lo, inv_res, n, strides, bstrides, bb, bricks,
+                                gbricks, vg, seg, capacity, values_only):
+    """``pvt::coherent_union_tile`` on the CPU: the plain version, on the
+    link-frame points that :func:`_link_points` writes."""
     fields = dict(zip(_UNION_FIELDS, (lo, inv_res, n, strides, bstrides, bb, bricks, gbricks,
                                       vg)))
     tables = tuple(_CoherentTables(**{k: fields[k][c] for k in _UNION_FIELDS if k != "gbricks"},
                                    gbricks=gbricks[c] if gbricks else None)
                    for c in range(len(vg)))
+    pts_c = _link_points(T, points, seg)
     if values_only:
-        e = pts_c.new_empty(0)
+        e = points.new_empty(0)
         return _union_values_eval(tables, pts_c), e, e.to(torch.int64), e.clone()
     return _union_tile_eval(tables, capacity, pts_c, Rb)
 
 
-def _tile_winner_lookup(pts_c: torch.Tensor, Rb: torch.Tensor, points: torch.Tensor,
-                        T: torch.Tensor, evaluate):
-    """``evaluate(pts_c, Rb) -> (val, g_obj, win, g_link)`` of a per-tile
+def _tile_winner_lookup(points: torch.Tensor, T: torch.Tensor, Rb: torch.Tensor, evaluate):
+    """``evaluate(points, T, Rb) -> (val, g_obj, win, g_link)`` of a per-tile
     winner union on the detached inputs, then its straight-through
     derivatives attached (:func:`ops.straight_through.tile_winner_straight_through`):
-    d val / d pts_c[ci] = (win == ci) * the winner's link-frame gradient,
-    taken back to the world ``points [F, 3]`` and the children's
-    obj_to_link rows ``T [C, B, 4, 4]`` (``pts_c`` is ``T @ points``), and
-    the gradient output's w.r.t. ``Rb``.  Returns ``(val, g_obj, win)``."""
-    val, g_obj, win, g_link = evaluate(pts_c.detach(), Rb.detach())
+    d val / d (the point in child ci's frame) = (win == ci) * the winner's
+    link-frame gradient, taken back to the world ``points [F, 3]`` and the
+    children's obj_to_link rows ``T [C, B, 4, 4]`` (the point in child ci's
+    frame is ``T[ci] @ points``), and the gradient output's w.r.t. ``Rb``.
+    Returns ``(val, g_obj, win)``."""
+    val, g_obj, win, g_link = evaluate(points.detach(), T.detach(), Rb.detach())
     if torch.is_grad_enabled():
         val, g_obj = tile_winner_straight_through(val, g_obj, win, g_link, points, T, Rb)
     return val, g_obj, win
 
 
-def _coherent_union_lookup_tile(tables: Sequence[_CoherentTables], pts_c: torch.Tensor,
-                                Rb: torch.Tensor, points: torch.Tensor, T: torch.Tensor,
+def _coherent_union_lookup_tile(tables: Sequence[_CoherentTables], points: torch.Tensor,
+                                T: torch.Tensor, Rb: torch.Tensor, seg: int,
                                 residual_frac: float = RESIDUAL_FRAC):
-    """Nearest brick union with per-TILE winner gradients: ``pts_c [C, B,
-    FS, seg, 3]`` (``T @ points``: ``T [C, B, 4, 4]`` the children's
-    obj_to_link rows, ``points [FS * seg, 3]``, which take the derivative),
-    ``Rb [C, B, 3, 3]`` (link -> object rotations) -> ``(val [B, FS, seg],
-    g_obj [B, FS, seg, 3], win [B, FS, seg])`` with ``g_obj`` in the OBJECT
-    frame.
+    """Nearest brick union with per-TILE winner gradients: the world
+    ``points [FS * seg, 3]`` (which take the derivative) in the children's
+    frames ``T [C, B, 4, 4]`` (their obj_to_link rows), ``Rb [C, B, 3, 3]``
+    (link -> object rotations) -> ``(val [B, FS, seg], g_obj [B, FS, seg,
+    3], win [B, FS, seg])`` with ``g_obj`` in the OBJECT frame.
 
     Values come from the value bricks.  Gradients: three candidate children
     per tile (its first and last distinct in-bounds winners, then the
@@ -1041,11 +1054,12 @@ def _coherent_union_lookup_tile(tables: Sequence[_CoherentTables], pts_c: torch.
     gradients (values unaffected).  Each point's gradient is then rotated
     with its winner's rotation (:func:`_finish_tile_union`).  The forward
     is ``pvt::coherent_union_tile`` (:mod:`ops.coherent_union`: the kernel
-    on the card, :func:`_union_tile_eval` on the CPU)."""
+    on the card, which forms each link-frame point in registers;
+    :func:`_union_tile_eval` after :func:`_link_points` on the CPU)."""
     tables = tuple(tables)
-    cap = residual_capacity(pts_c.shape[1] * pts_c.shape[2], residual_frac)
-    return _tile_winner_lookup(pts_c, Rb, points, T,
-                               lambda p, R: coherent_union_tile(tables, p, R, cap))
+    cap = residual_capacity(T.shape[1] * (points.shape[0] // seg), residual_frac)
+    return _tile_winner_lookup(points, T, Rb,
+                               lambda p, t, R: coherent_union_tile(tables, p, t, seg, R, cap))
 
 
 def _trilinear_union_values(tables: Sequence[_CoherentTables], pts_c: torch.Tensor):
@@ -1108,13 +1122,14 @@ def _coherent_union_lookup_tile_tri(tables: Sequence[_CoherentTables], pts_c: to
     candidate lerps its winner's gradient brick in the link frame, then
     rotates it with the winner's rotation; middle tiles take a
     residual lane of exact 8-corner winner rows, NaN beyond its capacity.
-    ``points`` and ``T`` as for :func:`_coherent_union_lookup_tile`.
-    Without ``Rb``: just ``val [B, FS, seg]`` (no gradient; callers
-    detach)."""
+    ``pts_c [C, B, FS, seg, 3]`` is ``T @ points`` on the tile layout
+    (:func:`_link_points`); ``points`` and ``T`` as for
+    :func:`_coherent_union_lookup_tile`.  Without ``Rb``: just ``val [B,
+    FS, seg]`` (no gradient; callers detach)."""
     evaluate = partial(_union_tile_tri_eval, tuple(tables), residual_frac)
     if Rb is None:
         return evaluate(pts_c)
-    return _tile_winner_lookup(pts_c, Rb, points, T, evaluate)
+    return _tile_winner_lookup(points, T, Rb, lambda p, t, R: evaluate(pts_c.detach(), R))
 
 
 def _single_brick_lookup(bricks4, p, t):
@@ -1188,11 +1203,17 @@ def compose_query_coherent(children: Sequence[ObjectFrameSDF],
     NaN gradients.  ``values_only=True`` returns just ``val [B, F]``,
     detached.  Otherwise returns ``(val [B, F], grad [B, F, 3])``.
 
+    The nearest union (and every nearest route's values) hands the world
+    points and the children's transforms to its kernel, which forms each
+    link-frame point in registers; the other routes and the generic children
+    write their link-frame points first.
+
     Counts the branches it takes in ``utils.profiling.COUNTERS``:
     ``path.coherent_trilinear`` (the lone trilinear cache or the trilinear
     union), ``path.coherent_single``, ``path.coherent_tile_union`` (the
     values-only union too) and ``path.coherent_generic``, one each per call
-    that takes it."""
+    that takes it, and ``path.link_points``, one per call that writes
+    link-frame points."""
     grad_mode = torch.no_grad() if values_only else contextlib.nullcontext()
     with profiling.span("pvt.lookup"), grad_mode:
         return _compose_coherent(children, obj_to_link, link_to_obj, batch, points,
@@ -1215,15 +1236,20 @@ def _compose_coherent(children, obj_to_link, link_to_obj, batch, points, fast_ta
         raise ValueError(f"fast_tables lack {need}, the gradient bricks of the {route} "
                          "route; pass coherent_fast_tables(children)")
     FS = F // seg
-    # tile layout [S, B, FS, seg, 3]: a view of compose_query's [S*B, F, 3]
-    pts_all = tfm.transform_points(obj_to_link, points).reshape(S, batch, FS, seg, 3)
     T_all = obj_to_link.reshape(S, batch, 4, 4)
     R_back = link_to_obj.reshape(S, batch, 4, 4)[..., :3, :3]
+    # the nearest routes' kernel forms the link-frame points itself; the
+    # other routes read every child's, [S, B, FS, seg, 3] on the tile layout
+    nearest_kernel = route == "tile_union" or (values_only and route == "single")
+    pts_all = None if nearest_kernel else _link_points(T_all, points, seg)
+    if pts_all is not None or generic:
+        profiling.count("path.link_points")
     if generic_aux is None:
         generic_aux = tuple(children[i].raw_query_aux() for i in generic)
 
     def generic_query(k, i):
-        pts_flat = pts_all[i].reshape(batch * F, 3)
+        p = pts_all[i] if pts_all is not None else tfm.transform_points(T_all[i], points)
+        pts_flat = p.reshape(batch * F, 3)
         if generic_aux[k] is None:
             return children[i].raw_query(pts_flat)
         return children[i].raw_query_with(generic_aux[k], pts_flat)
@@ -1233,7 +1259,10 @@ def _compose_coherent(children, obj_to_link, link_to_obj, batch, points, fast_ta
         return x if len(idx) == S else torch.stack([x[i] for i in idx])
 
     def child_index(win):
-        # the winners' original child indices (no host-to-device copy)
+        # the winners' original child indices (no host-to-device copy), for
+        # the generic children's merge
+        if not generic:
+            return None
         out = torch.zeros_like(win)
         for ci, i in enumerate(idx):
             out = torch.where(win == ci, i, out)
@@ -1259,7 +1288,7 @@ def _compose_coherent(children, obj_to_link, link_to_obj, batch, points, fast_ta
     elif values_only and route in ("single", "tile_union"):
         # the nearest routes' values: one union, whatever its size
         profiling.count("path.coherent_tile_union")
-        best_v = _coherent_union_values(tables, of(pts_all))
+        best_v = _coherent_union_values(tables, points, of(T_all), seg)
     elif route == "single":
         # one cached child: no union to win, value and gradient from one
         # brick row per tile
@@ -1270,7 +1299,7 @@ def _compose_coherent(children, obj_to_link, link_to_obj, batch, points, fast_ta
     elif route == "tile_union":
         profiling.count("path.coherent_tile_union")
         best_v, best_g, win = _coherent_union_lookup_tile(
-            tables, of(pts_all), of(R_back), points, of(T_all), residual_frac=residual_frac)
+            tables, points, of(T_all), of(R_back), seg, residual_frac=residual_frac)
         best_i = child_index(win)
     if generic:
         profiling.count("path.coherent_generic")

@@ -1,14 +1,20 @@
 """The coherent per-tile nearest union as the op ``pvt::coherent_union_tile``
 (``ops/coherent_union.py``; its kernel ``csrc/coherent_union.cu`` runs only
-on the card) on the CPU, where the op is the plain version:
+on the card) on the CPU, where the op is the plain version.  The op takes
+the world points and the children's obj_to_link rows ``T``; its CPU kernel
+forms the link-frame points with ``transforms.transform_points`` first.
 
 - against the JAX package's ``_coherent_union_lookup_tile`` and
-  ``_coherent_union_values`` on the same numpy inputs (tiles around the
-  junction of 2 and 4 cached spheres, some tiles out of the grid, NaN and
-  +-inf points, random rotations), at the default residual fraction and at
-  1e-9, where the lane overflows.  Tolerances are the coherent path's
+  ``_coherent_union_values`` fed the link-frame points that the port's
+  ``transform_points`` makes (tiles around the junction of 2 and 4 cached
+  spheres, some tiles out of the grid, NaN and +-inf points, each
+  configuration a random rotation and shift of the junction's frames,
+  random rotations ``Rb``), at the default residual fraction and at 1e-9,
+  where the lane overflows.  Tolerances are the coherent path's
   against the JAX package (``test_torch_coherent``): values 1e-5,
   gradients 1e-4, winners and NaN places equal;
+- the op's CPU kernel bit for bit the plain ``_union_tile_eval`` on
+  ``transform_points(T, points)`` in the tile layout;
 - the op's schema and fake implementation (``torch.library.opcheck``) and
   the wrapper's refusals;
 - the kernel's design mirrored in torch: the winner by an in-order scan,
@@ -59,39 +65,51 @@ def _rotations(rng, shape):
 
 
 def _inputs(ct, seed, seg=SEG, fs=FS, near=0.05):
-    """``(pts_c [C, B, FS, seg, 3], Rb [C, B, 3, 3])`` in numpy: tiles at
-    random centres (most within ``near`` of the junction, one in six up to 0.8
-    away: out of the grid), their points within 0.01 of the centre; in one
-    tile in eight one coordinate of every point is NaN, +inf or -inf (every
-    fourth such tile all NaN), so that the tile keeps the contract (the JAX
-    package reads a tile that breaks it through a one-hot that misses, the
-    port clamps its offsets: they differ there by design); each child's
-    points in its frame (the junction's frames translate)."""
+    """``(points [FS * seg, 3], T [C, B, 4, 4], Rb [C, B, 3, 3])`` in
+    numpy: one world point set of tiles at random centres (most within
+    ``near`` of the junction, one in six up to 0.8 away: out of the grid),
+    their points within 0.01 of the centre; in one tile in eight one
+    coordinate of every point is NaN, +inf or -inf (every fourth such tile
+    all NaN), so that the tile keeps the contract (the JAX package reads a
+    tile that breaks it through a one-hot that misses, the port clamps its
+    offsets: they differ there by design).  ``T``: each child's frame (the
+    junction's frames translate) after a random rotation about the junction
+    and a shift of up to 0.003, one for each configuration."""
     rng = np.random.default_rng(seed)
     far = rng.random(fs) < 1 / 6
     centre = np.where(far[:, None], rng.uniform(-0.8, 0.8, (fs, 3)),
                       rng.uniform(-near, near, (fs, 3)))
-    obj = (centre[None, :, None] + rng.uniform(-0.01, 0.01, (B, fs, seg, 3))).astype(np.float32)
+    obj = (centre[:, None] + rng.uniform(-0.01, 0.01, (fs, seg, 3))).astype(np.float32)
     for j, f in enumerate(rng.choice(fs, size=max(4, fs // 8), replace=False)):
-        obj[:, f, :, j % 3] = (np.nan, np.inf, -np.inf)[j % 3]
+        obj[f, :, j % 3] = (np.nan, np.inf, -np.inf)[j % 3]
         if j % 4 == 3:
-            obj[:, f] = np.nan
+            obj[f] = np.nan
     m = ct.obj_frame_to_link_frame.get_matrix().numpy()
-    pts_c = np.stack([obj + m[c, :3, 3] for c in range(len(m))]).astype(np.float32)
-    return pts_c, _rotations(rng, (len(m), B))
+    pose = np.tile(np.eye(4), (B, 1, 1))
+    pose[:, :3, :3] = _rotations(rng, (B,))
+    pose[:, :3, 3] = rng.uniform(-0.003, 0.003, (B, 3))
+    T = np.einsum("cij,bjk->cbik", m, pose).astype(np.float32)
+    return obj.reshape(-1, 3), T, _rotations(rng, (len(m), B))
 
 
-def _port(ct, pts_c, Rb, frac, values_only=False):
+def _link_points(points, T, seg=SEG):
+    """The children's link-frame points ``[C, B, FS, seg, 3]`` as the port's
+    ``transforms.transform_points`` makes them."""
+    return tsdf._link_points(torch.as_tensor(T), torch.as_tensor(points), seg).numpy()
+
+
+def _port(ct, points, T, Rb, frac, values_only=False, seg=SEG):
     tables = tsdf.coherent_fast_tables(tuple(ct.sdfs))
-    cap = tsdf.residual_capacity(pts_c.shape[1] * pts_c.shape[2], frac)
+    cap = tsdf.residual_capacity(T.shape[1] * (points.shape[0] // seg), frac)
     with torch.no_grad():
-        return cu.coherent_union_tile(tables, torch.as_tensor(pts_c), torch.as_tensor(Rb), cap,
-                                      values_only=values_only)
+        return cu.coherent_union_tile(tables, torch.as_tensor(points), torch.as_tensor(T), seg,
+                                      torch.as_tensor(Rb), cap, values_only=values_only)
 
 
 def _jax(cj, pts_c, Rb, frac, seg=SEG):
-    """The JAX package's union on the same inputs, in the port's ``[B, FS,
-    seg]`` layout: ``(val, g_obj, win)`` and the values-only ``val``."""
+    """The JAX package's union on the same link-frame points, in the port's
+    ``[B, FS, seg]`` layout: ``(val, g_obj, win)`` and the values-only
+    ``val``."""
     children = tuple(cj.sdfs)
     smalls = [c._coherent_tables() for c in children]
     ft = jax_fast_tables(children)
@@ -119,15 +137,16 @@ def _close(a, b, tol):
 @pytest.mark.parametrize("C,frac", [(2, 0.04), (4, 0.04), (4, 1e-9)])
 def test_op_matches_jax(junctions, C, frac):
     cj, ct = junctions[C]
-    pts_c, Rb = _inputs(ct, seed=C)
-    val, g_obj, win, g_link = _port(ct, pts_c, Rb, frac)
+    points, T, Rb = _inputs(ct, seed=C)
+    pts_c = _link_points(points, T)
+    val, g_obj, win, g_link = _port(ct, points, T, Rb, frac)
     vj, gj, wj, voj = _jax(cj, pts_c, Rb, frac)
     assert val.shape == (B, FS, SEG) and g_obj.shape == g_link.shape == (B, FS, SEG, 3)
     assert win.dtype == torch.int64
     np.testing.assert_array_equal(win.numpy(), wj)
     _close(val, vj, V_TOL)
     _close(g_obj, gj, G_TOL)
-    vo = _port(ct, pts_c, Rb, frac, values_only=True)
+    vo = _port(ct, points, T, Rb, frac, values_only=True)
     _close(vo, voj, V_TOL)
     assert torch.equal(vo, val)
     finite = np.isfinite(pts_c).all(axis=(0, -1))
@@ -147,18 +166,18 @@ def _valid_of_winner(ct, pts_c, win):
     return valid.gather(0, win[None])[0]
 
 
-def _op_args(ct, pts_c, Rb, values_only):
+def _op_args(ct, points, T, Rb, values_only):
     tables = tsdf.coherent_fast_tables(tuple(ct.sdfs))
-    return (torch.as_tensor(pts_c), torch.as_tensor(Rb) if not values_only else torch.empty(0),
-            *cu.op_args(tables, values_only), tsdf.residual_capacity(B * pts_c.shape[2]),
-            values_only)
+    return (torch.as_tensor(points), torch.as_tensor(T),
+            torch.as_tensor(Rb) if not values_only else torch.empty(0),
+            *cu.op_args(tables, values_only), SEG,
+            tsdf.residual_capacity(B * (points.shape[0] // SEG)), values_only)
 
 
 @pytest.mark.parametrize("values_only", [False, True])
 def test_op_schema_and_fake(junctions, values_only):
     _, ct = junctions[4]
-    pts_c, Rb = _inputs(ct, seed=5, fs=8)
-    args = _op_args(ct, pts_c, Rb, values_only)
+    args = _op_args(ct, *_inputs(ct, seed=5, fs=8), values_only)
     torch.library.opcheck(cu.coherent_union_tile_op, args,
                           test_utils=("test_schema", "test_faketensor"))
     real = cu.coherent_union_tile_op(*args)
@@ -176,36 +195,83 @@ def test_op_schema_and_fake(junctions, values_only):
 def test_wrapper_refuses_what_the_kernel_does_not_take(junctions):
     _, ct = junctions[4]
     tables = tsdf.coherent_fast_tables(tuple(ct.sdfs))
-    pts_c, Rb = (torch.as_tensor(x) for x in _inputs(ct, seed=6, fs=4))
+    points, T, Rb = (torch.as_tensor(x) for x in _inputs(ct, seed=6, fs=4))
     with pytest.raises(ValueError, match="unsupported device"):
-        cu.coherent_union_tile(tables, pts_c.to("meta"), Rb.to("meta"), 32)
+        cu.coherent_union_tile(tables, points.to("meta"), T.to("meta"), SEG, Rb.to("meta"), 32)
     with pytest.raises(ValueError, match="residual lane's capacity"):
-        cu.coherent_union_tile(tables, pts_c, Rb)
+        cu.coherent_union_tile(tables, points, T, SEG, Rb)
 
-    def cuda_impl(pts, rb, values_only=False, **change):
+    def cuda_impl(pts, t, rb, seg=SEG, values_only=False, **change):
         fields = dict(zip(cu.FIELDS, cu.op_args(tables, values_only)))
         fields.update(change)
-        return cu._coherent_union_tile_op_cuda(pts, rb, *fields.values(), 32, values_only)
+        return cu._coherent_union_tile_op_cuda(pts, t, rb, *fields.values(), seg, 32,
+                                               values_only)
 
     with pytest.raises(ValueError, match="CUDA tensors"):
-        cuda_impl(pts_c, Rb)
+        cuda_impl(points, T, Rb)
     with pytest.raises(ValueError, match="capacity must be >= 0"):
-        cu._coherent_union_tile_op_cuda(pts_c, Rb, *cu.op_args(tables), -1, False)
-    with pytest.raises(ValueError, match=r"pts_c must be \[C, B, FS, seg, 3\]"):
-        cuda_impl(pts_c[..., :2], Rb)
-    with pytest.raises(TypeError, match="pts_c must be float32"):
-        cuda_impl(pts_c.double(), Rb)
+        cu._coherent_union_tile_op_cuda(points, T, Rb, *cu.op_args(tables), SEG, -1, False)
+    with pytest.raises(ValueError, match=r"points must be \[F, 3\]"):
+        cuda_impl(points[..., :2], T, Rb)
+    with pytest.raises(ValueError, match="must be a multiple of seg=5"):
+        cuda_impl(points, T, Rb, seg=5)
+    with pytest.raises(TypeError, match="points must be float32"):
+        cuda_impl(points.double(), T, Rb)
+    with pytest.raises(ValueError, match=r"T must be \[C, B, 4, 4\]"):
+        cuda_impl(points, T[..., :3, :], Rb)
+    with pytest.raises(TypeError, match="T must be float32"):
+        cuda_impl(points, T.double(), Rb)
     with pytest.raises(ValueError, match="Rb must be"):
-        cuda_impl(pts_c, Rb[:, :1])
-    with pytest.raises(ValueError, match="pts_c must be contiguous"):
-        cuda_impl(pts_c.transpose(2, 3).contiguous().transpose(2, 3), Rb)
+        cuda_impl(points, T, Rb[:, :1])
+    with pytest.raises(ValueError, match="Rb must be"):
+        cuda_impl(points, T[:, :1].contiguous(), Rb)
+    with pytest.raises(ValueError, match="points must be contiguous"):
+        cuda_impl(points.t().contiguous().t(), T, Rb)
+    with pytest.raises(ValueError, match="T must be contiguous"):
+        cuda_impl(points, T.transpose(0, 1).contiguous().transpose(0, 1), Rb)
     with pytest.raises(ValueError, match="tensors for 4 children"):
-        cuda_impl(pts_c, Rb, bricks=[t.bricks for t in tables[:3]])
+        cuda_impl(points, T, Rb, bricks=[t.bricks for t in tables[:3]])
     with pytest.raises(TypeError, match=r"n\[0\] must be torch.int64"):
-        cuda_impl(pts_c, Rb, n=[t.n.int() for t in tables])
+        cuda_impl(points, T, Rb, n=[t.n.int() for t in tables])
     with pytest.raises(ValueError, match=r"gbricks\[1\] must be \[rows, 3, 64\]"):
-        cuda_impl(pts_c, Rb, gbricks=[t.gbricks[:, :2] if i == 1 else t.gbricks
-                                      for i, t in enumerate(tables)])
+        cuda_impl(points, T, Rb, gbricks=[t.gbricks[:, :2] if i == 1 else t.gbricks
+                                          for i, t in enumerate(tables)])
+
+
+@pytest.mark.parametrize("C,frac", [(2, 0.04), (4, 0.04), (4, 1e-9)])
+def test_op_cpu_kernel_is_the_plain_version_on_transformed_points(junctions, C, frac):
+    """The op's CPU kernel (the CUDA kernel's plain version) equals
+    ``_union_tile_eval`` on ``transform_points(T, points)`` in the tile
+    layout bit for bit: every output's bits, ``-0.0`` and NaN places
+    included (NaN taken as one pattern), and the values only.  A zero row
+    of ``-0.0`` in configuration 0's rotations plants ``-0.0`` in
+    ``g_obj``."""
+    _, ct = junctions[C]
+    points, T, Rb = _inputs(ct, seed=20 + C)
+    Rb[:, 0, 2] = -0.0
+    tables = tsdf.coherent_fast_tables(tuple(ct.sdfs))
+    cap = tsdf.residual_capacity(B * FS, frac)
+    pts_c = pt.transforms.transform_points(torch.as_tensor(T), torch.as_tensor(points)).reshape(
+        C, B, FS, SEG, 3)
+    with torch.no_grad():
+        out = _port(ct, points, T, Rb, frac)
+        ref = tsdf._union_tile_eval(tables, cap, pts_c, torch.as_tensor(Rb))
+        vo = _port(ct, points, T, Rb, frac, values_only=True)
+        ref_vo = tsdf._union_values_eval(tables, pts_c)
+    for a, b in zip(out + (vo,), ref + (ref_vo,)):
+        assert _same_bits(a, b)
+    assert torch.isnan(out[1]).any() and torch.isnan(out[3]).any()
+    assert bool(((out[1] == 0) & torch.signbit(out[1])).any())
+
+
+def _same_bits(a, b):
+    """Equal bit for bit (``-0.0`` apart from ``0.0``), every NaN taken as
+    one pattern."""
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]))
 
 
 def _kernel_emulation(tables, pts_c, Rb, lanes=None):
@@ -280,8 +346,8 @@ def _same(a, b):
 def test_kernel_design_equals_plain(junctions, frac, C, seg, lanes):
     _, ct = junctions[C]
     tables = tsdf.coherent_fast_tables(tuple(ct.sdfs))
-    pts_c, Rb = (torch.as_tensor(x) for x in _inputs(ct, seed=10 + seg, seg=seg, fs=24,
-                                                              near=0.02))
+    points, T, Rb = _inputs(ct, seed=10 + seg, seg=seg, fs=24, near=0.02)
+    pts_c, Rb = torch.as_tensor(_link_points(points, T, seg)), torch.as_tensor(Rb)
     with torch.no_grad():
         val, g_obj, win, g_link, middle, mask = _kernel_emulation(tables, pts_c, Rb, lanes)
         cap = tsdf.residual_capacity(middle.numel(), frac)

@@ -448,10 +448,12 @@ def test_a_labelled_sweep_still_counts(card, tmp_path, monkeypatch):
 
 def _union_case(device, C, seg, tmp_path, n_configs=3, n_tiles=64):
     """The per-tile union's inputs: ``C`` cached spheres (radius 0.02,
-    0.04 voxels) centred on a circle of 0.012, tiles within 0.05 of its
-    centre (every ninth one spread over 0.1: it breaks the contract and its
-    offsets clamp), points NaN or +-inf in one or all coordinates, random
-    rotations.  Returns ``(tables, pts_c, Rb)``."""
+    0.04 voxels) centred on a circle of 0.012; one world point set of tiles
+    within 0.05 of its centre (every ninth one spread over 0.1: it breaks
+    the contract and its offsets clamp), points NaN or +-inf in one or all
+    coordinates; ``T``: each sphere's frame after a random rotation about
+    the centre and a shift of up to 0.003, one for each configuration;
+    random rotations ``Rb``.  Returns ``(tables, points, T, Rb)``."""
     rng = np.random.default_rng(C * 100 + seg)
     tables = tuple(pt.CachedSDF(f"u{i}", 0.04, np.array([[-0.5, 0.5]] * 3),
                                 pt.SphereSDF(0.02, device=device),
@@ -461,16 +463,22 @@ def _union_case(device, C, seg, tmp_path, n_configs=3, n_tiles=64):
     shift = np.stack([0.012 * np.cos(ang), 0.012 * np.sin(ang), np.zeros(C)], 1)
     spread = np.where(np.arange(n_tiles) % 9 == 8, 0.1, 0.01)[:, None, None]
     obj = rng.uniform(-0.05, 0.05, (n_tiles, 1, 3)) + rng.uniform(
-        -1, 1, (n_configs, n_tiles, seg, 3)) * spread
+        -1, 1, (n_tiles, seg, 3)) * spread
     flat = obj.reshape(-1, 3)
-    for j, k in enumerate(rng.choice(len(flat), size=len(flat) // 40, replace=False)):
+    for j, k in enumerate(rng.choice(len(flat), size=max(3, len(flat) // 40), replace=False)):
         flat[k, j % 3] = (np.nan, np.inf, -np.inf)[j % 3]
         if j % 5 == 0:
             flat[k] = np.nan
-    pts_c = (obj[None] - shift[:, None, None, None]).astype(np.float32)
-    R, r = np.linalg.qr(rng.normal(size=(C, n_configs, 3, 3)))
-    Rb = (R * np.sign(np.diagonal(r, axis1=-2, axis2=-1))[..., None, :]).astype(np.float32)
-    return tables, torch.as_tensor(pts_c, device=device), torch.as_tensor(Rb, device=device)
+
+    def rotations(shape):
+        R, r = np.linalg.qr(rng.normal(size=shape + (3, 3)))
+        return R * np.sign(np.diagonal(r, axis1=-2, axis2=-1))[..., None, :]
+
+    T = np.tile(np.eye(4), (C, n_configs, 1, 1))
+    T[..., :3, :3] = rotations((n_configs,))[None]
+    T[..., :3, 3] = rng.uniform(-0.003, 0.003, (C, n_configs, 3)) - shift[:, None]
+    return tables, *(torch.as_tensor(x.astype(np.float32), device=device)
+                     for x in (flat, T, rotations((C, n_configs))))
 
 
 def _same_bits(a, b):
@@ -487,51 +495,66 @@ def _same_bits(a, b):
 @pytest.mark.parametrize("C", [2, 4, 8])
 @pytest.mark.parametrize("seg", [1, 12, 27, 32, 64])
 def test_coherent_union_kernel_matches_plain_on_card(card, tmp_path, C, seg):
-    """The union kernel (``csrc/coherent_union.cu``) against its plain
-    version (``sdf._union_tile_eval``, ``sdf._union_values_eval``) on the
-    card: ``val``, ``g_obj``, ``win``, ``g_link`` and the values-only
-    ``val`` bit for bit, at the default residual fraction and at 1e-9, one
-    launch a call."""
+    """The union kernel (``csrc/coherent_union.cu``), which forms each
+    link-frame point from the world points and ``T`` in registers, against
+    its plain version (``sdf._union_tile_eval``, ``sdf._union_values_eval``
+    on ``transforms.transform_points(T, points)``) on the card: ``val``,
+    ``g_obj``, ``win``, ``g_link`` and the values-only ``val`` bit for bit,
+    at the default residual fraction and at 1e-9, one launch a call."""
     from pytorch_volumetric_tpu_torch import sdf as tsdf
     from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
-    tables, pts_c, Rb = _union_case(card, C, seg, tmp_path)
+    tables, points, T, Rb = _union_case(card, C, seg, tmp_path)
+    pts_c = tsdf._link_points(T, points, seg)
+    assert torch.isnan(pts_c).any() and torch.isinf(pts_c).any()
     for frac in (tsdf.RESIDUAL_FRAC, 1e-9):
         cap = tsdf.residual_capacity(pts_c.shape[1] * pts_c.shape[2], frac)
         before = COUNTERS["kernel.coherent_union_tile"]
-        out = coherent_union_tile(tables, pts_c, Rb, cap)
-        vo = coherent_union_tile(tables, pts_c, values_only=True)
+        out = coherent_union_tile(tables, points, T, seg, Rb, cap)
+        vo = coherent_union_tile(tables, points, T, seg, values_only=True)
         torch.cuda.synchronize()
         assert COUNTERS["kernel.coherent_union_tile"] == before + 2
         ref = tsdf._union_tile_eval(tables, cap, pts_c, Rb)
         for name, a, b in zip(("val", "g_obj", "win", "g_link"), out, ref):
             assert _same_bits(a, b), (name, frac)
         assert _same_bits(vo, tsdf._union_values_eval(tables, pts_c)), frac
+        if C > 3 and seg > 3 and frac < 1e-6:  # the lane overflows
+            assert torch.isnan(out[3][torch.isfinite(pts_c).all(-1).all(0)]).any()
 
 
 @pytest.mark.cuda
 def test_coherent_union_checks_inputs(card, tmp_path):
     from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
-    tables, pts_c, Rb = _union_case(card, 4, 12, tmp_path, n_tiles=4)
+    tables, points, T, Rb = _union_case(card, 4, 12, tmp_path, n_tiles=4)
     with pytest.raises(TypeError, match="float32"):
-        coherent_union_tile(tables, pts_c.double(), Rb, 32)
+        coherent_union_tile(tables, points, T.double(), 12, Rb, 32)
+    with pytest.raises(TypeError, match="Rb must be float32"):
+        coherent_union_tile(tables, points, T, 12, Rb.double(), 32)
+    with pytest.raises(ValueError, match=r"T must be \[C, B, 4, 4\]"):
+        coherent_union_tile(tables, points, T[..., :3, :], 12, Rb, 32)
     with pytest.raises(ValueError, match="Rb must be"):
-        coherent_union_tile(tables, pts_c, Rb[:, :1], 32)
-    with pytest.raises(ValueError, match="lies on cpu"):
-        coherent_union_tile(tables, pts_c, Rb.cpu(), 32)
+        coherent_union_tile(tables, points, T[:, :1], 12, Rb, 32)
+    with pytest.raises(ValueError, match="tensors for 3 children"):
+        coherent_union_tile(tables, points, T[:3], 12, Rb[:3], 32)
+    with pytest.raises(ValueError, match="multiple of seg=5"):
+        coherent_union_tile(tables, points, T, 5, Rb, 32)
+    with pytest.raises(ValueError, match="T lies on cpu"):
+        coherent_union_tile(tables, points, T.cpu(), 12, Rb, 32)
+    with pytest.raises(ValueError, match="Rb lies on cpu"):
+        coherent_union_tile(tables, points, T, 12, Rb.cpu(), 32)
     cpu_tables = tuple(t._replace(vg=t.vg.cpu()) for t in tables)
     with pytest.raises(ValueError, match="lies on cpu"):
-        coherent_union_tile(cpu_tables, pts_c, Rb, 32)
+        coherent_union_tile(cpu_tables, points, T, 12, Rb, 32)
 
 
 @pytest.mark.cuda
 def test_coherent_union_op_fake_shapes_match_card(card, tmp_path):
     from pytorch_volumetric_tpu_torch.ops import coherent_union as cu
-    tables, pts_c, Rb = _union_case(card, 4, 27, tmp_path, n_tiles=8)
+    tables, points, T, Rb = _union_case(card, 4, 27, tmp_path, n_tiles=8)
     for values_only in (False, True):
         torch.library.opcheck(
             cu.coherent_union_tile_op,
-            (pts_c, Rb if not values_only else pts_c.new_empty(0),
-             *cu.op_args(tables, values_only), 32, values_only),
+            (points, T, Rb if not values_only else points.new_empty(0),
+             *cu.op_args(tables, values_only), 27, 32, values_only),
             test_utils=("test_schema", "test_faketensor"))
 
 

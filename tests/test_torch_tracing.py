@@ -153,18 +153,25 @@ def balls(tmp_path_factory):
             for interp in ("nearest", "trilinear") for i in range(2)}
 
 
-# the children of each composition by name, and the branches its coherent query counts
+# the children of each composition by name, and the branches its coherent
+# query counts; every route but the nearest union writes link-frame points
+# (path.link_points), and so does a generic child beside the union
+LINKS = {"path.link_points": 1}
 BRANCHES = {
-    "single": ([("nearest", 0)], {"path.coherent_single": 1}),
+    "single": ([("nearest", 0)], {"path.coherent_single": 1, **LINKS}),
     "tile_union": ([("nearest", 0), ("nearest", 1)], {"path.coherent_tile_union": 1}),
-    "trilinear": ([("trilinear", 0)], {"path.coherent_trilinear": 1}),
-    "trilinear_union": ([("trilinear", 0), ("trilinear", 1)], {"path.coherent_trilinear": 1}),
-    "generic": (["sphere", "box"], {"path.coherent_generic": 1}),
-    "mixed": (["box", ("nearest", 0)], {"path.coherent_single": 1, "path.coherent_generic": 1}),
+    "trilinear": ([("trilinear", 0)], {"path.coherent_trilinear": 1, **LINKS}),
+    "trilinear_union": ([("trilinear", 0), ("trilinear", 1)],
+                        {"path.coherent_trilinear": 1, **LINKS}),
+    "generic": (["sphere", "box"], {"path.coherent_generic": 1, **LINKS}),
+    "mixed": (["box", ("nearest", 0)],
+              {"path.coherent_single": 1, "path.coherent_generic": 1, **LINKS}),
+    "mixed_union": (["box", ("nearest", 0), ("nearest", 1)],
+                    {"path.coherent_tile_union": 1, "path.coherent_generic": 1, **LINKS}),
     # a trilinear cache beside a nearest one, or alone beside a primitive: generic
     "mixed_interp": ([("trilinear", 0), ("nearest", 0)],
-                     {"path.coherent_single": 1, "path.coherent_generic": 1}),
-    "trilinear_and_box": ([("trilinear", 0), "box"], {"path.coherent_generic": 1}),
+                     {"path.coherent_single": 1, "path.coherent_generic": 1, **LINKS}),
+    "trilinear_and_box": ([("trilinear", 0), "box"], {"path.coherent_generic": 1, **LINKS}),
 }
 # the counter of each route of sdf._coherent_plan
 ROUTE_COUNTERS = {"single": "path.coherent_single", "tile_union": "path.coherent_tile_union",
@@ -199,7 +206,7 @@ def test_the_coherent_plan_routes_as_the_counters_say(balls, name):
     children = _branch_children(balls, name)
     plan = tsdf._coherent_plan(children)
     counted = {ROUTE_COUNTERS.get(plan.route), "path.coherent_generic" if plan.generic else None}
-    assert counted - {None} == set(BRANCHES[name][1])
+    assert counted - {None} == set(BRANCHES[name][1]) - set(LINKS)
     assert sorted(plan.bricks + plan.generic) == list(range(len(children)))
     assert all(isinstance(children[i], pt.CachedSDF) for i in plan.bricks)
     tables = tsdf.coherent_fast_tables(children)
@@ -210,6 +217,51 @@ def test_the_coherent_plan_routes_as_the_counters_say(balls, name):
     assert tsdf.coherent_min_cache_resolution(children) == plan.min_res == (
         0.05 if plan.bricks else None)
     assert len(tsdf.coherent_generic_aux(children)) == len(plan.generic)
+
+
+@pytest.mark.parametrize("values_only", [False, True])
+def test_the_arm_grid_writes_no_link_points(arm, values_only):
+    """The arm's grid query takes the nearest union, whose kernel forms the
+    link-frame points itself: ``path.link_points`` stays 0, forward and
+    values only."""
+    robot, q = arm
+    before = profiling.COUNTERS.copy()
+    robot.query_grid(q, GRID, COHERENT, values_only=values_only)
+    counted = profiling.COUNTERS - before
+    assert counted["path.coherent_tile_union"] == 1 and counted["path.link_points"] == 0
+
+
+@pytest.mark.parametrize("name", ["mixed_union", "mixed"])
+def test_a_mixed_composition_equals_compose_query(balls, name):
+    """Cached children beside a primitive (on the nearest union, or alone):
+    the primitive's own link-frame points only, and the coherent query's
+    values and gradients equal ``compose_query``'s bit for bit, its values
+    only too, and its d/d transforms within float32 sums' reordering."""
+    from pytorch_volumetric_tpu_torch import sdf as tsdf
+    from pytorch_volumetric_tpu_torch import transforms as tfm
+    children = _branch_children(balls, name)
+    S, B = len(children), 2
+    rng = np.random.default_rng(4)
+    m = torch.eye(4).repeat(S * B, 1, 1)
+    m[:, :3, 3] = torch.as_tensor(rng.uniform(-0.05, 0.05, (S * B, 3)), dtype=torch.float32)
+    c, s_ = np.cos(0.4), np.sin(0.4)
+    m[1::2, :2, :2] = torch.tensor([[c, -s_], [s_, c]], dtype=torch.float32)
+    pts, _ = pt.get_coherent_grid_points(0.025, np.array([[-0.4, 0.4], [0.0, 0.0], [-0.4, 0.4]]),
+                                         device=CPU)
+
+    def grads(query):
+        mm = m.clone().requires_grad_(True)
+        v, g = query(mm)
+        return v, g, torch.autograd.grad(v.sum() + g.sum(), mm)[0]
+
+    raws = tuple(ch.raw_query for ch in children)
+    v, g, dm = grads(lambda mm: tsdf.compose_query_coherent(children, mm, tfm.invert_tf(mm), B,
+                                                             pts))
+    vr, gr, dmr = grads(lambda mm: tsdf.compose_query(raws, mm, tfm.invert_tf(mm), B, pts))
+    assert torch.equal(v, vr) and torch.equal(g, gr)
+    vo = tsdf.compose_query_coherent(children, m, tfm.invert_tf(m), B, pts, values_only=True)
+    assert torch.equal(vo, vr)
+    assert torch.allclose(dm, dmr, rtol=1e-4, atol=1e-4)
 
 
 def test_union_tables_without_gradient_bricks_are_refused(balls, monkeypatch):
