@@ -1213,7 +1213,8 @@ def compose_query_coherent(children: Sequence[ObjectFrameSDF],
     union), ``path.coherent_single``, ``path.coherent_tile_union`` (the
     values-only union too) and ``path.coherent_generic``, one each per call
     that takes it, and ``path.link_points``, one per call that writes
-    link-frame points."""
+    link-frame points.  The trilinear routes' evaluation opens the span
+    ``pvt.trilinear`` inside ``pvt.lookup``."""
     grad_mode = torch.no_grad() if values_only else contextlib.nullcontext()
     with profiling.span("pvt.lookup"), grad_mode:
         return _compose_coherent(children, obj_to_link, link_to_obj, batch, points,
@@ -1271,20 +1272,23 @@ def _compose_coherent(children, obj_to_link, link_to_obj, batch, points, fast_ta
     best_v = best_g = best_i = None
     if route == "trilinear":
         profiling.count("path.coherent_trilinear")
-        if values_only:
-            best_v = _coherent_single_trilinear_lookup(tables[0], pts_all[0], values_only=True)
-        else:
-            best_v, g_link = _coherent_single_trilinear_lookup(tables[0], pts_all[0])
-            best_g = tfm.rotate_vectors(R_back[0][:, None], g_link)
+        with profiling.span("pvt.trilinear"):
+            if values_only:
+                best_v = _coherent_single_trilinear_lookup(tables[0], pts_all[0],
+                                                           values_only=True)
+            else:
+                best_v, g_link = _coherent_single_trilinear_lookup(tables[0], pts_all[0])
+                best_g = tfm.rotate_vectors(R_back[0][:, None], g_link)
     elif route == "trilinear_union":
         profiling.count("path.coherent_trilinear")
-        if values_only:
-            best_v = _coherent_union_lookup_tile_tri(tables, of(pts_all))
-        else:
-            best_v, best_g, win = _coherent_union_lookup_tile_tri(
-                tables, of(pts_all), of(R_back), points, of(T_all),
-                residual_frac=residual_frac)
-            best_i = child_index(win)
+        with profiling.span("pvt.trilinear"):
+            if values_only:
+                best_v = _coherent_union_lookup_tile_tri(tables, of(pts_all))
+            else:
+                best_v, best_g, win = _coherent_union_lookup_tile_tri(
+                    tables, of(pts_all), of(R_back), points, of(T_all),
+                    residual_frac=residual_frac)
+                best_i = child_index(win)
     elif values_only and route in ("single", "tile_union"):
         # the nearest routes' values: one union, whatever its size
         profiling.count("path.coherent_tile_union")
@@ -1574,6 +1578,10 @@ class CachedSDF(ObjectFrameSDF):
     Out-of-bounds queries either recurse into the ground truth or use the
     distance-to-AABB under-approximation.  ``tables=(val, grad, surface_bb)``
     installs given grids instead of reading the store or building.
+
+    A trilinear cache's raw query (its 8-corner gather, the box fallback and
+    the straight-through derivative) opens the span ``pvt.trilinear`` and
+    counts ``path.link_trilinear`` once.
     """
 
     def __init__(self, object_name, resolution, range_per_dim,
@@ -1693,13 +1701,17 @@ class CachedSDF(ObjectFrameSDF):
         self._raw = _straight_through_sdf(raw_with)
 
     def raw_query(self, points):
-        return self._raw(self._vg, points)
+        return self.raw_query_with(self._vg, points)
 
     def raw_query_aux(self):
         return self._vg
 
     def raw_query_with(self, aux, points):
-        return self._raw(aux, points)
+        if self.interpolation != "trilinear":
+            return self._raw(aux, points)
+        profiling.count("path.link_trilinear")
+        with profiling.span("pvt.trilinear"):
+            return self._raw(aux, points)
 
     def _coherent_tables(self, with_grad_bricks: bool = False,
                          with_tri_bricks: bool = False,

@@ -155,8 +155,10 @@ def balls(tmp_path_factory):
 
 # the children of each composition by name, and the branches its coherent
 # query counts; every route but the nearest union writes link-frame points
-# (path.link_points), and so does a generic child beside the union
+# (path.link_points), and so does a generic child beside the union; a
+# trilinear cache on the generic sub-path counts path.link_trilinear
 LINKS = {"path.link_points": 1}
+TRILINEAR_LINK = {"path.link_trilinear": 1}
 BRANCHES = {
     "single": ([("nearest", 0)], {"path.coherent_single": 1, **LINKS}),
     "tile_union": ([("nearest", 0), ("nearest", 1)], {"path.coherent_tile_union": 1}),
@@ -170,8 +172,10 @@ BRANCHES = {
                     {"path.coherent_tile_union": 1, "path.coherent_generic": 1, **LINKS}),
     # a trilinear cache beside a nearest one, or alone beside a primitive: generic
     "mixed_interp": ([("trilinear", 0), ("nearest", 0)],
-                     {"path.coherent_single": 1, "path.coherent_generic": 1, **LINKS}),
-    "trilinear_and_box": ([("trilinear", 0), "box"], {"path.coherent_generic": 1, **LINKS}),
+                     {"path.coherent_single": 1, "path.coherent_generic": 1, **LINKS,
+                      **TRILINEAR_LINK}),
+    "trilinear_and_box": ([("trilinear", 0), "box"],
+                          {"path.coherent_generic": 1, **LINKS, **TRILINEAR_LINK}),
 }
 # the counter of each route of sdf._coherent_plan
 ROUTE_COUNTERS = {"single": "path.coherent_single", "tile_union": "path.coherent_tile_union",
@@ -206,7 +210,7 @@ def test_the_coherent_plan_routes_as_the_counters_say(balls, name):
     children = _branch_children(balls, name)
     plan = tsdf._coherent_plan(children)
     counted = {ROUTE_COUNTERS.get(plan.route), "path.coherent_generic" if plan.generic else None}
-    assert counted - {None} == set(BRANCHES[name][1]) - set(LINKS)
+    assert counted - {None} == set(BRANCHES[name][1]) - set(LINKS) - set(TRILINEAR_LINK)
     assert sorted(plan.bricks + plan.generic) == list(range(len(children)))
     assert all(isinstance(children[i], pt.CachedSDF) for i in plan.bricks)
     tables = tsdf.coherent_fast_tables(children)
@@ -385,3 +389,46 @@ def test_an_export_holds_no_span(arm):
                if isinstance(m, torch.fx.GraphModule) for n in m.graph.nodes}
     assert any("pvt." in t for t in targets)  # the exported query's own ops
     assert not [t for t in targets if "profiler" in t or "record_function" in t]
+
+
+@pytest.fixture(scope="module")
+def trilinear_arm(tmp_path_factory):
+    """The 3-joint arm (4 links) with trilinear caches: its grid takes the
+    trilinear union, its points the generic query."""
+    d = str(tmp_path_factory.mktemp("trilinear_arm"))
+    urdf, end = make_serial_arm(d, num_joints=3, segments=8, rings=2)
+    robot = pt.RobotSDF(pt.build_serial_chain_from_urdf(open(urdf).read(), end, device=CPU),
+                        path_prefix=d, link_sdf_cls=pt.cache_link_sdf_factory(
+                            resolution=0.04, padding=0.3, interpolation="trilinear",
+                            cache_path=str(tmp_path_factory.mktemp("cache") / "t.npz")))
+    q = torch.as_tensor(np.random.default_rng(0).uniform(-1, 1, (3, 3)).astype(np.float32))
+    return robot, q
+
+
+@pytest.mark.parametrize("call,spans", [("query_grid", 1), ("query", 4)])
+def test_trilinear_links_open_their_span_in_the_lookup(trilinear_arm, call, spans):
+    """The trilinear union (one span a call) and each trilinear link's
+    generic query (one a link) open ``pvt.trilinear`` inside ``pvt.lookup``;
+    the benchmark's reader keeps it as a layer of its own."""
+    robot, q = trilinear_arm
+    prof = _traced(lambda: CALLS[call](robot, q))
+    found = [(e.name, _parent_span(e)) for e in prof.events() if e.name.startswith("pvt.")]
+    assert set(found) == NESTING[call] | {("pvt.trilinear", "pvt.lookup")}
+    assert found.count(("pvt.trilinear", "pvt.lookup")) == spans
+    layers = program_trace.program_layers(prof)
+    assert set(layers["host_self_s"]) == {"entry", "fk", "lookup", "pvt.trilinear", "outside"}
+    assert layers["host_self_s"]["pvt.trilinear"] > 0
+    assert sum(layers["host_self_s"].values()) == pytest.approx(layers["window_s"], rel=0.01)
+
+
+@pytest.mark.parametrize("links,call,want", [
+    ("trilinear_arm", "query", {"path.link_trilinear": 4}),
+    ("trilinear_arm", "query_grid", {"path.link_trilinear": 0, "path.coherent_trilinear": 1}),
+    ("arm", "query", {"path.link_trilinear": 0}),
+    ("arm", "query_grid", {"path.link_trilinear": 0, "path.coherent_trilinear": 0})])
+def test_link_trilinear_counts_each_trilinear_link_a_generic_call(request, links, call, want):
+    robot, q = request.getfixturevalue(links)
+    before = profiling.COUNTERS.copy()
+    CALLS[call](robot, q)
+    counted = profiling.COUNTERS - before
+    assert {k: counted[k] for k in want} == want
