@@ -682,23 +682,108 @@ def union_bound(tables, points, T, seg, cap=None):
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
-def union_kernel_times(tables, points, T, Rb, seg, cap, reps=5):
+FP32_OPS_PER_S = 67e12  # one H100 SXM's FP32 rate (NVIDIA's data sheet)
+# CU-T's operations a (configuration, link, point): the transform 18, the
+# trilinear cell 15, the 8 weights 19 and the value lerp 16; a
+# (configuration, point) with gradients: the winner's three lerps 48 and the
+# rotation 15
+TRI_OPS_LINK, TRI_OPS_WINNER = 68, 63
+
+
+def union_kind(tri=False):
+    """``(op, plain forward, plain values only, launch counter, bound)`` of
+    the nearest union (CU) or, with ``tri``, the trilinear union (CU-T)."""
+    from pytorch_volumetric_tpu_torch import sdf as tsdf
+    from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
+    from pytorch_volumetric_tpu_torch.ops.coherent_union_tri import coherent_union_tile_tri
+    if tri:
+        return (coherent_union_tile_tri, tsdf._union_tile_tri_eval, tsdf._union_values_tri_eval,
+                "kernel.coherent_union_tile_tri", union_tri_bound)
+    return (coherent_union_tile, tsdf._union_tile_eval, tsdf._union_values_eval,
+            "kernel.coherent_union_tile", union_bound)
+
+
+def union_tri_bound(tables, points, T, seg, cap=None):
+    """``(bound_ms, bytes, ops_ms, ops)``: CU-T's least time by bytes over
+    3.35 TB/s, each input byte counted once however often the call reads it,
+    and by operations (:data:`TRI_OPS_LINK`, :data:`TRI_OPS_WINNER`) over
+    67 TFLOP/s.  Read: the world points (12 B each), the obj_to_link rows
+    (48 B a link and configuration) and the rotations (36 B); each distinct
+    value-brick cell that an in-grid point's lerp reads (4 B; a (link, brick
+    row, cell) counted once over all configurations, tiles and corners);
+    each distinct cell of the winners' gradient bricks (12 B) that an
+    in-grid point of a tile outside the residual lane reads, and each
+    distinct packed row (12 B of gradient) that an in-grid point of a lane
+    tile within the capacity reads.  Written: val (4 B a point), g_obj
+    (12), win (8), g_link (12).  Values only (``cap`` None): the points,
+    the obj_to_link rows, the value cells and val."""
+    from pytorch_volumetric_tpu_torch import sdf as tsdf
+    C, B = T.shape[:2]
+    F = points.shape[0]
+    FS, N = F // seg, B * F
+    dev = points.device
+
+    def corner_cells(keys, rows):
+        # the distinct cells of every corner of the lower corners ``keys``
+        seen = torch.zeros(rows, dtype=torch.bool, device=dev)
+        for delta in tsdf._DELTA5:
+            seen[keys + delta] = True
+        return int(seen.sum())
+
+    def bases(name):
+        b = tsdf._coherent_row_bases([getattr(t, name) for t in tables])
+        return torch.as_tensor(b[:-1], device=dev).view(C, 1, 1), int(b[-1])
+
+    with torch.no_grad():
+        pts_c = tsdf._link_points(T, points, seg)
+        v, (valid, flat0, _, row, base5, _, _) = tsdf._trilinear_union_values(tables, pts_c)
+        del pts_c
+        vb, v_rows = bases("tbricks")
+        cells = corner_cells((((row + vb) * 125)[..., None] + base5)[valid],
+                             v_rows * 125)
+        nbytes = F * 12 + C * B * 48 + cells * 4 + N * 4
+        ops = N * C * TRI_OPS_LINK
+        if cap is not None:
+            win, pick = tsdf._first_min(v)
+            del v
+            bvalid = pick(valid)
+            middle = tsdf._tile_candidate_ids(win, bvalid, C)[1]
+            if middle is None:
+                middle = lane = torch.zeros((B, FS), dtype=torch.bool, device=dev)
+            else:
+                lane = middle & ~tsdf._residual_tiles(middle, cap)[1]
+            gb, g_rows = bases("tgbricks")
+            gkey = pick((((row + gb) * 125)[..., None] + base5))
+            gcells = corner_cells(gkey[bvalid & ~middle[..., None]], g_rows * 125)
+            at = bvalid & lane[..., None]
+            strides = torch.stack([t.strides for t in tables])[win[at]]
+            seen = torch.zeros(sum(int(t.vg.shape[0]) for t in tables), dtype=torch.bool,
+                               device=dev)
+            for offs in tsdf._CORNERS:
+                seen[pick(flat0)[at] + (strides * torch.tensor(offs, device=dev)).sum(-1)] = True
+            nbytes += C * B * 36 + (gcells + int(seen.sum())) * 12 + N * (12 + 8 + 12)
+            ops += N * TRI_OPS_WINNER
+    return (nbytes / HBM_BYTES_PER_S * 1e3, nbytes, ops / FP32_OPS_PER_S * 1e3, ops)
+
+
+def union_kernel_times(tables, points, T, Rb, seg, cap, reps=5, tri=False):
     """Times of one union call, forward and values only: ``ms`` (CUDA
     events around ``reps`` back-to-back calls of the op: the union kernel
     and, with more than three links, the cumsum and the poison pass),
     ``kernel_ms`` (the union kernel's own device time, from a profiler
     trace), ``plain_ms`` (the plain version on the card: the link-frame
-    points by ``transforms.transform_points``, then the union)."""
+    points by ``transforms.transform_points``, then the union).  ``tri``:
+    the trilinear union (CU-T)."""
     from pytorch_volumetric_tpu_torch import sdf as tsdf
-    from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
     from pytorch_volumetric_tpu_torch.utils.profiling import device_time, kernel_time
+    op, plain_fwd, plain_vo = union_kind(tri)[:3]
     link = lambda p: tsdf._link_points(T, p, seg)
     out = {}
     for name, kern, plain in (
-            ("forward", lambda p: coherent_union_tile(tables, p, T, seg, Rb, cap),
-             lambda p: tsdf._union_tile_eval(tables, cap, link(p), Rb)),
-            ("values_only", lambda p: coherent_union_tile(tables, p, T, seg, values_only=True),
-             lambda p: tsdf._union_values_eval(tables, link(p)))):
+            ("forward", lambda p: op(tables, p, T, seg, Rb, cap),
+             lambda p: plain_fwd(tables, cap, link(p), Rb)),
+            ("values_only", lambda p: op(tables, p, T, seg, values_only=True),
+             lambda p: plain_vo(tables, link(p)))):
         r = {"ms": device_time(kern, points, reps=reps) * 1e3,
              "plain_ms": device_time(plain, points, reps=2) * 1e3}
         r["kernel_ms"], r["calls_ms"] = None, {}
@@ -710,36 +795,38 @@ def union_kernel_times(tables, points, T, Rb, seg, cap, reps=5):
     return out
 
 
-def compare_union(name, tables, points, T, Rb, seg, residual_frac=None, timed=False):
+def compare_union(name, tables, points, T, Rb, seg, residual_frac=None, timed=False,
+                  tri=False):
     """The union kernel (``pvt::coherent_union_tile``, which forms the
     link-frame points ``T @ points`` in registers) against its plain
     version (``sdf._union_tile_eval`` and ``_union_values_eval`` on
     ``sdf._link_points``) on the same inputs: forward (``val``, ``g_obj``,
     ``win``, ``g_link``) and values only, every output bit for bit
     (:func:`same_bits`); on CPU tensors both sides are the plain version.
+    With ``tri`` the trilinear union's (``pvt::coherent_union_tile_tri``,
+    CU-T, against ``_union_tile_tri_eval`` and ``_union_values_tri_eval``).
     ``residual_frac``: the residual lane's fraction (``sdf.RESIDUAL_FRAC``
     when None).  With ``timed`` the times (:func:`union_kernel_times`) and
     the bound of this run's inputs.  Returns ``{max_abs_err, ...}`` (0: the
     check fails on any difference)."""
     from pytorch_volumetric_tpu_torch import sdf as tsdf
-    from pytorch_volumetric_tpu_torch.ops.coherent_union import coherent_union_tile
     from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
+    op, plain_fwd, plain_vo, counter, bound = union_kind(tri)
     device = points.device
     C, B = T.shape[:2]
     FS = points.shape[0] // seg
     frac = tsdf.RESIDUAL_FRAC if residual_frac is None else residual_frac
     cap = tsdf.residual_capacity(B * FS, frac)
-    before = COUNTERS["kernel.coherent_union_tile"]
+    before = COUNTERS[counter]
     with torch.no_grad():
-        out = coherent_union_tile(tables, points, T, seg, Rb, cap)
-        vo = coherent_union_tile(tables, points, T, seg, values_only=True)
+        out = op(tables, points, T, seg, Rb, cap)
+        vo = op(tables, points, T, seg, values_only=True)
         sync(device)
         if device.type == "cuda":
-            check(COUNTERS["kernel.coherent_union_tile"] == before + 2,
-                  f"{name}: the kernel did not launch")
+            check(COUNTERS[counter] == before + 2, f"{name}: the kernel did not launch")
         pts_c = tsdf._link_points(T, points, seg)
-        ref = tsdf._union_tile_eval(tables, cap, pts_c, Rb)
-        ref_vo = tsdf._union_values_eval(tables, pts_c)
+        ref = plain_fwd(tables, cap, pts_c, Rb)
+        ref_vo = plain_vo(tables, pts_c)
         del pts_c
     same = [same_bits(a, b) for a, b in zip(out, ref)] + [same_bits(vo, ref_vo)]
     n_nan = int(torch.isnan(ref[3]).any(dim=-1).sum())
@@ -749,9 +836,14 @@ def compare_union(name, tables, points, T, Rb, seg, residual_frac=None, timed=Fa
     res = {"max_abs_err": 0.0}
     del out, vo, ref, ref_vo
     if timed:
-        res["times"] = union_kernel_times(tables, points, T, Rb, seg, cap)
-        res["bound_ms"], res["bound_bytes"] = union_bound(tables, points, T, seg, cap)
-        res["values_bound_ms"], _ = union_bound(tables, points, T, seg)
+        res["times"] = union_kernel_times(tables, points, T, Rb, seg, cap, tri=tri)
+        res["bound_ms"], res["bound_bytes"], *ops = bound(tables, points, T, seg, cap)
+        res["values_bound_ms"], _, *ops_vo = bound(tables, points, T, seg)
+        if tri:
+            res["ops_bound_ms"], res["ops"] = ops
+            res["values_ops_bound_ms"], _ = ops_vo
+            log(f"    {name}: operations bound {res['ops_bound_ms']:.4f} ms ({res['ops']:.4g} "
+                f"operations), values only {res['values_ops_bound_ms']:.4f} ms")
         t = res["times"]
         log(f"    {name}: forward {t['forward']['ms']:.4f} ms (kernel "
             f"{t['forward']['kernel_ms']} device ms; calls {t['forward']['calls_ms']}), "
@@ -2328,7 +2420,7 @@ def phase_northstar(device, tmp, card, n_configs=N_CONFIGS, points_side=100, chu
     from pytorch_volumetric_tpu_torch.bench import northstar as ns
     from pytorch_volumetric_tpu_torch.utils.profiling import COUNTERS
     out = {"rows": {}, "build_launches": {}, "query_launches": {}, "union_launches": {},
-           "union_backward_launches": {}}
+           "union_tri_launches": {}, "union_backward_launches": {}}
     exact = True
     for kind, interp, variants, row_reps, warmup in rows:
         name = ns.metric_name(kind, interp)
@@ -2336,6 +2428,7 @@ def phase_northstar(device, tmp, card, n_configs=N_CONFIGS, points_side=100, chu
         # kernel on the nearest rows: the arm's forward, and values only)
         COUNTERS["kernel.closest_point_sweep"] = 0
         COUNTERS["kernel.coherent_union_tile"] = 0
+        COUNTERS["kernel.coherent_union_tile_tri"] = 0
         COUNTERS["kernel.tile_union_backward"] = 0
         fk_reset()
         row, (robot, ft, q, pts, seg) = ns.northstar(
@@ -2345,10 +2438,16 @@ def phase_northstar(device, tmp, card, n_configs=N_CONFIGS, points_side=100, chu
         fk_counts(device, f"northstar {name}")
         launches = COUNTERS["kernel.closest_point_sweep"]
         out["union_launches"][name] = COUNTERS["kernel.coherent_union_tile"]
+        out["union_tri_launches"][name] = COUNTERS["kernel.coherent_union_tile_tri"]
         out["union_backward_launches"][name] = COUNTERS["kernel.tile_union_backward"]
         check(COUNTERS["kernel.coherent_union_tile"] > 0 or interp != "nearest"
               or device.type != "cuda",
               f"{name}: no coherent_union_tile launch")
+        # the arm's trilinear links take the trilinear union (CU-T); the free
+        # link's lone trilinear cache takes neither union
+        check(COUNTERS["kernel.coherent_union_tile_tri"] > 0
+              or (kind, interp) != ("arm", "trilinear") or device.type != "cuda",
+              f"{name}: no coherent_union_tile_tri launch")
         # one backward launch a differentiated chunk on the card: the
         # forward_backward variant's warm-up and timed runs over every chunk
         # (more if an out-of-memory retry ran a larger chunk first)
@@ -2386,6 +2485,14 @@ def phase_northstar(device, tmp, card, n_configs=N_CONFIGS, points_side=100, chu
             out["union_backward"]["launches"] = out["union_backward_launches"][name]
             if device.type == "cuda":
                 torch.cuda.empty_cache()
+        if kind == "arm" and interp == "trilinear":
+            # CU-T against its plain version on the first chunk, timed
+            out["union_tri"] = compare_union(
+                f"{name}: trilinear union kernel, chunk of {row['chunk']}",
+                *union_inputs(robot, ft, q[:row["chunk"]], pts, seg), timed=True, tri=True)
+            out["union_tri"]["launches"] = out["union_tri_launches"][name]
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
         out["rows"][name] = row
         out["build_launches"][name] = row["k1_launches_build"]
         out["query_launches"][name] = launches - row["k1_launches_build"]
@@ -2399,7 +2506,8 @@ def phase_northstar(device, tmp, card, n_configs=N_CONFIGS, points_side=100, chu
                 f"{', '.join(f'{t:.3f}' for t in v['ms_runs'])}), {rate / 1e6:.2f} M/s, peak "
                 f"{(v['peak_bytes'] or float('nan')) / 1e9:.2f} GB, chunk {r['chunk']} [{card}]")
     log(f"  bit-identical to compose_query everywhere gated: {exact}; coherent_union_tile "
-        f"launches per row {out['union_launches']}; tile_union_backward launches per row "
+        f"launches per row {out['union_launches']}; coherent_union_tile_tri launches per row "
+        f"{out['union_tri_launches']}; tile_union_backward launches per row "
         f"{out['union_backward_launches']}")
     return out
 
@@ -2981,6 +3089,28 @@ def main():
                                        "values_only": {**small(h["times"]["values_only"]),
                                                        "bound_ms": h["values_bound_ms"]}}}
 
+    def union_tri_row():
+        """The trilinear union kernel (CU-T) at the north-star chunk (the
+        trilinear arm's 8 links x 25 configurations x 1,061,208 points, seg
+        27), launches on phase 14's rows."""
+        u = north["union_tri"]
+        fwd, vo = u["times"]["forward"], u["times"]["values_only"]
+        small = lambda r: {k: r[k] for k in ("ms", "kernel_ms", "plain_ms")}
+        return {"name": "coherent_union_tile_tri", "route": "cuda",
+                "source": csrc + "coherent_union_tri.cu",
+                "replaces": "pytorch_volumetric_tpu/sdf.py:1263",
+                "replaces_note": "XLA program (_coherent_union_lookup_tile_tri), no Pallas "
+                                 "kernel",
+                "launches": u["launches"],
+                "launches_northstar_rows": north["union_tri_launches"],
+                "max_abs_err": u["max_abs_err"],
+                **small(fwd), "bound_ms": u["bound_ms"], "bound_by": "bytes",
+                "bound_bytes": u["bound_bytes"], "ops_bound_ms": u["ops_bound_ms"],
+                "ops": u["ops"], "library_ms": None,
+                "shape": "north-star chunk: 8 trilinear links x 25 x 1,061,208 points, seg 27",
+                "values_only": {**small(vo), "bound_ms": u["values_bound_ms"],
+                                "ops_bound_ms": u["values_ops_bound_ms"]}}
+
     def union_backward_row():
         """The union's backward kernels at the north-star chunk (8 links x
         25 configurations x 1,061,208 points: the arm's first chunk's
@@ -3046,6 +3176,7 @@ def main():
                   "fma_probe_cuda", probe["fma"], probe["fma"]["max_abs_err"]),
         narrow_band_row(nb),
         union_row(),
+        union_tri_row(),
         union_backward_row(),
         fk_row(),
     ]}))

@@ -54,6 +54,8 @@ FIELDS = ("lo", "inv_res", "n", "strides", "bstrides", "bb", "bricks", "gbricks"
 _SHAPES = {"lo": ((3,), torch.float32), "inv_res": ((3,), torch.float32),
            "n": ((3,), torch.int64), "strides": ((3,), torch.int64),
            "bstrides": ((3,), torch.int64), "bb": ((3, 2), torch.float32)}
+# the row shapes of the per-child tables
+_ROWS = {"bricks": (64,), "gbricks": (3, 64), "vg": (4,)}
 _DESC_CACHE: "OrderedDict[tuple, Tuple[torch.Tensor, torch.Tensor]]" = OrderedDict()
 _DESC_CACHE_SIZE = 64
 
@@ -75,7 +77,11 @@ def _entry():
 
 
 def _check_inputs(points: torch.Tensor, T: torch.Tensor, seg: int, Rb: torch.Tensor,
-                  fields: dict, values_only: bool) -> None:
+                  fields: dict, values_only: bool, names: Sequence[str], rows: dict) -> None:
+    """Raise unless the inputs are what a union kernel takes: ``fields``
+    holds each child's tables under ``names`` (the kernel's pointer order,
+    the gradient bricks second to last), the row shapes of its tables in
+    ``rows``."""
     if points.dim() != 2 or points.shape[-1] != 3:
         raise ValueError(f"points must be [F, 3], got {tuple(points.shape)}")
     if seg < 1 or points.shape[0] % seg:
@@ -88,9 +94,9 @@ def _check_inputs(points: torch.Tensor, T: torch.Tensor, seg: int, Rb: torch.Ten
         if tuple(Rb.shape) != (C, B, 3, 3):
             raise ValueError(f"Rb must be [C, B, 3, 3] = {(C, B, 3, 3)}, got {tuple(Rb.shape)}")
         named.append(("Rb", Rb))
-    for name in FIELDS:
+    for name in names:
         ts = fields[name]
-        if name == "gbricks" and values_only:
+        if name == names[-2] and values_only:
             continue
         if len(ts) != C:
             raise ValueError(f"{name}: {len(ts)} tensors for {C} children")
@@ -99,7 +105,7 @@ def _check_inputs(points: torch.Tensor, T: torch.Tensor, seg: int, Rb: torch.Ten
             if shape is not None and tuple(t.shape) != shape:
                 raise ValueError(f"{name}[{c}] must be {shape}, got {tuple(t.shape)}")
             if shape is None:
-                want = {"bricks": (64,), "gbricks": (3, 64), "vg": (4,)}[name]
+                want = rows[name]
                 if t.dim() != len(want) + 1 or tuple(t.shape[1:]) != want:
                     raise ValueError(f"{name}[{c}] must be [rows, {', '.join(map(str, want))}]"
                                      f", got {tuple(t.shape)}")
@@ -119,13 +125,13 @@ def _check_inputs(points: torch.Tensor, T: torch.Tensor, seg: int, Rb: torch.Ten
         raise ValueError(f"the kernel takes CUDA tensors, got {points.device}")
 
 
-def _descriptor(fields: dict, device: torch.device) -> torch.Tensor:
+def _descriptor(fields: dict, device: torch.device, names: Sequence[str]) -> torch.Tensor:
     """The device array ``[C, 9]`` int64 of each child's table pointers (in
-    :data:`FIELDS` order; 0 for a missing gradient brick table), copied
+    the order of ``names``; 0 for a missing gradient brick table), copied
     once for each set of pointers."""
     C = len(fields["vg"])
     ptrs = tuple(fields[name][c].data_ptr() if fields[name] else 0
-                 for c in range(C) for name in FIELDS)
+                 for c in range(C) for name in names)
     key = (device.index, ptrs)
     hit = _DESC_CACHE.get(key)
     if hit is not None:
@@ -139,25 +145,22 @@ def _descriptor(fields: dict, device: torch.device) -> torch.Tensor:
     return desc
 
 
-def _coherent_union_tile_op_cuda(
-        points: torch.Tensor, T: torch.Tensor, Rb: torch.Tensor, lo: List[torch.Tensor],
-        inv_res: List[torch.Tensor], n: List[torch.Tensor], strides: List[torch.Tensor],
-        bstrides: List[torch.Tensor], bb: List[torch.Tensor], bricks: List[torch.Tensor],
-        gbricks: List[torch.Tensor], vg: List[torch.Tensor], seg: int, capacity: int,
-        values_only: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(val [B, FS, seg], g_obj [B, FS, seg, 3], win [B, FS, seg] int64,
-    g_link [B, FS, seg, 3])`` of the per-tile nearest union of the world
-    ``points [FS * seg, 3]`` in the children's frames, ``T[c, b] @ points``
-    (``T [C, B, 4, 4]``, the children's obj_to_link rows), with rotations
-    ``Rb [C, B, 3, 3]``; with ``values_only`` just ``val`` and three empty
-    tensors (``Rb`` and ``gbricks`` unread).  ``capacity``: the residual
-    lane's capacity in tiles; the middle tiles beyond it get NaN gradients.
-    The kernel."""
+def _launch_union(entry, names: Sequence[str], rows: dict, counter: str, points: torch.Tensor,
+                  T: torch.Tensor, Rb: torch.Tensor, fields: dict, seg: int, capacity: int,
+                  values_only: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """One call of a per-tile union kernel, CU's or CU-T's
+    (``ops.coherent_union_tri``): checks the inputs (``names`` and ``rows``
+    describe the kernel's per-child ``fields``, :func:`_check_inputs`), then
+    ``entry()`` gives the kernel's library, C entry and name.  Allocates the
+    outputs, launches the kernel once (counted under ``counter``) and, with
+    more than three children, the cumsum of the middle flags and this
+    library's poison pass."""
     if capacity < 0:
         raise ValueError(f"capacity must be >= 0, got {capacity}")
-    fields = dict(zip(FIELDS, (lo, inv_res, n, strides, bstrides, bb, bricks, gbricks, vg)))
-    _check_inputs(points, T, seg, Rb, fields, values_only)
-    lib, tile, poison = _entry()
+    _check_inputs(points, T, seg, Rb, fields, values_only, names, rows)
+    lib, tile, name = entry()
+    cu_lib, _, poison = _entry()
     C, B = T.shape[:2]
     FS = points.shape[0] // seg
     dev = points.device
@@ -175,23 +178,42 @@ def _coherent_union_tile_op_cuda(
     mask = torch.empty(N if lane else 0, dtype=torch.uint8, device=dev)
     if N:
         if values_only:
-            fields["gbricks"] = []
-        desc = _descriptor(fields, dev)
+            fields[names[-2]] = []
+        desc = _descriptor(fields, dev, names)
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
             code = tile(points.data_ptr(), T.data_ptr(), None if values_only else Rb.data_ptr(),
                         desc.data_ptr(), C, B, FS, seg, int(values_only), val.data_ptr(),
                         g_obj.data_ptr(), win.data_ptr(), g_link.data_ptr(),
                         middle.data_ptr(), mask.data_ptr(), stream)
-            cuda_build.check_launch(lib, code, _TILE)
-            profiling.count("kernel.coherent_union_tile")
+            cuda_build.check_launch(lib, code, name)
+            profiling.count(counter)
             if lane:
                 rank = torch.cumsum(middle, 0, dtype=torch.int32)
                 code = poison(middle.data_ptr(), rank.data_ptr(), seg, N, capacity,
-                              mask.data_ptr(),
-                              g_obj.data_ptr(), g_link.data_ptr(), stream)
-                cuda_build.check_launch(lib, code, _POISON)
+                              mask.data_ptr(), g_obj.data_ptr(), g_link.data_ptr(), stream)
+                cuda_build.check_launch(cu_lib, code, _POISON)
     return val, g_obj, win, g_link
+
+
+def _coherent_union_tile_op_cuda(
+        points: torch.Tensor, T: torch.Tensor, Rb: torch.Tensor, lo: List[torch.Tensor],
+        inv_res: List[torch.Tensor], n: List[torch.Tensor], strides: List[torch.Tensor],
+        bstrides: List[torch.Tensor], bb: List[torch.Tensor], bricks: List[torch.Tensor],
+        gbricks: List[torch.Tensor], vg: List[torch.Tensor], seg: int, capacity: int,
+        values_only: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(val [B, FS, seg], g_obj [B, FS, seg, 3], win [B, FS, seg] int64,
+    g_link [B, FS, seg, 3])`` of the per-tile nearest union of the world
+    ``points [FS * seg, 3]`` in the children's frames, ``T[c, b] @ points``
+    (``T [C, B, 4, 4]``, the children's obj_to_link rows), with rotations
+    ``Rb [C, B, 3, 3]``; with ``values_only`` just ``val`` and three empty
+    tensors (``Rb`` and ``gbricks`` unread).  ``capacity``: the residual
+    lane's capacity in tiles; the middle tiles beyond it get NaN gradients.
+    The kernel."""
+    fields = dict(zip(FIELDS, (lo, inv_res, n, strides, bstrides, bb, bricks, gbricks, vg)))
+    return _launch_union(lambda: _entry()[:2] + (_TILE,), FIELDS, _ROWS,
+                         "kernel.coherent_union_tile", points, T, Rb, fields, seg, capacity,
+                         values_only)
 
 
 # the op's CUDA kernel; ``sdf`` registers its CPU kernel, the plain version

@@ -33,6 +33,7 @@ SOURCES = {
     "closest_point": ("closest_point.cu", ("-fmad=false",)),
     "narrow_band": ("narrow_band.cu", ("-fmad=false",)),
     "coherent_union": ("coherent_union.cu", ("-fmad=false",)),
+    "coherent_union_tri": ("coherent_union_tri.cu", ("-fmad=false",)),
     "fk": ("fk.cu", ("-fmad=false",)),
     "closest_point_mma": ("closest_point_mma.cu", ("-fmad=false",)),
     "fma_probe": ("fma_probe.cu", ("-fmad=false",)),

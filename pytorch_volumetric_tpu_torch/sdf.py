@@ -34,6 +34,8 @@ from pytorch_volumetric_tpu_torch import mesh as mesh_mod
 from pytorch_volumetric_tpu_torch import transforms as tfm
 from pytorch_volumetric_tpu_torch.ops.coherent_union import (
     FIELDS as _UNION_FIELDS, coherent_union_tile, coherent_union_tile_op)
+from pytorch_volumetric_tpu_torch.ops.coherent_union_tri import (
+    FIELDS as _TRI_FIELDS, coherent_union_tile_tri, coherent_union_tile_tri_op)
 from pytorch_volumetric_tpu_torch.ops.point_triangle import signed_closest_query
 from pytorch_volumetric_tpu_torch.ops.straight_through import (
     straight_through, tile_winner_straight_through)
@@ -1004,16 +1006,24 @@ def _union_tile_eval(tables, cap, pts_c, Rb):
                               pick(g_oob), middle, residual, cap, Rb)
 
 
+def _op_tables(names: Sequence[str], lists) -> Tuple[_CoherentTables, ...]:
+    """The children's ``_CoherentTables`` from a union op's per-child table
+    ``lists`` in the order ``names`` (the gradient bricks second to last,
+    an empty list with values only)."""
+    fields = dict(zip(names, lists))
+    grad = names[-2]
+    return tuple(_CoherentTables(**{k: fields[k][c] for k in names if k != grad},
+                                 **{grad: fields[grad][c] if fields[grad] else None})
+                 for c in range(len(fields["vg"])))
+
+
 @coherent_union_tile_op.register_kernel("cpu")
 def _coherent_union_tile_op_cpu(points, T, Rb, lo, inv_res, n, strides, bstrides, bb, bricks,
                                 gbricks, vg, seg, capacity, values_only):
     """``pvt::coherent_union_tile`` on the CPU: the plain version, on the
     link-frame points that :func:`_link_points` writes."""
-    fields = dict(zip(_UNION_FIELDS, (lo, inv_res, n, strides, bstrides, bb, bricks, gbricks,
-                                      vg)))
-    tables = tuple(_CoherentTables(**{k: fields[k][c] for k in _UNION_FIELDS if k != "gbricks"},
-                                   gbricks=gbricks[c] if gbricks else None)
-                   for c in range(len(vg)))
+    tables = _op_tables(_UNION_FIELDS, (lo, inv_res, n, strides, bstrides, bb, bricks, gbricks,
+                                        vg))
     pts_c = _link_points(T, points, seg)
     if values_only:
         e = points.new_empty(0)
@@ -1072,13 +1082,21 @@ def _trilinear_union_values(tables: Sequence[_CoherentTables], pts_c: torch.Tens
                                            zip(tables, row, base5, w)]), v_oob), anchor
 
 
-def _union_tile_tri_eval(tables, residual_frac, pts_c, Rb=None):
-    """Forward of :func:`_coherent_union_lookup_tile_tri` (values only
-    without ``Rb``)."""
+def _union_values_tri_eval(tables: Sequence[_CoherentTables], pts_c: torch.Tensor):
+    """The plain version of :func:`_coherent_union_lookup_tile_tri`'s values
+    only on the children's link-frame points ``pts_c [C, B, FS, seg, 3]``
+    (:func:`_link_points`)."""
+    return _trilinear_union_values(tables, pts_c)[0].amin(dim=0)
+
+
+def _union_tile_tri_eval(tables, cap, pts_c, Rb):
+    """The plain version of :func:`_coherent_union_lookup_tile_tri`'s
+    forward on the children's link-frame points ``pts_c [C, B, FS, seg, 3]``
+    (:func:`_link_points`), plus the winner's link-frame gradient for the
+    backward: ``(val, g_obj, win, g_link)``; ``cap``: the residual lane's
+    capacity in tiles."""
     C = len(tables)
     v, (valid, flat0, w, row, base5, _, g_oob) = _trilinear_union_values(tables, pts_c)
-    if Rb is None:
-        return v.amin(dim=0)
     win, pick = _first_min(v)
     best_valid, best_base5, best_w = pick(valid), pick(base5), pick(w)
     bases = _coherent_row_bases([t.tgbricks for t in tables])
@@ -1105,15 +1123,26 @@ def _union_tile_tri_eval(tables, residual_frac, pts_c, Rb=None):
 
     candidates, middle = _tile_candidate_ids(win, best_valid, C)
     return _finish_tile_union(pick(v), win, best_valid, _tile_candidates(candidates, candidate),
-                              pick(g_oob), middle, residual,
-                              residual_capacity(win.shape[0] * win.shape[1], residual_frac),
-                              Rb)
+                              pick(g_oob), middle, residual, cap, Rb)
 
 
-def _coherent_union_lookup_tile_tri(tables: Sequence[_CoherentTables], pts_c: torch.Tensor,
+@coherent_union_tile_tri_op.register_kernel("cpu")
+def _coherent_union_tile_tri_op_cpu(points, T, Rb, lo, inv_res, n, strides, bstrides, bb,
+                                    tbricks, tgbricks, vg, seg, capacity, values_only):
+    """``pvt::coherent_union_tile_tri`` on the CPU: the plain version, on the
+    link-frame points that :func:`_link_points` writes."""
+    tables = _op_tables(_TRI_FIELDS, (lo, inv_res, n, strides, bstrides, bb, tbricks, tgbricks,
+                                      vg))
+    pts_c = _link_points(T, points, seg)
+    if values_only:
+        e = points.new_empty(0)
+        return _union_values_tri_eval(tables, pts_c), e, e.to(torch.int64), e.clone()
+    return _union_tile_tri_eval(tables, capacity, pts_c, Rb)
+
+
+def _coherent_union_lookup_tile_tri(tables: Sequence[_CoherentTables], points: torch.Tensor,
+                                    T: torch.Tensor, seg: int,
                                     Rb: Optional[torch.Tensor] = None,
-                                    points: Optional[torch.Tensor] = None,
-                                    T: Optional[torch.Tensor] = None,
                                     residual_frac: float = RESIDUAL_FRAC):
     """Multi-child TRILINEAR union on the per-tile winner design of
     :func:`_coherent_union_lookup_tile`: values lerp the 8 corners of each
@@ -1122,14 +1151,18 @@ def _coherent_union_lookup_tile_tri(tables: Sequence[_CoherentTables], pts_c: to
     candidate lerps its winner's gradient brick in the link frame, then
     rotates it with the winner's rotation; middle tiles take a
     residual lane of exact 8-corner winner rows, NaN beyond its capacity.
-    ``pts_c [C, B, FS, seg, 3]`` is ``T @ points`` on the tile layout
-    (:func:`_link_points`); ``points`` and ``T`` as for
-    :func:`_coherent_union_lookup_tile`.  Without ``Rb``: just ``val [B,
-    FS, seg]`` (no gradient; callers detach)."""
-    evaluate = partial(_union_tile_tri_eval, tuple(tables), residual_frac)
+    ``points`` and ``T`` as for :func:`_coherent_union_lookup_tile`.  The
+    forward is ``pvt::coherent_union_tile_tri`` (:mod:`ops.coherent_union_tri`:
+    the kernel CU-T on the card, which forms each link-frame point in
+    registers; :func:`_union_tile_tri_eval` after :func:`_link_points` on
+    the CPU).  Without ``Rb``: just ``val [B, FS, seg]`` (no gradient;
+    callers detach)."""
+    tables = tuple(tables)
     if Rb is None:
-        return evaluate(pts_c)
-    return _tile_winner_lookup(points, T, Rb, lambda p, t, R: evaluate(pts_c.detach(), R))
+        return coherent_union_tile_tri(tables, points, T, seg, values_only=True)
+    cap = residual_capacity(T.shape[1] * (points.shape[0] // seg), residual_frac)
+    return _tile_winner_lookup(
+        points, T, Rb, lambda p, t, R: coherent_union_tile_tri(tables, p, t, seg, R, cap))
 
 
 def _single_brick_lookup(bricks4, p, t):
@@ -1203,10 +1236,10 @@ def compose_query_coherent(children: Sequence[ObjectFrameSDF],
     NaN gradients.  ``values_only=True`` returns just ``val [B, F]``,
     detached.  Otherwise returns ``(val [B, F], grad [B, F, 3])``.
 
-    The nearest union (and every nearest route's values) hands the world
-    points and the children's transforms to its kernel, which forms each
-    link-frame point in registers; the other routes and the generic children
-    write their link-frame points first.
+    The nearest and the trilinear union (and every nearest route's values)
+    hand the world points and the children's transforms to their kernels,
+    which form each link-frame point in registers; the other routes and the
+    generic children write their link-frame points first.
 
     Counts the branches it takes in ``utils.profiling.COUNTERS``:
     ``path.coherent_trilinear`` (the lone trilinear cache or the trilinear
@@ -1239,10 +1272,12 @@ def _compose_coherent(children, obj_to_link, link_to_obj, batch, points, fast_ta
     FS = F // seg
     T_all = obj_to_link.reshape(S, batch, 4, 4)
     R_back = link_to_obj.reshape(S, batch, 4, 4)[..., :3, :3]
-    # the nearest routes' kernel forms the link-frame points itself; the
-    # other routes read every child's, [S, B, FS, seg, 3] on the tile layout
-    nearest_kernel = route == "tile_union" or (values_only and route == "single")
-    pts_all = None if nearest_kernel else _link_points(T_all, points, seg)
+    # the unions' kernels (and the nearest values only) form the link-frame
+    # points themselves; the other routes read every child's, [S, B, FS,
+    # seg, 3] on the tile layout
+    union_kernel = (route in ("tile_union", "trilinear_union")
+                    or (values_only and route == "single"))
+    pts_all = None if union_kernel else _link_points(T_all, points, seg)
     if pts_all is not None or generic:
         profiling.count("path.link_points")
     if generic_aux is None:
@@ -1283,11 +1318,10 @@ def _compose_coherent(children, obj_to_link, link_to_obj, batch, points, fast_ta
         profiling.count("path.coherent_trilinear")
         with profiling.span("pvt.trilinear"):
             if values_only:
-                best_v = _coherent_union_lookup_tile_tri(tables, of(pts_all))
+                best_v = _coherent_union_lookup_tile_tri(tables, points, of(T_all), seg)
             else:
                 best_v, best_g, win = _coherent_union_lookup_tile_tri(
-                    tables, of(pts_all), of(R_back), points, of(T_all),
-                    residual_frac=residual_frac)
+                    tables, points, of(T_all), seg, of(R_back), residual_frac)
                 best_i = child_index(win)
     elif values_only and route in ("single", "tile_union"):
         # the nearest routes' values: one union, whatever its size

@@ -6,7 +6,8 @@ program that a serving process loads and runs without the robot: no URDF,
 no mesh, no cache build.  The kernels stay in the program as registered
 custom ops (``pvt::closest_point_sweep``, ``pvt::narrow_band_query``,
 ``pvt::fk_link_transforms`` in an export made on the card, and
-``pvt::coherent_union_tile`` in a grid export), so a
+``pvt::coherent_union_tile`` or, on trilinear links,
+``pvt::coherent_union_tile_tri`` in a grid export), so a
 program loaded on the card runs the hand-written kernels, and the
 straight-through lookups keep their analytic backward
 (``ops.straight_through``), so the loaded query is differentiable w.r.t.
@@ -43,8 +44,9 @@ from pytorch_volumetric_tpu_torch.utils.batching import (
 TABLES_SUFFIX = ".tables.npz"
 
 # the modules whose custom ops an exported query calls: importing them
-# registers the ops a loaded program dispatches to (``sdf`` registers
-# ``pvt::coherent_union_tile``'s CPU kernel beside the op module's CUDA one)
+# registers the ops a loaded program dispatches to (``sdf`` registers the
+# CPU kernels of ``pvt::coherent_union_tile`` and ``pvt::coherent_union_tile_tri``
+# beside the op modules' CUDA ones)
 _OP_MODULES = ("pytorch_volumetric_tpu_torch.ops.closest_point",
                "pytorch_volumetric_tpu_torch.ops.fk",
                "pytorch_volumetric_tpu_torch.sdf",

@@ -13,7 +13,8 @@ backward's device time by the forward layer it derives from; and the deltas
 of ``utils.profiling.COUNTERS`` over that window (the kernel launches and the
 paths each call took).  Per run it prints, and appends to ``--out`` when
 given, one JSON line: the result line's metrics and ``correct``, the plain window's step ms,
-all of that per call, and the sums that check it (the layers' forward device
+all of that per call, the labelled window's device ms by layer (``trace.summarise``) beside
+it, and the sums that check it (the layers' forward device
 time against the window's, the backward's against the window's device time
 less the forward's, the idle times against the window's idle time).  The
 program's own spans also show in the card's trace as device annotations:
@@ -141,6 +142,9 @@ def report(cell: str, seed: int, line: dict) -> dict:
                  "backward_ms": bwd / calls * 1e3, "window_backward_ms": window_bwd / calls * 1e3,
                  "idle_ms": idle / calls * 1e3},
         "annotations": line["annotations"],
+        # the labelled window's layers (trace.summarise), to set beside the plain one's
+        "labelled_layer_ms": {k: s / max(run["annotated"]["calls"], 1) * 1e3
+                              for k, s in run["annotated"]["layer_s"].items()},
         "idle_gaps": line.get("breakdown", {}).get("idle_gaps")}
 
 

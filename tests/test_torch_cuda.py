@@ -446,21 +446,26 @@ def test_a_labelled_sweep_still_counts(card, tmp_path, monkeypatch):
     assert counted["kernel.closest_point_sweep"] == counted["path.link_exact"] == L
 
 
-def _union_case(device, C, seg, tmp_path, n_configs=3, n_tiles=64):
+def _union_case(device, C, seg, tmp_path, n_configs=3, n_tiles=64, route="tile_union",
+                radius=0.012):
     """The per-tile union's inputs: ``C`` cached spheres (radius 0.02,
-    0.04 voxels) centred on a circle of 0.012; one world point set of tiles
+    0.04 voxels) centred on a circle of ``radius`` (0.012), with the tables
+    of the brick ``route`` (the nearest union's, or ``"trilinear_union"``'s
+    on trilinear caches); one world point set of tiles
     within 0.05 of its centre (every ninth one spread over 0.1: it breaks
     the contract and its offsets clamp), points NaN or +-inf in one or all
     coordinates; ``T``: each sphere's frame after a random rotation about
     the centre and a shift of up to 0.003, one for each configuration;
     random rotations ``Rb``.  Returns ``(tables, points, T, Rb)``."""
+    from pytorch_volumetric_tpu_torch import sdf as tsdf
     rng = np.random.default_rng(C * 100 + seg)
+    interp = "trilinear" if route == "trilinear_union" else "nearest"
     tables = tuple(pt.CachedSDF(f"u{i}", 0.04, np.array([[-0.5, 0.5]] * 3),
-                                pt.SphereSDF(0.02, device=device),
-                                cache_path=str(tmp_path / "union.npz"))._coherent_tables(
-        with_gradonly_bricks=True) for i in range(C))
+                                pt.SphereSDF(0.02, device=device), interpolation=interp,
+                                cache_path=str(tmp_path / f"union_{interp}.npz"))._coherent_tables(
+        **tsdf._ROUTE_BRICKS[route][0]) for i in range(C))
     ang = 2 * np.pi * np.arange(C) / C + 0.3
-    shift = np.stack([0.012 * np.cos(ang), 0.012 * np.sin(ang), np.zeros(C)], 1)
+    shift = np.stack([radius * np.cos(ang), radius * np.sin(ang), np.zeros(C)], 1)
     spread = np.where(np.arange(n_tiles) % 9 == 8, 0.1, 0.01)[:, None, None]
     obj = rng.uniform(-0.05, 0.05, (n_tiles, 1, 3)) + rng.uniform(
         -1, 1, (n_tiles, seg, 3)) * spread
@@ -544,6 +549,67 @@ def test_coherent_union_checks_inputs(card, tmp_path):
     cpu_tables = tuple(t._replace(vg=t.vg.cpu()) for t in tables)
     with pytest.raises(ValueError, match="lies on cpu"):
         coherent_union_tile(cpu_tables, points, T, 12, Rb, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [2, 4, 8])
+@pytest.mark.parametrize("seg", [1, 4, 12, 27, 32, 64])
+def test_coherent_union_tri_kernel_matches_plain_on_card(card, tmp_path, C, seg):
+    """CU-T (``csrc/coherent_union_tri.cu``), which forms each link-frame
+    point from the world points and ``T`` in registers and lerps each
+    child's 5x5x5 brick rows there, against its plain version
+    (``sdf._union_tile_tri_eval``, ``sdf._union_values_tri_eval`` on
+    ``transforms.transform_points(T, points)``) on the card: ``val``,
+    ``g_obj``, ``win``, ``g_link`` and the values-only ``val`` bit for bit,
+    at the default residual fraction and at 1e-9, one launch a call."""
+    from pytorch_volumetric_tpu_torch import sdf as tsdf
+    from pytorch_volumetric_tpu_torch.ops.coherent_union_tri import coherent_union_tile_tri
+    tables, points, T, Rb = _union_case(card, C, seg, tmp_path, route="trilinear_union",
+                                        radius=0.03)
+    pts_c = tsdf._link_points(T, points, seg)
+    assert torch.isnan(pts_c).any() and torch.isinf(pts_c).any()
+    for frac in (tsdf.RESIDUAL_FRAC, 1e-9):
+        cap = tsdf.residual_capacity(pts_c.shape[1] * pts_c.shape[2], frac)
+        before = COUNTERS["kernel.coherent_union_tile_tri"]
+        out = coherent_union_tile_tri(tables, points, T, seg, Rb, cap)
+        vo = coherent_union_tile_tri(tables, points, T, seg, values_only=True)
+        torch.cuda.synchronize()
+        assert COUNTERS["kernel.coherent_union_tile_tri"] == before + 2
+        ref = tsdf._union_tile_tri_eval(tables, cap, pts_c, Rb)
+        for name, a, b in zip(("val", "g_obj", "win", "g_link"), out, ref):
+            assert _same_bits(a, b), (name, frac)
+        assert _same_bits(vo, tsdf._union_values_tri_eval(tables, pts_c)), frac
+        # the lane overflows (the smooth field's 4-point tiles here hold no
+        # four winners)
+        if C > 3 and seg > 4 and frac < 1e-6:
+            assert torch.isnan(out[3][torch.isfinite(pts_c).all(-1).all(0)]).any()
+
+
+@pytest.mark.cuda
+def test_coherent_union_tri_checks_inputs(card, tmp_path):
+    from pytorch_volumetric_tpu_torch.ops import coherent_union_tri as cut
+    tables, points, T, Rb = _union_case(card, 4, 12, tmp_path, n_tiles=4,
+                                        route="trilinear_union")
+    with pytest.raises(TypeError, match="float32"):
+        cut.coherent_union_tile_tri(tables, points, T.double(), 12, Rb, 32)
+    with pytest.raises(ValueError, match="Rb must be"):
+        cut.coherent_union_tile_tri(tables, points, T[:, :1], 12, Rb, 32)
+    with pytest.raises(ValueError, match="tensors for 3 children"):
+        cut.coherent_union_tile_tri(tables, points, T[:3], 12, Rb[:3], 32)
+    with pytest.raises(ValueError, match="T lies on cpu"):
+        cut.coherent_union_tile_tri(tables, points, T.cpu(), 12, Rb, 32)
+    with pytest.raises(ValueError, match="tables lack tgbricks"):
+        cut.coherent_union_tile_tri(tuple(t._replace(tgbricks=None) for t in tables), points,
+                                    T, 12, Rb, 32)
+    cpu_tables = tuple(t._replace(tbricks=t.tbricks.cpu()) for t in tables)
+    with pytest.raises(ValueError, match="lies on cpu"):
+        cut.coherent_union_tile_tri(cpu_tables, points, T, 12, Rb, 32)
+    for values_only in (False, True):
+        torch.library.opcheck(
+            cut.coherent_union_tile_tri_op,
+            (points, T, Rb if not values_only else points.new_empty(0),
+             *cut.op_args(tables, values_only), 12, 32, values_only),
+            test_utils=("test_schema", "test_faketensor"))
 
 
 @pytest.mark.cuda

@@ -27,16 +27,26 @@ GRID = np.array([[-0.4, 0.2], [0.0, 0.0], [-0.1, 0.5]])
 COHERENT, FALLBACK = 0.02, 0.03
 
 
-@pytest.fixture(scope="module")
-def arm(tmp_path_factory):
+def _arm(tmp_path_factory, interpolation="nearest"):
     d = str(tmp_path_factory.mktemp("arm"))
     urdf, end = make_serial_arm(d, num_joints=3, segments=8, rings=2)
     robot = pt.RobotSDF(pt.build_serial_chain_from_urdf(open(urdf).read(), end, device=CPU),
                         path_prefix=d, link_sdf_cls=pt.cache_link_sdf_factory(
-                            resolution=0.04, padding=0.3,
+                            resolution=0.04, padding=0.3, interpolation=interpolation,
                             cache_path=str(tmp_path_factory.mktemp("cache") / "c.npz")))
     q = torch.as_tensor(np.random.default_rng(0).uniform(-1, 1, (3, 3)).astype(np.float32))
     return robot, q
+
+
+@pytest.fixture(scope="module")
+def arm(tmp_path_factory):
+    return _arm(tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def tri_arm(tmp_path_factory):
+    """The arm on trilinear caches: its grid takes the trilinear union."""
+    return _arm(tmp_path_factory, "trilinear")
 
 
 CALLS = {
@@ -154,8 +164,8 @@ def balls(tmp_path_factory):
 
 
 # the children of each composition by name, and the branches its coherent
-# query counts; every route but the nearest union writes link-frame points
-# (path.link_points), and so does a generic child beside the union; a
+# query counts; every route but the two unions writes link-frame points
+# (path.link_points), and so does a generic child beside a union; a
 # trilinear cache on the generic sub-path counts path.link_trilinear
 LINKS = {"path.link_points": 1}
 TRILINEAR_LINK = {"path.link_trilinear": 1}
@@ -163,8 +173,7 @@ BRANCHES = {
     "single": ([("nearest", 0)], {"path.coherent_single": 1, **LINKS}),
     "tile_union": ([("nearest", 0), ("nearest", 1)], {"path.coherent_tile_union": 1}),
     "trilinear": ([("trilinear", 0)], {"path.coherent_trilinear": 1, **LINKS}),
-    "trilinear_union": ([("trilinear", 0), ("trilinear", 1)],
-                        {"path.coherent_trilinear": 1, **LINKS}),
+    "trilinear_union": ([("trilinear", 0), ("trilinear", 1)], {"path.coherent_trilinear": 1}),
     "generic": (["sphere", "box"], {"path.coherent_generic": 1, **LINKS}),
     "mixed": (["box", ("nearest", 0)],
               {"path.coherent_single": 1, "path.coherent_generic": 1, **LINKS}),
@@ -223,16 +232,20 @@ def test_the_coherent_plan_routes_as_the_counters_say(balls, name):
     assert len(tsdf.coherent_generic_aux(children)) == len(plan.generic)
 
 
-@pytest.mark.parametrize("values_only", [False, True])
-def test_the_arm_grid_writes_no_link_points(arm, values_only):
-    """The arm's grid query takes the nearest union, whose kernel forms the
-    link-frame points itself: ``path.link_points`` stays 0, forward and
-    values only."""
-    robot, q = arm
+# the arm's cases keep the ids they had before the trilinear arm's
+@pytest.mark.parametrize("fixture,values_only",
+                         [("arm", False), ("arm", True), ("tri_arm", False), ("tri_arm", True)],
+                         ids=["False", "True", "tri_arm-False", "tri_arm-True"])
+def test_the_arm_grid_writes_no_link_points(request, fixture, values_only):
+    """The arm's grid query takes the nearest union, or on trilinear caches
+    the trilinear union, whose kernel forms the link-frame points itself:
+    ``path.link_points`` stays 0, forward and values only."""
+    robot, q = request.getfixturevalue(fixture)
+    route = {"arm": "path.coherent_tile_union", "tri_arm": "path.coherent_trilinear"}[fixture]
     before = profiling.COUNTERS.copy()
     robot.query_grid(q, GRID, COHERENT, values_only=values_only)
     counted = profiling.COUNTERS - before
-    assert counted["path.coherent_tile_union"] == 1 and counted["path.link_points"] == 0
+    assert counted[route] == 1 and counted["path.link_points"] == 0
 
 
 @pytest.mark.parametrize("name", ["mixed_union", "mixed"])
